@@ -1,0 +1,163 @@
+"""Hash-defined G(n, p), materialised on the device as a bit-packed adjacency.
+
+Counterpart of ``mcmc_colorer_tpu/ops/hashgen.py``.  The edge set is a
+function of (seed, i, j):
+
+    edge(i, j)  :=  mix32(seed, min(i, j), max(i, j)) < floor(p * 2**32)
+
+so the device builds A without any upload, and the host's C++ enumerator
+(``native/importer.cpp:mc_generate_er_hash``) derives the same graph for
+checking.  The words equal the JAX package's uint32 words bit for bit.
+
+torch has no logical right shift and no unsigned compare for 32-bit
+integers, so the mixer works on ``int32`` tensors holding uint32 bit
+patterns:
+
+- multiplies wrap modulo 2**32 in int32 exactly as in uint32 (the low
+  32 bits of a product do not depend on signedness);
+- a logical shift is the arithmetic shift with the sign-extended bits
+  masked off;
+- ``h < t`` unsigned is ``(h ^ 0x80000000) < (t ^ 0x80000000)`` signed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mcmc_colorer_tpu_torch.ops.dense_adj import PACKED_K_CHUNK, packed_adj_words
+
+# murmur3 fmix32 constants (public domain)
+_C1 = 0x85EBCA6B
+_C2 = 0xC2B2AE35
+_C3 = 0x27D4EB2F
+_GOLD = 0x9E3779B9
+_SIGN = 0x80000000
+
+
+def _i32(x: int) -> int:
+    """uint32 value -> the int32 with the same bit pattern."""
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x & _SIGN else x
+
+
+def er_threshold(p: float) -> int:
+    """uint32 acceptance threshold for Bernoulli(p)."""
+    return min(0xFFFFFFFF, max(0, int(p * 4294967296.0)))
+
+
+def _srl(h: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int32 bit patterns."""
+    return (h >> s) & ((1 << (32 - s)) - 1)
+
+
+def _mix(seed: int, i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """mix32(seed, i, j) on int32 tensors of uint32 bit patterns."""
+    h = (i ^ _i32(seed ^ _GOLD)) * _i32(_C1)
+    h = h ^ _srl(h, 13)
+    h = (h ^ j) * _i32(_C2)
+    h = h ^ _srl(h, 16)
+    h = h * _i32(_C3)
+    return h ^ _srl(h, 15)
+
+
+def hash_edges_reference(n: int, p: float, seed: int) -> np.ndarray:
+    """Host numpy enumeration of the hash graph's upper-triangle edges
+    (i < j), in row-major order: the small-n oracle."""
+    t = np.uint32(er_threshold(p))
+    i, j = np.triu_indices(n, k=1)
+    i32, j32 = i.astype(np.uint32), j.astype(np.uint32)
+    with np.errstate(over="ignore"):
+        h = np.uint32(seed & 0xFFFFFFFF) ^ np.uint32(_GOLD)
+        h = (h ^ i32) * np.uint32(_C1)
+        h ^= h >> np.uint32(13)
+        h = (h ^ j32) * np.uint32(_C2)
+        h ^= h >> np.uint32(16)
+        h = h * np.uint32(_C3)
+        h ^= h >> np.uint32(15)
+    keep = h < t
+    return np.stack([i[keep], j[keep]], axis=1)
+
+
+def _gen_packed_rows(
+    r0: int, n: int, t: int, seed32: int, row_chunk: int, words: int,
+    out: torch.Tensor,
+) -> None:
+    """Writes rows [r0, r0 + row_chunk) of the packed adjacency into
+    ``out`` ([row_chunk, words] int32).  Word w (window w // 128, lane
+    w % 128) bit b holds column (w // 128) * 4096 + b * 128 + w % 128."""
+    dev = out.device
+    rows = r0 + torch.arange(row_chunk, dtype=torch.int32, device=dev)[:, None]
+    w = torch.arange(words, dtype=torch.int32, device=dev)[None, :]
+    j_base = (w // 128) * PACKED_K_CHUNK + w % 128
+    t_flip = _i32(t ^ _SIGN)
+    out.zero_()
+    for b in range(32):
+        j = j_base + 128 * b
+        lo = torch.minimum(rows, j)
+        hi = torch.maximum(rows, j)
+        edge = (
+            ((_mix(seed32, lo, hi) ^ _i32(_SIGN)) < t_flip)
+            & (rows != j)
+            & (j < n)
+            & (rows < n)
+        )
+        out |= edge.to(torch.int32) << b  # in place: accumulates the 32 bits
+
+
+def er_packed_on_device(
+    n: int, p: float, seed: int, n_pad: int, row_chunk: int = 2048,
+    device="cpu",
+) -> torch.Tensor:
+    """[n_pad, words] int32 bit-packed adjacency of the hash graph, built
+    on ``device`` in bands of ``row_chunk`` rows written in place."""
+    if n_pad % row_chunk:
+        raise ValueError(f"row_chunk must divide n_pad ({n_pad})")
+    if n > n_pad:
+        raise ValueError(f"n={n} exceeds n_pad={n_pad}")
+    words = packed_adj_words(n_pad)
+    adj = torch.empty((n_pad, words), dtype=torch.int32, device=device)
+    t, seed32 = er_threshold(p), seed & 0xFFFFFFFF
+    for r0 in range(0, n_pad, row_chunk):
+        _gen_packed_rows(
+            r0, n, t, seed32, row_chunk, words, adj[r0:r0 + row_chunk]
+        )
+    return adj
+
+
+_PACKED_CACHE: dict = {}
+
+
+def er_packed_on_device_cached(
+    n: int, p: float, seed: int, n_pad: int, row_chunk: int = 2048,
+    device="cpu",
+) -> torch.Tensor:
+    """Single-slot cache over :func:`er_packed_on_device`, so colorers of
+    the same hash graph share one device adjacency."""
+    ck = (n, float(p), int(seed), n_pad, str(torch.device(device)))
+    if ck in _PACKED_CACHE:
+        return _PACKED_CACHE[ck]
+    _PACKED_CACHE.clear()  # free the old graph before building the new one
+    a = er_packed_on_device(n, p, seed, n_pad, row_chunk, device=device)
+    _PACKED_CACHE[ck] = a
+    return a
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Per-element popcount of int32 bit patterns (SWAR; torch has no
+    integer popcount).  The masks keep bit 31 clear, so the arithmetic
+    shifts are safe."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return _srl(x * 0x01010101, 24)
+
+
+def degrees_from_packed(adj: torch.Tensor, row_chunk: int = 8192) -> torch.Tensor:
+    """[n_pad] int32 per-row popcount of the packed adjacency, in row
+    bands so the temporaries stay small."""
+    out = torch.empty((adj.shape[0],), dtype=torch.int32, device=adj.device)
+    for r0 in range(0, adj.shape[0], row_chunk):
+        blk = adj[r0:r0 + row_chunk]
+        out[r0:r0 + blk.shape[0]] = popcount32(blk).sum(1, dtype=torch.int32)
+    return out

@@ -1,0 +1,226 @@
+"""The port's resident colorer against the JAX package's.
+
+- Teacher-forced chain: JAX's ``_chain_segment_matmul`` is stepped one
+  body at a time; from each JAX state, brought over with
+  ``interop.carry_from_numpy``, the port runs one body on the uniform
+  JAX drew for it.  Integer state (iteration, exit flag, conflict count,
+  trace) must be equal; colours and taboo follow the sampling rule of
+  ``test_torch_sweep.py`` (differences only at CDF-boundary vertices,
+  at most 0.1 %), since XLA and torch add the float32 prefix sums in
+  different orders.
+- Whole slice: the port's own run (its own generator) must end with a
+  valid colouring of the same graph as JAX's.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mcmc_colorer_tpu.config import MCMCParams as JParams
+from mcmc_colorer_tpu.config import ProposalKind as JKind
+from mcmc_colorer_tpu.models import mcmc as jm
+from mcmc_colorer_tpu.models.mcmc_resident import ResidentMCMCColorer as JResident
+from mcmc_colorer_tpu.ops import dense_adj as jd
+from mcmc_colorer_tpu.ops.neighbor import color_histogram as j_hist
+from mcmc_colorer_tpu.utils import rng as rngu
+
+from mcmc_colorer_tpu_torch import interop
+from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+from mcmc_colorer_tpu_torch.models import mcmc as tm
+from mcmc_colorer_tpu_torch.models.base import check_coloring
+from mcmc_colorer_tpu_torch.models.mcmc_resident import ResidentMCMCColorer
+from mcmc_colorer_tpu_torch.ops import dense_adj as td
+
+torch.set_num_threads(2)
+
+N, P, GRAPH_SEED = 1200, 0.04, 21
+REPO = Path(__file__).resolve().parents[1]
+
+
+class Replay:
+    """A uniform source that hands out pre-drawn JAX uniforms in order."""
+
+    def __init__(self, draws):
+        self.draws = list(draws)
+
+    def next(self, n):
+        u = self.draws.pop(0)
+        assert u.shape == (n,), (u.shape, n)
+        return torch.from_numpy(u)
+
+
+def jax_uniform(key, n):
+    return np.array(jax.random.uniform(key, (n,), dtype=jnp.float32))
+
+
+@pytest.fixture(scope="module")
+def jax_colorer():
+    return JResident(N, P, graph_seed=GRAPH_SEED)
+
+
+def tight(max_degree):
+    return dict(n_colors=max(4, max_degree // 2), tailcut=True, max_iterations=60)
+
+
+# Hastings at λ = 1 rejects every early proposal and at λ = 25 accepts
+# some: three bodies each exercise both branches of the acceptance test
+HASTINGS = {
+    "hastings_reject": dict(hastings=True, lambda_=1.0, max_iterations=3),
+    "hastings_accept": dict(hastings=True, lambda_=25.0, max_iterations=3),
+}
+
+
+def jax_cdf(c, carry):
+    """JAX's cdf for the body that starts from ``carry``."""
+    colors = carry[0]
+    params = c.params
+    nc = jd.neighbor_color_counts(c.adj, colors, params.n_colors, c.ell.node_mask)
+    hist = j_hist(colors, params.n_colors, c.ell.node_mask)
+    p_eff = jm._variant_distribution(params, hist, N)
+    p_pad = jnp.zeros((nc.shape[1],), jnp.float32).at[: params.n_colors].set(p_eff)
+    q = jm._proposal_q(colors, nc > 0, params, p_pad, n_colors=params.n_colors)
+    return np.asarray(jnp.cumsum(q, axis=1))
+
+
+@pytest.mark.parametrize("case", ["default", "tight", *HASTINGS])
+def test_teacher_forced_chain(jax_colorer, case):
+    from test_torch_sweep import assert_boundary_only
+
+    if case == "default":
+        c = jax_colorer
+    else:
+        kw = tight(jax_colorer.max_degree) if case == "tight" else dict(
+            n_colors=jax_colorer.params.n_colors, tailcut=True, **HASTINGS[case]
+        )
+        c = JResident(
+            N, P, graph_seed=GRAPH_SEED,
+            params=JParams(proposal=JKind.BALANCE_DYNAMIC, **kw),
+        )
+    jp = c.params
+    pt = MCMCParams(
+        n_colors=jp.n_colors, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True,
+        max_iterations=jp.max_iterations, hastings=jp.hastings, lambda_=jp.lambda_,
+    )
+    adj_t = interop.adjacency_from_jax(np.asarray(c.adj))
+    n_pad = adj_t.shape[0]
+    block = tm.choose_block_size(N, pt.n_colors)
+
+    key = rngu.for_repetition(rngu.root_key(3), 0)
+    carry = c._jit_init(c.ell, key)
+    _, k_init = jax.random.split(key)
+    init_t = tm._init_colors(n_pad, N, pt, Replay([jax_uniform(k_init, n_pad)]), "cpu")
+    assert np.array_equal(init_t.numpy(), np.asarray(carry[0]))
+
+    bodies, accepted = 0, 0
+    while not bool(carry[6]) and int(carry[3]) < jp.max_iterations:
+        if jp.hastings:
+            _, k_u, k_acc = jax.random.split(carry[2], 3)
+            u_acc = np.array([jax.random.uniform(k_acc, (), dtype=jnp.float32)])
+        else:
+            _, k_u = jax.random.split(carry[2])
+        unif = jax_uniform(k_u, n_pad)
+        source = Replay([unif.copy()] + ([u_acc] if jp.hastings else []))
+        before = np.asarray(carry[0])
+        state = interop.carry_from_numpy(*(np.asarray(carry[i]) for i in (0, 1, 3, 4, 5, 6)))
+        got = tm._chain_body(adj_t, state, params=pt, block=block, n_nodes=N, source=source)
+        assert not source.draws  # one draw per body, the last "done" body too
+        cdf = jax_cdf(c, carry)
+        carry = c._jit_segment(c.ell, c.adj, carry, jnp.int32(1))
+        want = interop.carry_from_numpy(*(np.asarray(carry[i]) for i in (0, 1, 3, 4, 5, 6)))
+        assert (got.rip, got.conf_last, got.done) == (want.rip, want.conf_last, want.done)
+        assert np.array_equal(got.trace, want.trace)
+        mism = assert_boundary_only(got.colors.numpy(), want.colors.numpy(), unif, cdf, N)
+        keep = np.ones(n_pad, bool)
+        keep[mism] = False
+        assert np.array_equal(got.taboo.numpy()[keep], want.taboo.numpy()[keep])
+        accepted += not np.array_equal(want.colors.numpy(), before)
+        bodies += 1
+    assert bodies >= 2
+    if case in HASTINGS:
+        assert (accepted > 0) == (case == "hastings_accept")
+
+
+def test_whole_slice_default_palette(jax_colorer):
+    c = ResidentMCMCColorer(N, P, GRAPH_SEED)
+    assert (c.n_edges, c.max_degree, c.params.n_colors) == (
+        jax_colorer.n_edges, jax_colorer.max_degree, jax_colorer.params.n_colors
+    )
+    assert np.array_equal(c.host_degrees, jax_colorer.host_degrees)
+    r = c.run(seed=3)
+    assert r.extra["final_conflicts"] == 0
+    assert r.colors.shape == (N,) and r.colors.max() < c.params.n_colors
+    g = c.host_graph()
+    assert g.n_edges == c.n_edges
+    assert check_coloring(g, r.colors)
+    s = c.stats_graph()
+    assert (s.n, s.n_edges, s.max_degree) == (N, c.n_edges, c.max_degree)
+
+
+def test_whole_slice_tight_palette():
+    """Mirrors tests/test_resident.py:test_resident_tailcut_tight_palette."""
+    c0 = ResidentMCMCColorer(N, P, graph_seed=GRAPH_SEED)
+    p = MCMCParams(proposal=ProposalKind.BALANCE_DYNAMIC, **tight(c0.max_degree))
+    c = ResidentMCMCColorer(N, P, graph_seed=GRAPH_SEED, params=p)
+    r = c.run(seed=5)
+    assert r.extra["final_conflicts"] == 0
+    assert r.extra["tailcut_rounds"] >= 1
+    assert check_coloring(c.host_graph(), r.colors)
+
+
+def test_interop_round_trip(jax_colorer):
+    a = np.asarray(jax_colorer.adj)
+    assert np.array_equal(interop.adjacency_to_jax(interop.adjacency_from_jax(a)), a)
+    carry = jax_colorer._jit_init(jax_colorer.ell, jax.random.key(1))
+    fields = dict(
+        colors=np.asarray(carry[0]), taboo=np.asarray(carry[1]) + 2,
+        iteration=np.int32(7), conf_last=np.int32(42),
+        trace=np.arange(jax_colorer.params.max_iterations + 1, dtype=np.int32),
+        done=np.bool_(True),
+    )
+    back = interop.carry_to_numpy(interop.carry_from_numpy(**fields))
+    assert back.keys() == fields.keys()
+    for k, v in fields.items():
+        assert np.array_equal(back[k], v), k
+
+
+def test_unported_paths_raise(monkeypatch):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        ResidentMCMCColorer(300, 0.05, 1, n_chains=2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        ResidentMCMCColorer(300, 0.05, 1, active=True)
+    c = ResidentMCMCColorer(300, 0.05, 1)
+    with pytest.raises(NotImplementedError, match="checkpoints"):
+        c.run(seed=1, checkpoint_path="x")
+    monkeypatch.setenv("MCMC_COLORER_TRACE", "1")
+    with pytest.raises(NotImplementedError, match="TRACE"):
+        c.run(seed=1)
+    with pytest.raises(ValueError, match="packed-adjacency HBM cap"):
+        ResidentMCMCColorer(td.PACKED_ADJ_MAX_N + 1, 0.001, graph_seed=1)
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, load no jax and nothing
+    of the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "BAD = ('jax', 'jaxlib', 'mcmc_colorer_tpu')\n"
+        "import mcmc_colorer_tpu_torch as m\n"
+        "for x in pkgutil.walk_packages(m.__path__, m.__name__ + '.'):\n"
+        "    importlib.import_module(x.name)\n"
+        "import chip_smoke\n"
+        "top = [k.split('.')[0] for k in sys.modules]\n"
+        "print(top.count('mcmc_colorer_tpu_torch'), [k for k in top if k in BAD])\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120, check=True,
+    ).stdout.split()
+    assert int(out[0]) > 10 and out[1] == "[]"
