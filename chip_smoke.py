@@ -5,25 +5,39 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds every kernel of the resident main path from ``csrc/``, holds
-each against its plain PyTorch version on the card, checks the hash
-generator word for word, then drives the main path once at the bench
-configuration, ER(n=100k, p=0.01) with balance-dynamic proposals and the
-tailcut, and checks the colouring against the host's C++ re-derivation
-of the graph.  A tight-palette run exercises the tailcut.  Any failed
-check raises, so the exit code is non-zero.  Without CUDA, or outside a
+It builds every kernel from ``csrc/`` (one nvcc per source, all started
+together) and holds each against its plain PyTorch version on the card:
+K1 (bit-packed NC) exactly, K3 (masked first fit) exactly, K2 (fused
+resample sweep) with exact conflict counts and sampled colours that may
+differ only at CDF-boundary vertices.  Then it drives both main paths
+through the library surface:
+
+- slice 1, the resident path: the hash generator word for word, ER(n=100k,
+  p=0.01) with balance-dynamic proposals and the tailcut, checked against
+  the host's C++ re-derivation, and a tight-palette run;
+- slice 2, the ELL path: BASELINE config 3, ER(n=1M, p=0.001) from the
+  native sampler at numColRatio 1, 2 and 4, plus GreedyFF; config 4, a
+  BA(50k, 8) graph written in the network-repository layout, converted,
+  loaded by the native importer and coloured; and the K2 chain beside the
+  K1 chain on the ER(100k, 0.01) graph of slice 1.
+
+Every colouring is checked with ``check_coloring``.  Any failed check
+raises, so the exit code is non-zero.  Without CUDA, or outside a
 checkout, it exits non-zero before printing any result.
 
 The last line of standard output is one JSON object naming the device;
-the line before it holds the kernels' launch counts, errors and times.
+the line before it is the card's name and power limit; the one before
+that holds the kernels' launch counts, errors and times.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -35,6 +49,14 @@ ROOT = Path(__file__).resolve().parent
 K1_SHAPES = [(1500, 0.05, 150), (4700, 0.01, 1100), (640, 0.3, 64), (3000, 0.5, 8000)]
 BENCH_N, BENCH_P = 100_000, 0.01
 TIMED_RUNS = 10
+# BASELINE.md config 3 (scripts/run_baseline_configs.py:140-194) and
+# config 4 (:196-240)
+CONFIG3_N, CONFIG3_P, CONFIG3_SEED, CONFIG3_RATIOS = 1_000_000, 0.001, 3, (1.0, 2.0, 4.0)
+CONFIG4_N, CONFIG4_M, CONFIG4_SEED = 50_000, 8, 4
+# K2's sampled colour may differ from the plain version's only where the
+# uniform lies within BOUNDARY_RTOL (relative) of the plain cdf at the
+# plain colour or the one before it, at no more than this share of rows
+BOUNDARY_RTOL, BOUNDARY_MAX_FRACTION = 1e-5, 1e-3
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -205,7 +227,7 @@ def phase_main(device, n=BENCH_N, p=BENCH_P, graph_seed=0, seed=5):
         f"phase 4 check: host C++ re-derivation {host_s:.3f} s, "
         f"check {check_s:.3f} s: valid, 0 conflicts"
     )
-    return r, c, launches
+    return r, c, launches, g
 
 
 def phase_tight(device, n=20_000, p=0.01, graph_seed=3, seed=5):
@@ -234,6 +256,349 @@ def phase_tight(device, n=20_000, p=0.01, graph_seed=3, seed=5):
     _require(valid and x["final_conflicts"] == 0, "tight palette: invalid colouring")
 
 
+def build_kernels():
+    """Start every kernel's nvcc together; returns {name: (module, build)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mcmc_colorer_tpu_torch.ops import firstfit as k3
+    from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+
+    mods = {"K1": k1, "K2": k2, "K3": k3}
+    with ThreadPoolExecutor(len(mods)) as pool:
+        futs = {k: pool.submit(m.load_kernel) for k, m in mods.items()}
+        return {k: (mods[k], f.result()) for k, f in futs.items()}
+
+
+def _ptxas(built) -> str:
+    return " | ".join(
+        ln.strip() for ln in built.log.splitlines() if "registers" in ln or "smem" in ln
+    )
+
+
+def _real_colors(n: int, n_pad: int, n_colors: int, gen, device):
+    """Colours in [0, n_colors) for real vertices, n_colors for phantoms."""
+    c = _random_colors(n, n_pad, n_colors, gen, device)
+    c[n:] = n_colors
+    return c
+
+
+def setup_config3(device):
+    """BASELINE config 3's graph from the native sampler and its ELL on the
+    card, built there from the CSR; returns (graph, ell, band rows)."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.graph.container import degree_pad_for
+    from mcmc_colorer_tpu_torch.graph.generate import erdos_renyi
+    from mcmc_colorer_tpu_torch.models.mcmc import _fused_super_block, choose_block_size
+
+    t0 = time.perf_counter()
+    g = erdos_renyi(CONFIG3_N, CONFIG3_P, seed=CONFIG3_SEED)
+    gen_s = time.perf_counter() - t0
+    stats = {}
+    t0 = time.perf_counter()
+    ell = g.to_ell(
+        pad_nodes_to=choose_block_size(g.n, g.max_degree),
+        pad_degree_to=degree_pad_for(g, "pallas"),
+        device=device, device_build=True, build_stats=stats,
+    )
+    torch.cuda.synchronize()
+    ell_s = time.perf_counter() - t0
+    sb = _fused_super_block(ell.n_pad, ell.d_pad)
+    print(
+        f"phase 9 setup: ER({CONFIG3_N}, {CONFIG3_P}) seed {CONFIG3_SEED}, native "
+        f"sampler: n={g.n} m={g.n_edges} max_degree={g.max_degree}, gen {gen_s:.3f} s; "
+        f"ELL [{ell.n_pad}, {ell.d_pad}] built on the card from the CSR "
+        f"({stats['bands']} bands, {stats['upload_bytes']} bytes uploaded) {ell_s:.3f} s; "
+        f"band rows {sb}"
+    )
+    return g, ell, sb
+
+
+def _k3_check(k3, nc, allow, n_colors, cur, label):
+    got = k3.first_fit_cuda(nc, allow, n_colors, cur)
+    want = k3.first_fit_reference(nc, allow, n_colors, cur)
+    err = int((got - want).abs().max()) if got.numel() else 0
+    _require(err == 0, f"K3 differs from its plain version at {label}: {err}")
+    print(f"phase 7 K3 {label}: exact ({int((got >= 0).sum())} of {got.numel()} rows found a colour)")
+    return err
+
+
+def phase_k3(device, ell3, sb):
+    """K3 against its plain version, exactly; timed at the config-3 band."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.graph.generate import erdos_renyi
+    from mcmc_colorer_tpu_torch.ops import firstfit as k3
+    from mcmc_colorer_tpu_torch.ops.neighbor import neighbor_colors
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    i32 = torch.int32
+    # the shape of tests/test_pallas_firstfit.py:test_first_fit_kernel_matches_xla
+    g = erdos_renyi(500, 0.05, seed=3)
+    ell = g.to_ell(pad_nodes_to=128, device=device)
+    ncol = g.max_degree + 1
+    colors = torch.randint(-1, ncol, (ell.n_pad,), generator=gen, device=device, dtype=i32)
+    allow = torch.ones((ncol,), dtype=i32, device=device)
+    allow[::7] = 0
+    err = _k3_check(k3, neighbor_colors(ell.neighbors, colors), allow, ncol, colors,
+                    f"ER(500, 0.05) n_colors={ncol} allow+cur")
+    # the shape of test_chunked_first_fit_wide_palette: 4500 colours
+    nc = torch.randint(-1, 4500, (256, 40), generator=gen, device=device, dtype=i32)
+    allow = torch.randint(0, 2, (4500,), generator=gen, device=device, dtype=i32)
+    allow[:64] = 0
+    cur = torch.randint(-1, 4500, (256,), generator=gen, device=device, dtype=i32)
+    err = max(err, _k3_check(k3, nc, allow, 4500, cur, "4500 colours allow+cur"))
+    # config 3: one band of the main path's tailcut, random colours
+    ncol = ell3.max_degree
+    colors = _real_colors(ell3.n_nodes, ell3.n_pad, ncol, gen, device)
+    nc = neighbor_colors(ell3.neighbors[:sb], colors)
+    allow = torch.ones((ncol,), dtype=i32, device=device)
+    err = max(err, _k3_check(k3, nc, allow, ncol, None, f"config-3 band [{sb}, {ell3.d_pad}] n_colors={ncol}"))
+    k_ms = _median_ms(lambda: k3.first_fit_cuda(nc, allow, ncol))
+    p_ms = _median_ms(lambda: k3.first_fit_reference(nc, allow, ncol))
+    print(f"phase 7 K3 config-3 band: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
+          f"(median of {TIMED_RUNS}, CUDA events)")
+    return err, k_ms, p_ms
+
+
+def _k2_inputs(ell, params, gen, device, taboo_max: int, rows: int | None = None):
+    """nc, neighbors, cur, taboo, ids, unif, p_eff for a sweep over the
+    first ``rows`` rows of ``ell`` (all by default), random colours."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.models.mcmc import _needs_histogram, _variant_distribution
+    from mcmc_colorer_tpu_torch.ops.neighbor import color_histogram, neighbor_colors
+
+    rows = rows or ell.n_pad
+    colors = _real_colors(ell.n_nodes, ell.n_pad, params.n_colors, gen, device)
+    taboo = torch.randint(0, taboo_max + 1, (rows,), generator=gen, device=device,
+                          dtype=torch.int32)
+    unif = torch.rand((rows,), generator=gen, device=device)
+    hist = (color_histogram(colors, params.n_colors, ell.node_mask)
+            if _needs_histogram(params) else None)
+    p_eff = _variant_distribution(params, hist, ell.n_nodes, device)
+    ids = torch.arange(rows, dtype=torch.int32, device=device)
+    neigh = ell.neighbors[:rows]
+    return (neighbor_colors(neigh, colors), neigh, colors[:rows].contiguous(), taboo,
+            ids, unif, p_eff)
+
+
+def _k2_check(k2, args, params, label):
+    """K2 against its plain version: exact conflicts, samples equal but at
+    CDF-boundary rows, new_taboo equal and qstar within rtol 1e-5 where
+    the samples agree.  Returns (boundary fraction, max |qstar error|)."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.models.mcmc import _proposal_q
+    from mcmc_colorer_tpu_torch.ops.neighbor import occupancy_matrix
+
+    nc, neigh, cur, taboo, ids, unif, p_eff = args
+    got = k2.resample_sweep_cuda(*args, params.epsilon, params)
+    want = k2.resample_sweep_reference(*args, params.epsilon, params)
+    _require(int(got[3]) == int(want[3]),
+             f"K2 conflicts {int(got[3])} vs plain {int(want[3])} at {label}")
+    rows = nc.shape[0]
+    mism = (got[0] != want[0]).nonzero()[:, 0]
+    frac = mism.numel() / rows
+    _require(frac <= BOUNDARY_MAX_FRACTION,
+             f"K2 samples differ at {mism.numel()} of {rows} rows at {label}")
+    if mism.numel():
+        eps = torch.tensor(params.epsilon, dtype=torch.float32, device=nc.device)
+        q = _proposal_q(cur[mism], occupancy_matrix(nc[mism], params.n_colors), params,
+                        p_eff, eps, params.n_colors)
+        cdf = torch.cumsum(q, dim=1)
+        k = want[0][mism].to(torch.int64)
+        u = unif[mism]
+        near = (u - cdf.gather(1, k[:, None])[:, 0]).abs() <= BOUNDARY_RTOL * u
+        before = cdf.gather(1, (k - 1).clamp(min=0)[:, None])[:, 0]
+        near |= (k >= 1) & ((u - before).abs() <= BOUNDARY_RTOL * u)
+        _require(bool(near.all()), f"K2 differs off a CDF boundary at {label}")
+    keep = got[0] == want[0]
+    _require(torch.equal(got[2][keep], want[2][keep]), f"K2 new_taboo differs at {label}")
+    qerr = (got[1] - want[1]).abs()[keep]
+    rel = (qerr / want[1].abs()[keep].clamp(min=1e-30)).max()
+    _require(float(rel) <= 1e-5, f"K2 qstar off by {float(rel):.3g} (relative) at {label}")
+    print(f"phase 8 K2 {label}: conflicts {int(got[3])} exact; {mism.numel()} boundary "
+          f"rows of {rows}; qstar max rel err {float(rel):.3g}")
+    return frac, float(qerr.max())
+
+
+def phase_k2(device, ell3, sb):
+    """K2 against its plain version at the test shapes and the config-3
+    band; timed at the latter."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.graph.generate import erdos_renyi
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    frac, qerr = 0.0, 0.0
+    # tests/test_pallas_resample.py:test_pallas_matches_xla_sweep
+    g = erdos_renyi(500, 0.05, seed=3)
+    ell = g.to_ell(pad_nodes_to=128, device=device)
+    for kind in (ProposalKind.STANDARD, ProposalKind.BALANCE_DYNAMIC,
+                 ProposalKind.DECREASE_EXP, ProposalKind.BALANCE_LINE):
+        for taboo_iters in (0, 3):
+            p = MCMCParams(n_colors=g.max_degree, proposal=kind,
+                           taboo_iterations=taboo_iters, epsilon=1e-4)
+            f, e = _k2_check(k2, _k2_inputs(ell, p, gen, device, 1), p,
+                             f"ER(500, 0.05) {kind.value} taboo {taboo_iters}")
+            frac, qerr = max(frac, f), max(qerr, e)
+    # test_chunked_kernel_wide_palette_matches_xla: 4500 colours
+    g = erdos_renyi(512, 0.05, seed=3, use_native=False)
+    ell = g.to_ell(pad_nodes_to=128, device=device)
+    for kind in (ProposalKind.STANDARD, ProposalKind.BALANCE_DYNAMIC,
+                 ProposalKind.DECREASE_EXP):
+        p = MCMCParams(n_colors=4500, proposal=kind, taboo_iterations=2, epsilon=1e-6)
+        f, e = _k2_check(k2, _k2_inputs(ell, p, gen, device, 1), p,
+                         f"ER(512, 0.05) 4500 colours {kind.value}")
+        frac, qerr = max(frac, f), max(qerr, e)
+    # config 3: one band of the main path's sweep, balance-dynamic
+    p = MCMCParams(n_colors=ell3.max_degree, proposal=ProposalKind.BALANCE_DYNAMIC)
+    args = _k2_inputs(ell3, p, gen, device, 0, rows=sb)
+    f, e = _k2_check(k2, args, p, f"config-3 band [{sb}, {ell3.d_pad}] n_colors={p.n_colors}")
+    frac, qerr = max(frac, f), max(qerr, e)
+    k_ms = _median_ms(lambda: k2.resample_sweep_cuda(*args, p.epsilon, p))
+    p_ms = _median_ms(lambda: k2.resample_sweep_reference(*args, p.epsilon, p))
+    print(f"phase 8 K2 config-3 band: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
+          f"(median of {TIMED_RUNS}, CUDA events)")
+    return frac, qerr, k_ms, p_ms
+
+
+def phase_config3(device, g):
+    """The slice-2 main path at BASELINE config 3: MCMCColorer (K2 sweep,
+    K3 tailcut) at numColRatio 1, 2, 4, then GreedyFF (K3).  Returns the
+    K2 and K3 launches of these runs."""
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.models.base import check_coloring
+    from mcmc_colorer_tpu_torch.models.greedy_ff import GreedyFFColorer
+    from mcmc_colorer_tpu_torch.models.mcmc import MCMCColorer
+    from mcmc_colorer_tpu_torch.ops import firstfit as k3
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+
+    k2_total = k3_total = 0
+    for ratio in CONFIG3_RATIOS:
+        n_col = max(4, int(g.max_degree / ratio))
+        params = MCMCParams(n_colors=n_col, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
+        k2.launches = k3.launches = 0
+        c = MCMCColorer(g, params, backend="pallas", device=device)
+        r = c.run(seed=31)
+        l2, l3 = k2.launches, k3.launches
+        k2_total, k3_total = k2_total + l2, k3_total + l3
+        x = r.extra
+        t0 = time.perf_counter()
+        valid = check_coloring(g, r.colors)
+        check_s = time.perf_counter() - t0
+        print(
+            f"phase 9 config3 ratio={ratio} n_colors={n_col}: setup (ELL) "
+            f"{c.setup_seconds:.3f} s; iterations {r.iterations}, sweeps {x['sweeps']}, "
+            f"chain {x['chain_seconds']:.3f} s "
+            f"({x['chain_seconds'] / max(x['sweeps'], 1) * 1e3:.3f} ms/sweep), tailcut "
+            f"rounds {x['tailcut_rounds']} {x['tailcut_seconds']:.3f} s, run "
+            f"{r.duration_ms / 1e3:.3f} s; used colours {r.used_colors}, balance index "
+            f"{r.balance_index(CONFIG3_P):.4f}; K2 launches {l2}, K3 launches {l3}; "
+            f"valid {valid} (check {check_s:.3f} s), final conflicts {x['final_conflicts']}"
+        )
+        _require(l2 > 0 and l3 > 0, f"ratio {ratio}: K2 launched {l2}, K3 {l3} times")
+        _require(valid and x["final_conflicts"] == 0, f"ratio {ratio}: invalid colouring")
+        del c
+    k3.launches = 0
+    t0 = time.perf_counter()
+    gff = GreedyFFColorer(g, device=device)
+    setup_s = time.perf_counter() - t0
+    r = gff.run()
+    l3 = k3.launches
+    k3_total += l3
+    valid = check_coloring(g, r.colors)
+    print(f"phase 9 config3 GreedyFF: setup {setup_s:.3f} s, rounds {r.iterations}, used "
+          f"colours {r.n_colors} (bound {gff.max_colors}), run {r.duration_ms / 1e3:.3f} s; "
+          f"K3 launches {l3}; valid {valid}")
+    _require(l3 > 0, "GreedyFF launched K3 no time")
+    _require(valid, "GreedyFF: invalid colouring")
+    return k2_total, k3_total
+
+
+def phase_config4(device):
+    """BASELINE config 4: a BA graph written in the network-repository
+    layout (two self-arcs), converted, stripped, loaded by the native
+    importer, then coloured by MCMCColorer and by GreedyFF with K3 and
+    with its plain version."""
+    import numpy as np
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.graph import io as gio
+    from mcmc_colorer_tpu_torch.graph.generate import barabasi_albert
+    from mcmc_colorer_tpu_torch.models.base import check_coloring
+    from mcmc_colorer_tpu_torch.models.greedy_ff import GreedyFFColorer
+    from mcmc_colorer_tpu_torch.models.mcmc import MCMCColorer
+
+    t0 = time.perf_counter()
+    g0 = barabasi_albert(CONFIG4_N, CONFIG4_M, seed=CONFIG4_SEED)
+    with tempfile.TemporaryDirectory() as td:
+        raw = os.path.join(td, "soc-sample.mtx")
+        u = np.repeat(np.arange(g0.n, dtype=np.int64), g0.degrees)
+        v = g0.cols.astype(np.int64)
+        mask = u < v
+        with open(raw, "w") as f:
+            f.write("%% networkrepository sample (BA 50k regime)\n")
+            f.write(f"{g0.n} {g0.n} {g0.n_edges}\n")
+            f.writelines(f"{a} {b}\n" for a, b in zip(u[mask], v[mask]))
+            f.write("7 7\n17 17\n")  # self-arcs, as real dumps have
+        conv = os.path.join(td, "soc-sample.txt")
+        gio.convert_network_repository(raw, conv)
+        clean = os.path.join(td, "soc-sample-clean.txt")
+        n_self = gio.strip_self_arcs(conv, clean)
+        g = gio.load_edge_list(clean)
+    io_s = time.perf_counter() - t0
+    _require(n_self == 2, f"{n_self} self-arcs stripped, expected 2")
+    _require((g.n, g.n_edges, g.max_degree) == (g0.n, g0.n_edges, g0.max_degree),
+             "the loaded graph differs from the written one")
+    params = MCMCParams(n_colors=g.max_degree, proposal=ProposalKind.BALANCE_DYNAMIC,
+                        tailcut=True)
+    r = MCMCColorer(g, params, backend="pallas", device=device).run(seed=41)
+    valid = check_coloring(g, r.colors)
+    a = GreedyFFColorer(g, backend="pallas", device=device).run()
+    b = GreedyFFColorer(g, backend="xla", device=device).run()
+    same = bool(np.array_equal(a.colors, b.colors))
+    print(f"phase 10 config4 BA({CONFIG4_N}, {CONFIG4_M}) -> network-repository layout -> "
+          f"convert, strip {n_self} self-arcs -> native import: n={g.n} m={g.n_edges} "
+          f"max_degree={g.max_degree} ({io_s:.3f} s); MCMC iterations {r.iterations}, "
+          f"tailcut rounds {r.extra['tailcut_rounds']}, used colours {r.used_colors}, "
+          f"run {r.duration_ms / 1e3:.3f} s, valid {valid}; GreedyFF {a.n_colors} colours "
+          f"in {a.iterations} rounds, K3 and plain colours identical {same}")
+    _require(valid and r.extra["final_conflicts"] == 0, "config 4: invalid MCMC colouring")
+    _require(same and check_coloring(g, a.colors), "config 4: GreedyFF K3 vs plain differ")
+
+
+def phase_k2_vs_k1(device, c, g, seed=5):
+    """The K2 chain and the K1 chain on one graph (phase 4's ER(100k,
+    0.01), its params and seed), both warm."""
+    from mcmc_colorer_tpu_torch.models.base import check_coloring
+    from mcmc_colorer_tpu_torch.models.mcmc import MCMCColorer
+
+    def per_sweep(r):
+        return r.extra["chain_seconds"] / max(r.extra["sweeps"], 1) * 1e3
+
+    r1 = c.run(seed=seed)
+    colorer = MCMCColorer(g, c.params, backend="pallas", device=device)
+    colorer.run(seed=seed)  # warm-up
+    r2 = colorer.run(seed=seed)
+    print(
+        f"phase 11 K2 vs K1, ER({BENCH_N}, {BENCH_P}) n_colors={c.params.n_colors} seed "
+        f"{seed}, warm: resident/K1 {per_sweep(r1):.3f} ms/sweep, {r1.iterations} "
+        f"iterations, {r1.extra['sweeps']} sweeps, run {r1.duration_ms / 1e3:.3f} s; "
+        f"ELL/K2 {per_sweep(r2):.3f} ms/sweep, {r2.iterations} iterations, "
+        f"{r2.extra['sweeps']} sweeps, tailcut rounds {r2.extra['tailcut_rounds']}, run "
+        f"{r2.duration_ms / 1e3:.3f} s (ELL setup {colorer.setup_seconds:.3f} s)"
+    )
+    _require(check_coloring(g, r2.colors) and r2.extra["final_conflicts"] == 0,
+             "phase 11: invalid K2 colouring")
+
+
 def main() -> int:
     import torch
 
@@ -252,34 +617,67 @@ def main() -> int:
     print(f"phase 0 card: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"python {sys.version.split()[0]}")
 
-    from mcmc_colorer_tpu_torch.ops import packed_nc as k1
-
-    built = k1.load_kernel()
-    ptxas = " | ".join(
-        ln.strip() for ln in built.log.splitlines() if "registers" in ln or "smem" in ln
-    )
-    print(f"phase 1 build K1: {built.seconds:.3f} s ({built.path.name}); ptxas: {ptxas}")
+    t0 = time.perf_counter()
+    built = build_kernels()
+    build_s = time.perf_counter() - t0
+    b1, b2, b3 = (built[k][1] for k in ("K1", "K2", "K3"))
+    print(f"phase 1 build K1: {b1.seconds:.3f} s ({b1.path.name}); ptxas: {_ptxas(b1)}")
 
     err, k_ms, p_ms = phase_k1(device, K1_SHAPES, bench_n_pad=_round_up(BENCH_N, 2048))
     torch.cuda.empty_cache()
     phase_hash(device)
-    _, _, launches = phase_main(device)
+    _, c, launches, g_bench = phase_main(device)
     phase_tight(device)
 
-    print(json.dumps({"kernels": [{
-        "name": "packed_nc",
-        "route": "cuda",
-        "source": "mcmc_colorer_tpu_torch/csrc/packed_nc.cu",
-        "replaces": "mcmc_colorer_tpu/ops/pallas_bitmatmul.py:92",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+    for label, b in (("K2", b2), ("K3", b3)):
+        print(f"phase 6 build {label}: {b.seconds:.3f} s ({b.path.name}); ptxas: {_ptxas(b)}")
+    print(f"phase 6 all three builds, started together: {build_s:.3f} s")
+    g3, ell3, sb = setup_config3(device)
+    err3, k3_ms, p3_ms = phase_k3(device, ell3, sb)
+    frac2, err2, k2_ms, p2_ms = phase_k2(device, ell3, sb)
+    torch.cuda.empty_cache()
+    launches2, launches3 = phase_config3(device, g3)
+    del g3, ell3
+    torch.cuda.empty_cache()
+    phase_config4(device)
+    phase_k2_vs_k1(device, c, g_bench)
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "packed_nc",
+            "route": "cuda",
+            "source": "mcmc_colorer_tpu_torch/csrc/packed_nc.cu",
+            "replaces": "mcmc_colorer_tpu/ops/pallas_bitmatmul.py:92",
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": k_ms,
+            "plain_ms": p_ms,
+        },
+        {
+            "name": "resample_sweep",
+            "route": "cuda",
+            "source": "mcmc_colorer_tpu_torch/csrc/resample.cu",
+            "replaces": "mcmc_colorer_tpu/ops/pallas_resample.py:451",
+            "launches": launches2,
+            "max_abs_err": err2,  # of qstar, where the sampled colours agree
+            "boundary_fraction": frac2,
+            "ms": k2_ms,
+            "plain_ms": p2_ms,
+        },
+        {
+            "name": "first_fit",
+            "route": "cuda",
+            "source": "mcmc_colorer_tpu_torch/csrc/first_fit.cu",
+            "replaces": "mcmc_colorer_tpu/ops/pallas_firstfit.py:147",
+            "launches": launches3,
+            "max_abs_err": err3,
+            "ms": k3_ms,
+            "plain_ms": p3_ms,
+        },
+    ]}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
-    }}))
+    # the run uses one card, whatever the host holds
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
     return 0
 
 

@@ -1,22 +1,92 @@
-"""Host CSR graph (the subset of ``graph/container.py:Graph`` the port needs)."""
+"""Graph containers: host CSR and the padded neighbour-list (ELL) layout.
+
+Counterpart of ``mcmc_colorer_tpu/graph/container.py``: ``Graph`` (host
+CSR over dense int ids, both directions of every undirected edge in
+``cols``, self-loops dropped), ``degree_pad_for``, the flat ``to_ell``
+and ``EllGraph``.  The ELL is ``neighbors[n_pad, d_pad]`` int32 on a
+torch device, with the sentinel ``n_pad`` in every padding slot, so a
+gather through a colour vector extended by one slot lands on an
+always-invalid colour.
+
+The degree-bucketed layout (``to_ell_bucketed``, ``BucketedEll``) is not
+ported yet (ROADMAP.md Queue 1 item 7): the colorers refuse
+``layout="bucketed"``.
+"""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import cached_property
 
 import numpy as np
+import torch
+
+# The host build materialises row and slot ids for every stored edge as
+# int64 (three 2m-long arrays: 24 GB at ER(1M, 0.001)) and then uploads
+# the whole rectangle; on a CUDA device a rectangle above this size is
+# scattered on the card from the O(2m + n) CSR upload instead
+# (ops/ell_build.py).
+DEVICE_BUILD_MIN_BYTES = 64 * 1024**2
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def degree_pad_for(graph: "Graph", backend: str) -> int:
+    """Degree-axis padding: 128 on the kernel path for high-degree graphs
+    (whole 512-byte rows, so a warp's reads of a row stay aligned), 8
+    elsewhere (low-degree graphs would waste up to 16x memory)."""
+    return 128 if (backend == "pallas" and graph.max_degree >= 128) else 8
 
 
 @dataclass
 class Graph:
-    """CSR over node ids 0..n-1 with both directions of every undirected
-    edge present in ``cols``."""
+    """Host-side graph: CSR over dense int node ids.  ``node_names``
+    keeps the importer's string-id mapping when the graph came from a
+    file; ``simple_certified`` marks generators whose samples have no
+    parallel edges."""
 
     n: int
     row_ptr: np.ndarray          # (n+1,) int64
     cols: np.ndarray             # (2m,) int32
+    node_names: list[str] | None = None
     name: str = "graph"
+    simple_certified: bool = False
+
+    # -- constructors ------------------------------------------------------
+
+    @staticmethod
+    def from_edges(
+        n: int,
+        src: np.ndarray,
+        dst: np.ndarray,
+        *,
+        both_directions_present: bool = False,
+        node_names: list[str] | None = None,
+        name: str = "graph",
+    ) -> "Graph":
+        """Build from an edge list.  Unless ``both_directions_present``,
+        each undirected edge appears once and the reverse is added here.
+        Self-loops are dropped; duplicate edges are kept (use
+        ``dedup_edges``), as the reference does."""
+        src = np.asarray(src, dtype=np.int64)
+        dst = np.asarray(dst, dtype=np.int64)
+        keep = src != dst
+        src, dst = src[keep], dst[keep]
+        if not both_directions_present:
+            src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+        order = np.argsort(src, kind="stable")
+        src_s, dst_s = src[order], dst[order]
+        counts = np.bincount(src_s, minlength=n)
+        row_ptr = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(counts, out=row_ptr[1:])
+        return Graph(
+            n=n, row_ptr=row_ptr, cols=dst_s.astype(np.int32),
+            node_names=node_names, name=name,
+        )
+
+    # -- properties --------------------------------------------------------
 
     @cached_property
     def degrees(self) -> np.ndarray:
@@ -30,3 +100,161 @@ class Graph:
     @cached_property
     def max_degree(self) -> int:
         return int(self.degrees.max()) if self.n else 0
+
+    @cached_property
+    def mean_degree(self) -> float:
+        return float(self.degrees.mean()) if self.n else 0.0
+
+    @property
+    def density(self) -> float:
+        if self.n < 2:
+            return 0.0
+        return 2.0 * self.n_edges / (self.n * (self.n - 1))
+
+    def neighbors_of(self, i: int) -> np.ndarray:
+        return self.cols[self.row_ptr[i]: self.row_ptr[i + 1]]
+
+    # -- validation and rewrites -----------------------------------------
+
+    def validate(self) -> None:
+        """Raise ``ValueError`` unless the CSR is well formed, every edge
+        is mirrored and there is no self-loop."""
+        if self.row_ptr.shape != (self.n + 1,):
+            raise ValueError(f"row_ptr shape {self.row_ptr.shape}, n={self.n}")
+        if self.row_ptr[0] != 0 or self.row_ptr[-1] != self.cols.shape[0]:
+            raise ValueError("row_ptr does not span cols")
+        if np.any(np.diff(self.row_ptr) < 0):
+            raise ValueError("row_ptr decreases")
+        if self.cols.size and (self.cols.min() < 0 or self.cols.max() >= self.n):
+            raise ValueError("column id outside 0..n-1")
+        u = np.repeat(np.arange(self.n, dtype=np.int64), self.degrees)
+        fwd = u * self.n + self.cols
+        rev = self.cols.astype(np.int64) * self.n + u
+        if not np.array_equal(np.sort(fwd), np.sort(rev)):
+            raise ValueError("edges not mirrored")
+        if np.any(u == self.cols):
+            raise ValueError("self-loop present")
+
+    def dedup_edges(self) -> "Graph":
+        """A copy with duplicate parallel edges removed."""
+        u = np.repeat(np.arange(self.n, dtype=np.int64), self.degrees)
+        keys = np.unique(u * self.n + self.cols)
+        return Graph.from_edges(
+            self.n, keys // self.n, keys % self.n, both_directions_present=True,
+            node_names=self.node_names, name=self.name,
+        )
+
+    def degree_relabel(self, descending: bool = False) -> tuple["Graph", np.ndarray]:
+        """Relabel vertices by degree (stable).  Returns (relabelled graph,
+        perm) with ``perm[new_id] = old_id``."""
+        key = -self.degrees if descending else self.degrees
+        perm = np.argsort(key, kind="stable").astype(np.int64)
+        inv = np.empty(self.n, np.int64)
+        inv[perm] = np.arange(self.n, dtype=np.int64)
+        degs = self.degrees[perm].astype(np.int64)
+        row_ptr = np.zeros(self.n + 1, dtype=np.int64)
+        np.cumsum(degs, out=row_ptr[1:])
+        total = int(row_ptr[-1])
+        idx = (
+            np.repeat(self.row_ptr[perm], degs)
+            + np.arange(total, dtype=np.int64)
+            - np.repeat(row_ptr[:-1], degs)
+        )
+        cols = inv[self.cols[idx]].astype(np.int32)
+        g = Graph(n=self.n, row_ptr=row_ptr, cols=cols, node_names=None,
+                  name=self.name + "_degsorted")
+        return g, perm
+
+    # -- device layout -----------------------------------------------------
+
+    def to_ell(
+        self,
+        *,
+        pad_nodes_to: int = 8,
+        pad_degree_to: int = 8,
+        min_degree_pad: int = 1,
+        device="cpu",
+        device_build: bool | None = None,
+        build_stats: dict | None = None,
+    ) -> "EllGraph":
+        """Pack the CSR into the padded ELL layout on ``device``.
+
+        ``device_build`` picks where the rectangle is made: True scatters
+        it on ``device`` from the CSR (``ops/ell_build.py``), False builds
+        it on the host and copies it whole; None (default) builds on the
+        card when the device is CUDA and the rectangle exceeds
+        ``DEVICE_BUILD_MIN_BYTES``.
+
+        Cached per (n_pad, d_pad, device): repeated colorers on one graph
+        (ratio sweeps, repetitions) reuse the rectangle.  Only the largest
+        rectangle is kept, and a smaller-or-equal cached one is evicted
+        BEFORE the new one is built, so two never coexist on the device.
+        """
+        device = torch.device(device)
+        n_pad = _round_up(max(self.n, 1), pad_nodes_to)
+        d_pad = _round_up(max(self.max_degree, min_degree_pad), pad_degree_to)
+        key = (n_pad, d_pad, str(device))
+        cache = self.__dict__.setdefault("_ell_cache", {})
+        hit = cache.get(key)
+        if hit is not None:
+            return hit
+        if cache and n_pad * d_pad >= max(k[0] * k[1] for k in cache):
+            cache.clear()
+        if device_build is None:
+            device_build = (
+                device.type == "cuda" and n_pad * d_pad * 4 > DEVICE_BUILD_MIN_BYTES
+            )
+        if device_build:
+            from mcmc_colorer_tpu_torch.ops.ell_build import ell_neighbors_from_csr_device
+
+            neigh = ell_neighbors_from_csr_device(
+                self.row_ptr, self.cols, n_pad, d_pad, device=device,
+                stats=build_stats,
+            )
+        else:
+            host = np.full((n_pad, d_pad), n_pad, dtype=np.int32)
+            degs = self.degrees
+            row = np.repeat(np.arange(self.n, dtype=np.int64), degs)
+            col = np.arange(self.cols.shape[0], dtype=np.int64) - np.repeat(
+                self.row_ptr[:-1], degs
+            )
+            host[row, col] = self.cols
+            neigh = torch.from_numpy(host).to(device)
+        degrees = torch.zeros((n_pad,), dtype=torch.int32, device=device)
+        degrees[: self.n] = torch.from_numpy(self.degrees).to(device)
+        ell = EllGraph(
+            neighbors=neigh, degrees=degrees, n_nodes=self.n,
+            n_edges=self.n_edges, max_degree=self.max_degree,
+        )
+        if not cache or n_pad * d_pad >= max(k[0] * k[1] for k in cache):
+            cache.clear()
+            cache[key] = ell
+        return ell
+
+
+@dataclass
+class EllGraph:
+    """Device-resident padded adjacency.  ``neighbors[v, k]`` is the k-th
+    neighbour of v, or the sentinel ``n_pad`` in padding slots; phantom
+    vertices (ids >= n_nodes) have degree 0 and are outside
+    ``node_mask``."""
+
+    neighbors: torch.Tensor      # (n_pad, d_pad) int32
+    degrees: torch.Tensor        # (n_pad,) int32
+    n_nodes: int
+    n_edges: int
+    max_degree: int
+    node_mask: torch.Tensor = field(init=False)  # (n_pad,) bool, real vertices
+
+    def __post_init__(self) -> None:
+        self.node_mask = (
+            torch.arange(self.n_pad, device=self.neighbors.device) < self.n_nodes
+        )
+
+    @property
+    def n_pad(self) -> int:
+        return self.neighbors.shape[0]
+
+    @property
+    def d_pad(self) -> int:
+        return self.neighbors.shape[1]

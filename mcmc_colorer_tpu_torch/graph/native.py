@@ -1,15 +1,20 @@
-"""ctypes binding of the C++ hash-graph enumerator (``native/importer.cpp``).
+"""ctypes bindings of the C++ graph library (``native/importer.cpp``).
 
-Counterpart of ``graph/native.py:generate_er_hash``.  The library
-``native/build/libmcgraph.so`` is git-ignored, so it is built with
-``make -C native`` at first use; a failed build raises (there is no
-Python fallback on this path).
+Counterpart of ``graph/native.py``: the edge-list importer
+(``load_edge_list``, ``mc_import``), the ER and Barabási–Albert samplers
+(``generate_er``, ``generate_ba``), the dataset writer
+(``generate_dataset``) and the hash-graph enumerator
+(``generate_er_hash``).  The library ``native/build/libmcgraph.so`` is
+git-ignored, so it is built with ``make -C native`` at first use; a
+failed build raises (the port has no silent Python fallback; the pure
+Python importer ``graph/io.py:load_edge_list_py`` is the test oracle).
 """
 
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import os
 import subprocess
 import threading
 from pathlib import Path
@@ -23,6 +28,24 @@ _SO_PATH = _NATIVE_DIR / "build" / "libmcgraph.so"
 
 _lock = threading.Lock()
 _lib = None
+
+_SIGNATURES = {
+    "mc_import": (ctypes.c_void_p, [ctypes.c_char_p]),
+    "mc_generate_er": (ctypes.c_void_p, [ctypes.c_int64, ctypes.c_double, ctypes.c_uint64]),
+    "mc_generate_ba": (ctypes.c_void_p, [ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64]),
+    "mc_generate_er_hash": (ctypes.c_void_p, [ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32]),
+    "mc_generate_dataset": (
+        ctypes.c_int64,
+        [ctypes.c_char_p, ctypes.c_int64, ctypes.c_double, ctypes.c_uint64, ctypes.c_int],
+    ),
+    "mc_n": (ctypes.c_int64, [ctypes.c_void_p]),
+    "mc_nnz": (ctypes.c_int64, [ctypes.c_void_p]),
+    "mc_row_ptr": (ctypes.POINTER(ctypes.c_int64), [ctypes.c_void_p]),
+    "mc_cols": (ctypes.POINTER(ctypes.c_int32), [ctypes.c_void_p]),
+    "mc_name": (ctypes.c_char_p, [ctypes.c_void_p, ctypes.c_int64]),
+    "mc_error": (ctypes.c_char_p, [ctypes.c_void_p]),
+    "mc_free": (None, [ctypes.c_void_p]),
+}
 
 
 def _load() -> ctypes.CDLL:
@@ -45,39 +68,73 @@ def _load() -> ctypes.CDLL:
                     f"building {_SO_PATH} failed:\n{proc.stdout}{proc.stderr}"
                 )
             lib = ctypes.CDLL(str(_SO_PATH))
-        lib.mc_generate_er_hash.restype = ctypes.c_void_p
-        lib.mc_generate_er_hash.argtypes = [
-            ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
-        ]
-        lib.mc_n.restype = ctypes.c_int64
-        lib.mc_n.argtypes = [ctypes.c_void_p]
-        lib.mc_nnz.restype = ctypes.c_int64
-        lib.mc_nnz.argtypes = [ctypes.c_void_p]
-        lib.mc_row_ptr.restype = ctypes.POINTER(ctypes.c_int64)
-        lib.mc_row_ptr.argtypes = [ctypes.c_void_p]
-        lib.mc_cols.restype = ctypes.POINTER(ctypes.c_int32)
-        lib.mc_cols.argtypes = [ctypes.c_void_p]
-        lib.mc_free.argtypes = [ctypes.c_void_p]
+        for fn_name, (restype, argtypes) in _SIGNATURES.items():
+            fn = getattr(lib, fn_name)
+            fn.restype, fn.argtypes = restype, argtypes
         _lib = lib
         return lib
 
 
-def generate_er_hash(
-    n: int, threshold: int, seed: int, name: str | None = None
-) -> Graph:
+def _take_graph(lib, h, name: str, with_names: bool = False,
+                error=ValueError) -> Graph:
+    """Copy a native handle's CSR (and names) into a ``Graph``; frees it."""
+    try:
+        nn = lib.mc_n(h)
+        if nn < 0:
+            raise error(lib.mc_error(h).decode())
+        nnz = lib.mc_nnz(h)
+        row_ptr = np.ctypeslib.as_array(lib.mc_row_ptr(h), shape=(nn + 1,)).copy()
+        cols = np.ctypeslib.as_array(lib.mc_cols(h), shape=(max(nnz, 1),))[:nnz].copy()
+        names = [lib.mc_name(h, i).decode() for i in range(nn)] if with_names else None
+    finally:
+        lib.mc_free(h)
+    return Graph(n=int(nn), row_ptr=row_ptr, cols=cols, node_names=names, name=name)
+
+
+def load_edge_list(path: str, name: str | None = None, with_names: bool = True) -> Graph:
+    """Two-pass C++ import of an edge-list file (one header line, then
+    ``src dst [weight]``; string ids mapped to dense ints in first-seen
+    order, reverse edges added, self-loops dropped)."""
+    lib = _load()
+    h = lib.mc_import(os.fsencode(path))
+    name = name or os.path.basename(path).rsplit(".", 1)[0]
+    return _take_graph(
+        lib, h, name, with_names,
+        error=lambda msg: OSError(f"{path}: {msg}"),
+    )
+
+
+def generate_er(n: int, p: float, seed: int = 0, name: str | None = None) -> Graph:
+    """In-memory ER(n, p) -> CSR in one C++ pass (geometric skips)."""
+    lib = _load()
+    return _take_graph(lib, lib.mc_generate_er(n, p, seed), name or f"er_{n}_{p}")
+
+
+def generate_ba(n: int, m_per_node: int, seed: int = 0, name: str | None = None) -> Graph:
+    """In-memory Barabási–Albert(n, m) -> CSR in one C++ pass."""
+    lib = _load()
+    return _take_graph(
+        lib, lib.mc_generate_ba(n, m_per_node, seed), name or f"ba_{n}_{m_per_node}"
+    )
+
+
+def generate_er_hash(n: int, threshold: int, seed: int, name: str | None = None) -> Graph:
     """Host CSR of the hash-defined G(n, p) (threaded C++ enumeration of
     the same (seed, threshold) hash the device evaluates)."""
     if not 0 <= threshold <= 0xFFFFFFFF or not 0 <= seed <= 0xFFFFFFFF:
         raise ValueError("threshold and seed are uint32")
     lib = _load()
-    h = lib.mc_generate_er_hash(n, threshold, seed)
-    try:
-        nn = lib.mc_n(h)
-        nnz = lib.mc_nnz(h)
-        row_ptr = np.ctypeslib.as_array(lib.mc_row_ptr(h), shape=(nn + 1,)).copy()
-        cols = np.ctypeslib.as_array(
-            lib.mc_cols(h), shape=(max(nnz, 1),)
-        )[:nnz].copy()
-    finally:
-        lib.mc_free(h)
-    return Graph(n=int(nn), row_ptr=row_ptr, cols=cols, name=name or f"er_hash_{n}")
+    return _take_graph(
+        lib, lib.mc_generate_er_hash(n, threshold, seed), name or f"er_hash_{n}"
+    )
+
+
+def generate_dataset(path: str, n: int, p: float, seed: int = 10000,
+                     named: bool = True) -> int:
+    """C++ datasetGen: writes ER(n, p) in the native edge-list format and
+    returns the number of undirected edges written."""
+    lib = _load()
+    m = lib.mc_generate_dataset(os.fsencode(path), n, p, seed, int(named))
+    if m < 0:
+        raise OSError(f"cannot write {path}")
+    return int(m)

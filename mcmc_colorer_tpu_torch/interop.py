@@ -6,6 +6,9 @@
   (``models/mcmc_resident.py:save_checkpoint``: colors, taboo,
   iteration, conf_last, trace, done) become the port's ``ChainState``
   and back.  The key is left out: the port draws from its own source.
+- Host graphs and ELL layouts: a JAX ``Graph`` becomes the port's
+  (``graph_from_jax``, a copy of the CSR); an ``EllGraph`` of either
+  package reads back as numpy (``ell_to_numpy``).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mcmc_colorer_tpu_torch.graph.container import Graph
 from mcmc_colorer_tpu_torch.models.mcmc import ChainState
 
 
@@ -55,3 +59,26 @@ def carry_to_numpy(state: ChainState) -> dict:
         "trace": state.trace.copy(),
         "done": np.bool_(state.done),
     }
+
+
+def graph_from_jax(jax_graph) -> Graph:
+    """The port's ``Graph`` with a copy of a JAX ``Graph``'s CSR, names
+    and name (any object with those fields will do)."""
+    names = getattr(jax_graph, "node_names", None)
+    return Graph(
+        n=int(jax_graph.n),
+        row_ptr=np.array(jax_graph.row_ptr, dtype=np.int64),
+        cols=np.array(jax_graph.cols, dtype=np.int32),
+        node_names=list(names) if names is not None else None,
+        name=jax_graph.name,
+        simple_certified=bool(getattr(jax_graph, "simple_certified", False)),
+    )
+
+
+def ell_to_numpy(ell) -> tuple[np.ndarray, np.ndarray]:
+    """(neighbors [n_pad, d_pad] int32, degrees [n_pad] int32) of an ELL
+    layout of either package, as numpy arrays."""
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    return host(ell.neighbors), host(ell.degrees)

@@ -1,0 +1,135 @@
+"""Greedy First-Fit (speculative) colorer on the flat ELL.
+
+Counterpart of ``mcmc_colorer_tpu/models/greedy_ff.py`` (flat layout,
+full rounds): repeat { every uncoloured vertex takes its smallest colour
+no neighbour uses (kernel K3 on the card); of two same-coloured
+neighbours the higher id loses and is uncoloured again } until every
+vertex holds a colour.  Colours are 0-based, -1 = uncoloured; the
+palette bound is max degree + 1, which always leaves a free colour.
+Deterministic, so its colours equal JAX's exactly.
+
+The frontier variant (``active=True``) and the bucketed layout are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from mcmc_colorer_tpu_torch.graph.container import EllGraph, Graph, degree_pad_for
+from mcmc_colorer_tpu_torch.models.base import Coloring
+from mcmc_colorer_tpu_torch.models.mcmc import _bands, _sync, choose_block_size
+from mcmc_colorer_tpu_torch.ops.firstfit import first_fit, first_fit_reference
+from mcmc_colorer_tpu_torch.ops.neighbor import neighbor_colors
+
+
+class GreedyFFColorer:
+    """``backend``: ``pallas`` (K3 on CUDA tensors), ``xla`` (K3's plain
+    version everywhere) or ``auto`` (= ``pallas``)."""
+
+    def __init__(
+        self,
+        graph: Graph,
+        block_size: int | None = None,
+        backend: str = "auto",
+        active: bool = False,
+        layout: str = "flat",
+        device="cpu",
+    ) -> None:
+        if active:
+            raise NotImplementedError(
+                "the frontier GreedyFF (active=True) is not ported yet "
+                "(ROADMAP.md Queue 1 item 10)"
+            )
+        if layout == "bucketed":
+            raise NotImplementedError(
+                "the degree-bucketed ELL layout is not ported yet "
+                "(ROADMAP.md Queue 1 item 7)"
+            )
+        if layout != "flat":
+            raise ValueError(f"unknown layout {layout!r}")
+        if backend == "auto":
+            backend = "pallas"
+        if backend not in ("pallas", "xla"):
+            raise ValueError(f"unknown backend {backend!r}")
+        self.graph = graph
+        self.backend = backend
+        self.device = torch.device(device)
+        self.max_colors = graph.max_degree + 1
+        self.block = block_size or choose_block_size(graph.n, self.max_colors)
+        self.ell = graph.to_ell(
+            pad_nodes_to=max(self.block, 128),
+            pad_degree_to=degree_pad_for(graph, backend),
+            device=self.device,
+        )
+
+    def run(self, seed: int = 0, repetition: int = 0) -> Coloring:
+        """Colour the graph (``seed`` and ``repetition`` are unused: the
+        algorithm is deterministic; they keep the colorer interface)."""
+        _sync(self.device)
+        t0 = time.perf_counter()
+        colors, rounds, _ = _gff_segment(
+            self.ell, _gff_init(self.ell), 2**30,
+            max_colors=self.max_colors, block=self.block, backend=self.backend,
+        )
+        colors = colors[: self.graph.n].cpu().numpy()
+        dur = (time.perf_counter() - t0) * 1e3
+        return Coloring(
+            colors=colors,
+            n_colors=int(np.unique(colors).shape[0]),  # distinct used colours
+            iterations=rounds,
+            converged=True,
+            duration_ms=dur,
+            extra={"palette_bound": self.max_colors},
+        )
+
+
+def _first_fit_pass(ell: EllGraph, colors, max_colors: int, block: int,
+                    backend: str = "pallas"):
+    """tentative_coloring: uncoloured vertices take their smallest colour
+    no neighbour uses, in row bands (one K3 launch a band)."""
+    ff_fn = first_fit if backend == "pallas" else first_fit_reference
+    allow = torch.ones((max_colors,), dtype=torch.int32, device=colors.device)
+    out = torch.empty_like(colors)
+    for s, e in _bands(ell.n_pad, ell.d_pad):
+        ff = ff_fn(neighbor_colors(ell.neighbors[s:e], colors), allow, max_colors)
+        # max_colors = maxDeg + 1 leaves a free colour for every real vertex
+        out[s:e] = torch.where(colors[s:e] < 0, ff, colors[s:e])
+    return out
+
+
+def _conflict_losers(ell: EllGraph, colors):
+    """conflict_detection: a coloured vertex with the colour of a lower-id
+    neighbour loses."""
+    ids = torch.arange(ell.n_pad, dtype=torch.int32, device=colors.device)
+    out = torch.empty((ell.n_pad,), dtype=torch.bool, device=colors.device)
+    for s, e in _bands(ell.n_pad, ell.d_pad):
+        neigh = ell.neighbors[s:e]
+        own = colors[s:e, None]
+        nc = neighbor_colors(neigh, colors, fill=-2)
+        out[s:e] = ((nc == own) & (own >= 0) & (neigh < ids[s:e, None])).any(1)
+    return out
+
+
+def _gff_init(ell: EllGraph):
+    """Initial carry (colors, rounds, done): real vertices uncoloured,
+    phantoms colour 0."""
+    colors0 = torch.where(ell.node_mask, -1, 0).to(torch.int32)
+    return colors0, 0, ell.n_nodes == 0
+
+
+def _gff_segment(ell: EllGraph, carry, budget: int, *, max_colors: int,
+                 block: int, backend: str = "pallas"):
+    """At most ``budget`` speculative rounds."""
+    colors, rounds, done = carry
+    limit = rounds + budget
+    while not done and rounds < limit:
+        tentative = _first_fit_pass(ell, colors, max_colors, block, backend)
+        losers = _conflict_losers(ell, tentative)
+        colors = torch.where(losers, -1, tentative)
+        rounds += 1
+        done = not bool(((colors < 0) & ell.node_mask).any())  # host read
+    return colors, rounds, done

@@ -1,39 +1,54 @@
-"""MCMC chain core over the bit-packed adjacency.
+"""MCMC chain core: the packed-adjacency chain and the ELL (gather) chain.
 
-Counterpart of the matmul-backend chain of ``mcmc_colorer_tpu/models/
-mcmc.py``: the proposal family (``_proposal_q``), the inverse-CDF sample
-(``_sample_cdf``), one sweep (``_sweep_matmul``), the Hastings reverse
-probability (``_reverse_logq_matmul``), the initial carry
-(``_chain_init``) and the budgeted do-while (``_chain_segment_matmul``).
-Each sweep computes NC = A·onehot(colors) once (kernel K1 on the card)
-and reads occupancy, conflicts and proposal from it.
+Counterpart of ``mcmc_colorer_tpu/models/mcmc.py``: the proposal family
+(``_proposal_q``), the inverse-CDF sample (``_sample_cdf``), the sweeps,
+the Hastings reverse probability, the chain loops, the flat tailcut and
+``MCMCColorer``.
 
-The JAX loop is a ``lax.while_loop`` with a masked body; here it is a
-Python loop that reads the sweep's conflict count to the host once per
-body.  That read is the do-while's exit test, so the loop stops exactly
-where JAX's does, and draws exactly one uniform vector per body
-execution, the final "done" body included.
+- Packed chain (slice 1, ``models/mcmc_resident.py``): each sweep computes
+  NC = A·onehot(colors) once (kernel K1 on the card) and reads occupancy,
+  conflicts and proposal from it (``_sweep_matmul``).
+- ELL chain (``MCMCColorer``): each sweep gathers the neighbour colours of
+  a band of rows and hands them to kernel K2 (``_sweep_pallas_fused``,
+  backend ``pallas``), or to its plain version (``_sweep``, backend
+  ``xla``); the flat tailcut repairs what is left with kernel K3.
+
+The JAX loops are ``lax.while_loop``s with a masked body; here they are
+Python loops that read the body's conflict count to the host once per
+body.  That read is the loop's exit test, so a loop stops exactly where
+JAX's does, and draws exactly one uniform vector per body execution (a
+second, scalar draw under Hastings), the final "done" body included.
 
 Floating point: torch and XLA add float32 rows and prefix sums in
 different orders, so ``q`` agrees to about 1e-7 relative and a vertex
 whose uniform lies on a CDF step can pick the neighbouring colour.  The
-integer parts (NC, conflict counts, histograms) agree exactly.
+integer parts (NC, occupancy, conflict counts, histograms, first fit,
+the tailcut round) agree exactly.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from mcmc_colorer_tpu_torch.config import InitKind, MCMCParams, ProposalKind
+from mcmc_colorer_tpu_torch.graph.container import EllGraph, Graph, degree_pad_for
+from mcmc_colorer_tpu_torch.models.base import Coloring
 from mcmc_colorer_tpu_torch.ops.dense_adj import (
     SWEEP_BLOCK_BYTES,
     neighbor_color_counts,
 )
-from mcmc_colorer_tpu_torch.ops.neighbor import color_histogram
+from mcmc_colorer_tpu_torch.ops.neighbor import (
+    color_histogram,
+    neighbor_colors,
+    occupancy_matrix,
+)
+from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource
 
 
 def choose_block_size(n: int, n_colors: int) -> int:
@@ -211,6 +226,40 @@ def _needs_histogram(params: MCMCParams) -> bool:
 # ------------------------------- sweep -------------------------------
 
 
+def _propose(cur, occ, taboo, unif, params: MCMCParams, p_eff, eps):
+    """One block of a sweep from its occupancy: the proposal, the
+    inverse-CDF sample and the taboo keep (``_sweep``'s block function,
+    ``mcmc.py:844-868``).  ``occ`` may be wider than the palette (padded
+    columns unoccupied, ``p_eff`` zero-padded to the same width).
+    Returns (chosen, qstar, new_taboo)."""
+    n_colors = params.n_colors
+    q = _proposal_q(cur, occ, params, p_eff, eps, n_colors)
+    chosen = _sample_cdf(q, unif, n_colors)
+    qstar = q.gather(1, chosen.to(torch.int64)[:, None])[:, 0]
+    taboo_active = taboo > 0
+    chosen = torch.where(taboo_active, cur, chosen)
+    qstar = torch.where(taboo_active, 1.0 - (n_colors - 1) * eps, qstar)
+    new_taboo = torch.where(
+        taboo_active, taboo - 1, (chosen == cur).to(torch.int32) * params.taboo_iterations
+    )
+    return chosen, qstar, new_taboo
+
+
+def _reverse_q(occ, cur, star, n_colors: int, eps):
+    """q(cur | star) per vertex from the occupancy of the STAR colouring,
+    with the STANDARD formula for every variant, as the reference's
+    lookOldColoring (coloringMCMC_standard.cu:88-135)."""
+    f32 = torch.float32
+    zn = occ.sum(1, dtype=torch.int32)
+    zp = n_colors - zn
+    move_q = torch.where(
+        _at_color(occ, cur), eps, (1.0 - eps * zn.to(f32)) / zp.clamp(min=1).to(f32)
+    )
+    keep_q = torch.where(star == cur, 1.0 - (n_colors - 1) * eps, eps)
+    q_old = torch.where(_at_color(occ, star), move_q, keep_q)
+    return torch.where(zp == 0, 1.0, q_old)
+
+
 def _sweep_matmul(
     adj: torch.Tensor,
     params: MCMCParams,
@@ -236,7 +285,6 @@ def _sweep_matmul(
         p_eff_pad = torch.zeros((n_col_pad,), dtype=torch.float32, device=dev)
         p_eff_pad[:n_colors] = p_eff
     eps = torch.tensor(params.epsilon, dtype=torch.float32, device=dev)
-    keep_prob = 1.0 - (n_colors - 1) * eps
     # conflict edges touch each endpoint once: Σ_i NC[i, c_i] = 2 E_conf
     conf2 = _at_color(nc, colors).sum()
     star = torch.empty_like(colors)
@@ -244,15 +292,9 @@ def _sweep_matmul(
     logq = torch.zeros((), dtype=torch.float32, device=dev)
     for s in range(0, n_pad, block):
         e = min(s + block, n_pad)
-        cur, tab, real_b = colors[s:e], taboo[s:e], real[s:e]
-        q = _proposal_q(cur, nc[s:e] > 0, params, p_eff_pad, eps, n_colors)
-        chosen = _sample_cdf(q, unif[s:e], n_colors)
-        qstar = q.gather(1, chosen.to(torch.int64)[:, None])[:, 0]
-        taboo_active = tab > 0
-        chosen = torch.where(taboo_active, cur, chosen)
-        qstar = torch.where(taboo_active, keep_prob, qstar)
-        new_taboo[s:e] = torch.where(
-            taboo_active, tab - 1, (chosen == cur).to(torch.int32) * params.taboo_iterations
+        cur, real_b = colors[s:e], real[s:e]
+        chosen, qstar, new_taboo[s:e] = _propose(
+            cur, nc[s:e] > 0, taboo[s:e], unif[s:e], params, p_eff_pad, eps
         )
         star[s:e] = torch.where(real_b, chosen, cur)
         qstar = torch.where(real_b, qstar, 1.0)
@@ -271,27 +313,130 @@ def _reverse_logq_matmul(
     """Σ log q(colors | star) for Hastings, read from NC(star)
     (``_reverse_logq_matmul``)."""
     n_pad = colors.shape[0]
-    n_colors = params.n_colors
     dev = colors.device
-    f32 = torch.float32
-    eps = torch.tensor(params.epsilon, dtype=f32, device=dev)
-    col_valid = torch.arange(nc_star.shape[1], device=dev)[None, :] < n_colors
+    eps = torch.tensor(params.epsilon, dtype=torch.float32, device=dev)
+    col_valid = torch.arange(nc_star.shape[1], device=dev)[None, :] < params.n_colors
     real = torch.arange(n_pad, device=dev) < n_nodes
-    total = torch.zeros((), dtype=f32, device=dev)
+    total = torch.zeros((), dtype=torch.float32, device=dev)
     for s in range(0, n_pad, block):
         e = min(s + block, n_pad)
-        nc_blk, cur, st = nc_star[s:e], colors[s:e], star[s:e]
-        zn = ((nc_blk > 0) & col_valid).sum(1, dtype=torch.int32)
-        zp = n_colors - zn
-        occ_star = _at_color(nc_blk, st) > 0
-        occ_cur = _at_color(nc_blk, cur) > 0
-        move_q = torch.where(
-            occ_cur, eps, (1.0 - eps * zn.to(f32)) / zp.clamp(min=1).to(f32)
-        )
-        keep_q = torch.where(st == cur, 1.0 - (n_colors - 1) * eps, eps)
-        q_old = torch.where(occ_star, move_q, keep_q)
-        q_old = torch.where(zp == 0, 1.0, q_old)
+        occ = (nc_star[s:e] > 0) & col_valid
+        q_old = _reverse_q(occ, colors[s:e], star[s:e], params.n_colors, eps)
         q_old = torch.where(real[s:e], q_old, 1.0)
+        total += torch.log(q_old.clamp(min=1e-30)).sum()
+    return total
+
+
+# ------------------------- ELL sweeps (gather) -------------------------
+
+# Cap on the temporaries of one row band of an ELL pass (sweep, conflict
+# count, tailcut round, first fit).  A band of SB rows materialises the
+# [SB, d_pad] int32 neighbour colours plus, in the plain passes, an int64
+# index of the same shape (torch's scatter and advanced indexing take
+# int64 indices; the gathers use index_select, which takes the int32 ids
+# as they are) and a few bool masks: _SLOT_BYTES per slot.  2 GiB of
+# band temporaries is small beside the 80 GB card yet gives bands of
+# ~100k rows at degree ~1300, so a sweep of ER(1M, 0.001) is ~10 K2
+# launches.
+_FUSED_NC_BYTES_CAP = 2 * 1024**3
+_SLOT_BYTES = 4 + 8 + 4
+
+
+def _fused_super_block(n_pad: int, d_pad: int) -> int:
+    """Rows per band of an ELL pass: a multiple of 128 whose [SB, d_pad]
+    temporaries stay under the cap (n_pad itself when it fits).  Bands
+    may be ragged: torch slices need no divisor of n_pad."""
+    cap_rows = _FUSED_NC_BYTES_CAP // max(d_pad * _SLOT_BYTES, 1)
+    if n_pad <= cap_rows:
+        return n_pad
+    return max(128, cap_rows // 128 * 128)
+
+
+def _bands(n_pad: int, d_pad: int):
+    sb = _fused_super_block(n_pad, d_pad)
+    for s in range(0, n_pad, sb):
+        yield s, min(s + sb, n_pad)
+
+
+def _conflict_edges(ell: EllGraph, colors: torch.Tensor) -> torch.Tensor:
+    """Conflict edges of ``colors`` over the ELL (0-dim int64), counted
+    in row bands."""
+    ids = torch.arange(ell.n_pad, dtype=torch.int32, device=colors.device)
+    total = torch.zeros((), dtype=torch.int64, device=colors.device)
+    for s, e in _bands(ell.n_pad, ell.d_pad):
+        neigh = ell.neighbors[s:e]
+        nc = neighbor_colors(neigh, colors)
+        total += ((nc == colors[s:e, None]) & (neigh > ids[s:e, None])).sum()
+    return total
+
+
+def _ell_sweep(ell: EllGraph, params: MCMCParams, colors, taboo, unif, p_eff,
+               eps, sweep_fn):
+    """One full sweep over the ELL in row bands: gather the band's
+    neighbour colours, run ``sweep_fn`` (K2 or its plain version) on them,
+    then keep phantom rows as they are.  Returns (star, new_taboo,
+    Σ log qstar, conflict edges of ``colors``)."""
+    n_pad, d_pad = ell.neighbors.shape
+    dev = colors.device
+    eps_t = torch.as_tensor(
+        params.epsilon if eps is None else eps, dtype=torch.float32, device=dev
+    )
+    ids = torch.arange(n_pad, dtype=torch.int32, device=dev)
+    star = torch.empty_like(colors)
+    qstar = torch.empty((n_pad,), dtype=torch.float32, device=dev)
+    new_taboo = torch.empty_like(taboo)
+    conf = torch.zeros((), dtype=torch.int64, device=dev)
+    for s, e in _bands(n_pad, d_pad):
+        neigh = ell.neighbors[s:e]
+        st, qs, nt, cf = sweep_fn(
+            neighbor_colors(neigh, colors), neigh, colors[s:e], taboo[s:e],
+            ids[s:e], unif[s:e], p_eff, eps_t, params,
+        )
+        star[s:e], qstar[s:e], new_taboo[s:e] = st, qs, nt
+        conf += cf
+    real = ell.node_mask
+    star = torch.where(real, star, colors)
+    qstar = torch.where(real, qstar, 1.0)
+    new_taboo = torch.where(real, new_taboo, 0)
+    logq = torch.log(qstar.clamp(min=1e-30)).sum()
+    return star, new_taboo, logq, conf
+
+
+def _sweep_pallas_fused(ell: EllGraph, params: MCMCParams, block: int, colors,
+                        taboo, unif, p_eff, n_nodes: int | None = None, eps=None):
+    """The ``pallas`` backend's sweep: kernel K2 per row band, with the
+    conflict count of the CURRENT colouring fused in, so an iteration
+    costs one neighbour-colour gather.  Returns (star, new_taboo,
+    Σ log qstar, conflicts).  ``block`` and ``n_nodes`` are unused (the
+    bands are sized by ``_fused_super_block``, the ELL knows n_nodes);
+    they keep the signature of ``_sweep_matmul``."""
+    from mcmc_colorer_tpu_torch.ops.resample import resample_sweep
+
+    return _ell_sweep(ell, params, colors, taboo, unif, p_eff, eps, resample_sweep)
+
+
+def _sweep(ell: EllGraph, params: MCMCParams, block: int, colors, taboo, unif,
+           p_eff, eps=None):
+    """The ``xla`` backend's sweep, K2's plain version per row band.
+    Returns (star, new_taboo, Σ log qstar), as JAX's ``_sweep``."""
+    from mcmc_colorer_tpu_torch.ops.resample import resample_sweep_reference
+
+    return _ell_sweep(
+        ell, params, colors, taboo, unif, p_eff, eps, resample_sweep_reference
+    )[:3]
+
+
+def _reverse_logq(ell: EllGraph, params: MCMCParams, block: int, colors, star):
+    """Σ log q(colors | star) for Hastings, from the occupancy of the STAR
+    colouring over the ELL."""
+    n_colors = params.n_colors
+    dev = colors.device
+    eps = torch.tensor(params.epsilon, dtype=torch.float32, device=dev)
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for s, e in _bands(ell.n_pad, ell.d_pad):
+        occ = occupancy_matrix(neighbor_colors(ell.neighbors[s:e], star), n_colors)
+        q_old = _reverse_q(occ, colors[s:e], star[s:e], n_colors, eps)
+        q_old = torch.where(ell.node_mask[s:e], q_old, 1.0)
         total += torch.log(q_old.clamp(min=1e-30)).sum()
     return total
 
@@ -303,7 +448,7 @@ def _reverse_logq_matmul(
 class ChainState:
     """The chain's carry (JAX: colors, taboo, key, rip, conflicts, trace,
     done).  The key is the uniform source, held by the caller; the
-    scalars and the trace live on the host, since the do-while reads the
+    scalars and the trace live on the host, since the loops read the
     conflict count there every body."""
 
     colors: torch.Tensor     # [n_pad] int32
@@ -314,43 +459,65 @@ class ChainState:
     done: bool               # the do-while's exit flag
 
 
-def _chain_init(n_pad: int, n_nodes: int, params: MCMCParams, source, device) -> ChainState:
-    """Initial carry (``_chain_init`` with fused=True: the conflict count
-    is a sentinel the first body overwrites)."""
+def _chain_init(n_pad: int, n_nodes: int, params: MCMCParams, source, device,
+                ell: EllGraph | None = None) -> ChainState:
+    """Initial carry.  Without ``ell`` it is JAX's ``_chain_init`` with
+    fused=True (the conflict count is a sentinel the first do-while body
+    overwrites); with ``ell`` it is fused=False, for the generic loop: the
+    conflict count of the initial colouring, recorded in trace[0]."""
+    colors = _init_colors(n_pad, n_nodes, params, source, device)
+    trace = np.full((params.max_iterations + 1,), -1, dtype=np.int32)
+    conf = 2**30
+    if ell is not None:
+        conf = int(_conflict_edges(ell, colors))
+        trace[0] = conf
     return ChainState(
-        colors=_init_colors(n_pad, n_nodes, params, source, device),
+        colors=colors,
         taboo=torch.zeros((n_pad,), dtype=torch.int32, device=device),
         rip=0,
-        conf_last=2**30,
-        trace=np.full((params.max_iterations + 1,), -1, dtype=np.int32),
+        conf_last=conf,
+        trace=trace,
         done=False,
     )
 
 
-def _chain_body(adj, state: ChainState, *, params: MCMCParams, block: int,
-                n_nodes: int, source) -> ChainState:
-    """One execution of the do-while body (``_chain_segment_matmul.body``)."""
+def _p_eff_of(colors, params: MCMCParams, n_nodes: int, node_mask):
+    hist = None
+    if _needs_histogram(params):
+        hist = color_histogram(colors, params.n_colors, node_mask)
+    return _variant_distribution(params, hist, n_nodes, colors.device)
+
+
+def _chain_body(graph, state: ChainState, *, params: MCMCParams, block: int,
+                n_nodes: int, source, sweep=None) -> ChainState:
+    """One execution of the do-while body (``_chain_segment_matmul.body``
+    and ``_chain_segment_fused.body``): measure the conflicts of the
+    current colouring inside the sweep; at or below the threshold keep
+    the colouring and stop, else take the proposal.  ``sweep`` is
+    ``_sweep_matmul`` (default; ``graph`` is the packed A) or
+    ``_sweep_pallas_fused`` (``graph`` is an ``EllGraph``).  Hastings runs
+    only on the packed chain: ``MCMCColorer`` sends Hastings on the ELL
+    through the generic loop, as JAX does."""
+    sweep = sweep or _sweep_matmul
     n_pad = state.colors.shape[0]
     dev = state.colors.device
     colors = state.colors
     unif = source.next(n_pad)
     u_acc = source.next(1) if params.hastings else None
-    hist = None
-    if _needs_histogram(params):
-        real = torch.arange(n_pad, device=dev) < n_nodes
-        hist = color_histogram(colors, params.n_colors, real)
-    p_eff = _variant_distribution(params, hist, n_nodes, dev)
-    star, new_taboo, logq_star, conf_cur_t, _nc = _sweep_matmul(
-        adj, params, block, colors, state.taboo, unif, p_eff, n_nodes
-    )
+    real = torch.arange(n_pad, device=dev) < n_nodes
+    p_eff = _p_eff_of(colors, params, n_nodes, real)
+    star, new_taboo, logq_star, conf_cur_t = sweep(
+        graph, params, block, colors, state.taboo, unif, p_eff, n_nodes
+    )[:4]
     conf_cur = int(conf_cur_t)  # host read: the do-while's exit test
     trace = state.trace
     trace[state.rip] = conf_cur  # in place: the host trace is the carry's
     if conf_cur <= params.tailcut_threshold(n_nodes):
         return ChainState(colors, state.taboo, state.rip, conf_cur, trace, True)
     if params.hastings:
-        real = torch.arange(n_pad, device=dev) < n_nodes
-        nc_star = neighbor_color_counts(adj, star, params.n_colors, real)
+        if sweep is not _sweep_matmul:
+            raise ValueError("the do-while runs Hastings on the packed chain only")
+        nc_star = neighbor_color_counts(graph, star, params.n_colors, real)
         conf_star = _at_color(nc_star, star).sum() // 2
         logq_old = _reverse_logq_matmul(nc_star, params, block, colors, star, n_nodes)
         log_ratio = (
@@ -364,14 +531,294 @@ def _chain_body(adj, state: ChainState, *, params: MCMCParams, block: int,
     return ChainState(star, new_taboo, state.rip + 1, conf_cur, trace, False)
 
 
-def _chain_segment_matmul(adj, state: ChainState, budget: int, *,
-                          params: MCMCParams, block: int, n_nodes: int,
-                          source) -> ChainState:
-    """Run bodies until done, ``budget`` more iterations, or the cap."""
+def _do_while(graph, state: ChainState, budget: int, *, params, block, n_nodes,
+              source, sweep) -> ChainState:
+    """Run do-while bodies until done, ``budget`` more iterations, or the cap."""
     limit = min(state.rip + budget, params.max_iterations)
     while not state.done and state.rip < limit:
         state = _chain_body(
-            adj, state, params=params, block=block, n_nodes=n_nodes,
-            source=source,
+            graph, state, params=params, block=block, n_nodes=n_nodes,
+            source=source, sweep=sweep,
         )
     return state
+
+
+def _chain_segment_matmul(adj, state: ChainState, budget: int, *,
+                          params: MCMCParams, block: int, n_nodes: int,
+                          source) -> ChainState:
+    """The packed chain's do-while (K1 per sweep)."""
+    return _do_while(adj, state, budget, params=params, block=block,
+                     n_nodes=n_nodes, source=source, sweep=_sweep_matmul)
+
+
+def _chain_segment_fused(ell: EllGraph, state: ChainState, budget: int, *,
+                         params: MCMCParams, block: int, source) -> ChainState:
+    """The ELL chain's do-while (K2 per sweep)."""
+    return _do_while(ell, state, budget, params=params, block=block,
+                     n_nodes=ell.n_nodes, source=source, sweep=_sweep_pallas_fused)
+
+
+def _chain_final_conflicts(ell: EllGraph, state: ChainState) -> int:
+    """Conflicts of the do-while's final colouring: a converged loop
+    measured it in its last body; a loop that stopped at the cap holds
+    the pre-swap count, so the final colouring is measured."""
+    if state.done:
+        return state.conf_last
+    return int(_conflict_edges(ell, state.colors))
+
+
+def _chain_body_generic(ell: EllGraph, state: ChainState, *, params: MCMCParams,
+                        block: int, backend: str, source) -> ChainState:
+    """One body of the generic loop (``_chain_segment.body``, backends
+    ``xla`` and Hastings): sweep, count the star colouring's conflicts,
+    accept (always, or by the Metropolis–Hastings test)."""
+    n_pad = ell.n_pad
+    dev = state.colors.device
+    colors, conflicts = state.colors, state.conf_last
+    unif = source.next(n_pad)
+    u_acc = source.next(1) if params.hastings else None
+    p_eff = _p_eff_of(colors, params, ell.n_nodes, ell.node_mask)
+    if backend == "pallas":
+        star, new_taboo, logq_star, _ = _sweep_pallas_fused(
+            ell, params, block, colors, state.taboo, unif, p_eff
+        )
+    else:
+        star, new_taboo, logq_star = _sweep(
+            ell, params, block, colors, state.taboo, unif, p_eff
+        )
+    conf_star = int(_conflict_edges(ell, star))  # host read: the loop's test
+    colors_next, conf_next = star, conf_star
+    if params.hastings:
+        logq_old = _reverse_logq(ell, params, block, colors, star)
+        log_ratio = (
+            -torch.tensor(params.lambda_, dtype=torch.float32, device=dev)
+            * torch.tensor(float(conf_star - conflicts), dtype=torch.float32, device=dev)
+            + logq_old
+            - logq_star
+        )
+        if not bool(torch.log(u_acc[0].clamp(min=1e-30)) < log_ratio):
+            colors_next, conf_next = colors, conflicts  # rejected
+    rip = state.rip + 1
+    state.trace[rip] = conf_next
+    z = params.tailcut_threshold(ell.n_nodes)
+    return ChainState(colors_next, new_taboo, rip, conf_next, state.trace, conf_next <= z)
+
+
+def _chain_segment(ell: EllGraph, state: ChainState, budget: int, *,
+                   params: MCMCParams, block: int, backend: str, source) -> ChainState:
+    """The generic loop: bodies while the conflicts exceed the threshold,
+    at most ``budget`` more iterations, never past the cap."""
+    z = params.tailcut_threshold(ell.n_nodes)
+    limit = min(state.rip + budget, params.max_iterations)
+    while state.conf_last > z and state.rip < limit:
+        state = _chain_body_generic(
+            ell, state, params=params, block=block, backend=backend, source=source
+        )
+    return state
+
+
+# ---------------------------- flat tailcut ----------------------------
+
+
+def _tailcut_init(ell: EllGraph, colors, *, params: MCMCParams):
+    """Relabel colours by ascending class size (a stable sort, as
+    ``jnp.argsort``), so "first free colour in ascending-histogram order"
+    becomes a smallest-index first fit (kernel K3).  Returns
+    (colors_r, ordered); ``_tailcut_finish`` maps back."""
+    n_colors = params.n_colors
+    dev = colors.device
+    hist = color_histogram(colors, n_colors, ell.node_mask)
+    ordered = torch.argsort(hist, stable=True).to(torch.int32)
+    rank = torch.zeros((n_colors + 1,), dtype=torch.int32, device=dev)
+    rank[ordered.to(torch.int64)] = torch.arange(n_colors, dtype=torch.int32, device=dev)
+    rank[n_colors] = n_colors
+    colors_r = rank[colors.clamp(0, n_colors).to(torch.int64)]
+    return torch.where(ell.node_mask, colors_r, n_colors), ordered
+
+
+def _tailcut_finish(ell: EllGraph, colors_r, ordered, *, params: MCMCParams):
+    """Map rank-space colours back through the class-size order."""
+    n_colors = params.n_colors
+    tail = torch.full((1,), n_colors, dtype=torch.int32, device=colors_r.device)
+    ordered_ext = torch.cat([ordered, tail])
+    out = ordered_ext[colors_r.clamp(0, n_colors).to(torch.int64)]
+    return torch.where(ell.node_mask, out, n_colors)
+
+
+def _tailcut_body_flat(ell: EllGraph, carry, source, *, params: MCMCParams,
+                       block: int):
+    """One flat tailcut round on ``carry`` = (colors_r, conflicts, rounds,
+    done), in rank space.  Conflicted vertices with a free colour (K3's
+    first fit) and no lower-id such neighbour move to it; when the round
+    can move nobody, the conflicted vertices take the round's random
+    colours (the stall escape).  ``conflicts`` is the count of the
+    colouring the round starts from, and the round is the last when it
+    is 0, as in JAX."""
+    from mcmc_colorer_tpu_torch.ops.firstfit import first_fit
+
+    cols_r, _, rounds, _ = carry
+    n_pad, d_pad = ell.neighbors.shape
+    n_colors = params.n_colors
+    dev = cols_r.device
+    ids = torch.arange(n_pad, dtype=torch.int32, device=dev)
+    allow = torch.ones((n_colors,), dtype=torch.int32, device=dev)
+    conf = torch.zeros((), dtype=torch.int64, device=dev)
+    flags = torch.empty((n_pad,), dtype=torch.bool, device=dev)
+    cand = torch.empty((n_pad,), dtype=torch.int32, device=dev)
+    for s, e in _bands(n_pad, d_pad):
+        neigh = ell.neighbors[s:e]
+        nc = neighbor_colors(neigh, cols_r)
+        same = nc == cols_r[s:e, None]
+        conf += (same & (neigh > ids[s:e, None])).sum()
+        flags[s:e] = same.any(1)
+        cand[s:e] = first_fit(nc, allow, n_colors)
+    flags &= ell.node_mask
+    cand = torch.where(ell.node_mask, cand, -1)
+    movable = flags & (cand >= 0)
+    movable_ext = torch.cat([movable, torch.zeros((1,), dtype=torch.bool, device=dev)])
+    lower = torch.empty((n_pad,), dtype=torch.bool, device=dev)
+    for s, e in _bands(n_pad, d_pad):
+        neigh = ell.neighbors[s:e]
+        nb_movable = movable_ext.index_select(0, neigh.reshape(-1)).reshape(neigh.shape)
+        lower[s:e] = (nb_movable & (neigh < ids[s:e, None])).any(1)
+    active = movable & ~lower
+    stalled = (conf > 0) & ~active.any()
+    rnd = source.randint(n_pad, n_colors)
+    new_r = torch.where(active, cand, torch.where(stalled & flags, rnd, cols_r))
+    conf_i = int(conf)  # host read: the loop's exit test
+    return new_r, conf_i, rounds + 1, conf_i == 0
+
+
+def _tailcut_max_rounds(ell: EllGraph) -> int:
+    return ell.n_nodes + 1000
+
+
+def _tailcut_segment(ell: EllGraph, carry, source, budget: int, *,
+                     params: MCMCParams, block: int):
+    """Tailcut rounds until done, ``budget`` more rounds, or the cap."""
+    limit = min(carry[2] + budget, _tailcut_max_rounds(ell))
+    while not carry[3] and carry[2] < limit:
+        carry = _tailcut_body_flat(ell, carry, source, params=params, block=block)
+    return carry
+
+
+# ------------------------------ colorer ------------------------------
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class MCMCColorer:
+    """Balanced-colouring MCMC chain over a host ``Graph`` laid out as a
+    flat ELL on ``device`` (counterpart of JAX's ``MCMCColorer``).
+
+    ``backend``: ``pallas`` (kernel K2 per sweep, with the conflict count
+    fused in), ``xla`` (K2's plain version and a separate conflict count,
+    JAX's generic loop) or ``auto`` (= ``pallas``).  Hastings always runs
+    the generic loop, with K2 under ``pallas``.  The tailcut's first fit
+    is kernel K3 on CUDA tensors.  ``matmul`` / ``packed`` over a host
+    graph and ``layout="bucketed"`` are not ported yet.
+    """
+
+    def __init__(
+        self,
+        graph: Graph,
+        params: MCMCParams,
+        block_size: int | None = None,
+        backend: str = "auto",
+        layout: str = "flat",
+        device="cpu",
+    ) -> None:
+        if layout == "bucketed":
+            raise NotImplementedError(
+                "the degree-bucketed ELL layout is not ported yet "
+                "(ROADMAP.md Queue 1 item 7)"
+            )
+        if layout != "flat":
+            raise ValueError(f"unknown layout {layout!r}")
+        if backend == "auto":
+            backend = "pallas"
+        if backend in ("matmul", "packed"):
+            raise NotImplementedError(
+                f"backend={backend!r} over a host graph is not ported yet "
+                "(ROADMAP.md Queue 1 item 8); the packed chain runs through "
+                "models/mcmc_resident.py"
+            )
+        if backend not in ("pallas", "xla"):
+            raise ValueError(f"unknown backend {backend!r}")
+        self.graph = graph
+        self.params = params
+        self.backend = backend
+        self.layout = layout
+        self.device = torch.device(device)
+        self.block = block_size or choose_block_size(graph.n, params.n_colors)
+        t0 = time.perf_counter()
+        self.ell = graph.to_ell(
+            pad_nodes_to=self.block,
+            pad_degree_to=degree_pad_for(graph, backend),
+            device=self.device,
+        )
+        _sync(self.device)
+        self.setup_seconds = time.perf_counter() - t0
+        self._fused = backend == "pallas" and not params.hastings
+
+    def run(self, seed: int, repetition: int = 0) -> Coloring:
+        if os.environ.get("MCMC_COLORER_TRACE", "") not in ("", "0", "false"):
+            raise NotImplementedError(
+                "the free-colour TRACE is not ported yet (ROADMAP.md Queue 1 item 5)"
+            )
+        params, ell, dev = self.params, self.ell, self.device
+        source = TorchUniformSource(seed, repetition, dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        if self._fused:
+            state = _chain_init(ell.n_pad, ell.n_nodes, params, source, dev)
+            state = _chain_segment_fused(
+                ell, state, params.max_iterations, params=params,
+                block=self.block, source=source,
+            )
+            conflicts = _chain_final_conflicts(ell, state)
+            sweeps = int((state.trace >= 0).sum())
+        else:
+            state = _chain_init(ell.n_pad, ell.n_nodes, params, source, dev, ell=ell)
+            state = _chain_segment(
+                ell, state, params.max_iterations, params=params,
+                block=self.block, backend=self.backend, source=source,
+            )
+            conflicts = state.conf_last
+            sweeps = state.rip
+        _sync(dev)
+        chain_s = time.perf_counter() - t0
+        colors = state.colors
+        tc_rounds = 0
+        if params.tailcut:
+            colors_r, ordered = _tailcut_init(ell, colors, params=params)
+            tc = _tailcut_segment(
+                ell, (colors_r, conflicts, 0, False), source,
+                _tailcut_max_rounds(ell), params=params, block=self.block,
+            )
+            colors = _tailcut_finish(ell, tc[0], ordered, params=params)
+            conflicts, tc_rounds = tc[1], tc[2]
+        out = colors[: self.graph.n].cpu().numpy()
+        total_s = time.perf_counter() - t0
+        rip = state.rip
+        return Coloring(
+            colors=out,
+            n_colors=params.n_colors,
+            iterations=rip,
+            converged=conflicts == 0 or conflicts <= params.tailcut_threshold(self.graph.n),
+            duration_ms=total_s * 1e3,
+            conflict_trace=state.trace[: rip + 1].astype(np.int64),
+            extra={
+                "final_conflicts": conflicts,
+                "max_iter_reached": rip >= params.max_iterations,
+                "tailcut_rounds": tc_rounds,
+                "sweeps": sweeps,
+                "chain_seconds": chain_s,
+                # the tailcut and the colours' readback
+                "tailcut_seconds": total_s - chain_s,
+                "setup_seconds": self.setup_seconds,
+            },
+        )

@@ -27,6 +27,7 @@ from mcmc_colorer_tpu_torch.models.mcmc import (
     _at_color,
     _chain_init,
     _chain_segment_matmul,
+    _sync,
     choose_block_size,
 )
 from mcmc_colorer_tpu_torch.ops.dense_adj import (
@@ -47,11 +48,6 @@ from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def conflicts_from_packed(adj, colors, n_colors, node_mask) -> torch.Tensor:

@@ -4,7 +4,8 @@ The library has a plain C interface and is loaded with ctypes.  It is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root
 of the checkout (git-ignored), under a name keyed by a hash of the source
 and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  Nothing here runs when a module is imported.
+loaded as it is.  Builds of different sources may run in parallel
+threads.  Nothing here runs when a module is imported.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
+_path_locks: dict[Path, threading.Lock] = {}
 _loaded: dict[Path, "BuiltLibrary"] = {}
 
 
@@ -60,7 +62,10 @@ def build_library(name: str, source: Path) -> BuiltLibrary:
     src = source.read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     path = BUILD_DIR / f"lib{name}_{key}.so"
+    # one lock per library: different sources build in parallel threads
     with _lock:
+        path_lock = _path_locks.setdefault(path, threading.Lock())
+    with path_lock:
         if path in _loaded:
             return _loaded[path]
         t0 = time.perf_counter()

@@ -10,7 +10,10 @@ the JAX chain consumes keys:
 - one call per body execution of the chain loop, including the final
   body that detects convergence (Hastings adds a second, scalar call for
   the acceptance test);
-- one call per tailcut round (the coin flips).
+- one call per tailcut round: the coin flips of the resident NC
+  tailcut (``next``), or the stall-escape colours of the flat ELL
+  tailcut (``randint``, drawn every round, stalled or not, as JAX draws
+  ``randint(fold_in(key, round))``).
 
 Tests substitute a source that replays JAX's own draws in that order, so
 both packages can be fed identical uniforms.  The two generators give
@@ -40,4 +43,11 @@ class TorchUniformSource:
         return torch.rand(
             (n,), generator=self.generator, device=self.device,
             dtype=torch.float32,
+        )
+
+    def randint(self, n: int, high: int) -> torch.Tensor:
+        """int32[n] uniform on [0, high)."""
+        return torch.randint(
+            0, high, (n,), generator=self.generator, device=self.device,
+            dtype=torch.int32,
         )
