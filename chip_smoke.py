@@ -6,11 +6,13 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds every kernel from ``csrc/`` (one nvcc per source, all started
-together) and holds each against its plain PyTorch version on the card:
-K1 (bit-packed NC) exactly, K3 (masked first fit) exactly, K2 (fused
-resample sweep) with exact conflict counts and sampled colours that may
-differ only at CDF-boundary vertices.  Then it drives both main paths
-through the library surface:
+together, into the git-ignored ``build/kernels/``) and holds each against
+its plain PyTorch version on the card: K1 (bit-packed NC) exactly, K3
+(masked first fit over the neighbours' colours, which it gathers itself)
+exactly, K2 (fused resample sweep) with exact conflict counts and sampled
+colours that may differ only at CDF-boundary vertices.  Then it drives
+both main paths through the library surface, where every colorer runs on
+the card by default:
 
 - slice 1, the resident path: the hash generator word for word, ER(n=100k,
   p=0.01) with balance-dynamic proposals and the tailcut, checked against
@@ -27,7 +29,10 @@ checkout, it exits non-zero before printing any result.
 
 The last line of standard output is one JSON object naming the device;
 the line before it is the card's name and power limit; the one before
-that holds the kernels' launch counts, errors and times.
+that holds the kernels' launch counts, errors and times, each beside its
+bound: the least time the card could take for the same work, the larger
+of the bytes it must move (each input read once, each output written
+once) over the memory rate and its operations over their peak rate.
 """
 
 from __future__ import annotations
@@ -57,6 +62,12 @@ CONFIG4_N, CONFIG4_M, CONFIG4_SEED = 50_000, 8, 4
 # uniform lies within BOUNDARY_RTOL (relative) of the plain cdf at the
 # plain colour or the one before it, at no more than this share of rows
 BOUNDARY_RTOL, BOUNDARY_MAX_FRACTION = 1e-5, 1e-3
+# the H100 SXM's device memory rate and its float32 rate outside the
+# tensor cores (NVIDIA's data sheet); int32 adds and logic ops issue at
+# half the float32 rate (64 of an SM's 128 lanes a clock)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -85,6 +96,18 @@ def _median_ms(fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
+def _bound(n_bytes: int, ops: int, ops_per_s: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over their peak rate."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _random_colors(n: int, n_pad: int, n_colors: int, gen, device):
     """Colours in [0, n_colors) for real vertices, -1 for phantoms."""
     import torch
@@ -96,9 +119,10 @@ def _random_colors(n: int, n_pad: int, n_colors: int, gen, device):
 
 
 def phase_k1(device, shapes, bench_n_pad=None, bench_colors=1152, seed=5):
-    """K1 against its plain version, exactly, at ``shapes`` and (if given)
-    at the bench shape, where both are also timed.  Returns
-    (max_abs_err, kernel_ms, plain_ms)."""
+    """K1 against its plain version, exactly, at ``shapes``, on rows of
+    2**16 set bits (the kernel's 32-bit path) and (if given) at the bench
+    shape, where both are also timed.  Returns (max_abs_err, kernel_ms,
+    plain_ms, bytes moved, set bits) at the bench shape."""
     import torch
 
     from mcmc_colorer_tpu_torch.ops import packed_nc as k1
@@ -118,8 +142,15 @@ def phase_k1(device, shapes, bench_n_pad=None, bench_colors=1152, seed=5):
         _require(e == 0, f"K1 differs from its plain version at {(n, p, ncol)}: {e}")
         err = max(err, e)
         print(f"phase 2 K1 n={n} p={p} n_col_pad={n_col_pad_of(ncol)}: exact")
+    wide = torch.randint(-2**31, 2**31 - 1, (64, 2048), generator=gen, device=device,
+                         dtype=torch.int32)
+    wide[::2] = -1  # every bit set: 65,536 a row
+    cw = torch.randint(-1, 8, (2048 * 32,), generator=gen, device=device, dtype=torch.int32)
+    e = int((k1.packed_nc(wide, cw, 128) - k1.packed_nc_reference(wide, cw, 128)).abs().max())
+    _require(e == 0, f"K1 differs from its plain version on rows of 65,536 set bits: {e}")
+    print("phase 2 K1 rows of 65,536 set bits (the 32-bit path): exact")
     if bench_n_pad is None:
-        return err, None, None
+        return err, None, None, None, None
     # the bench shape: the hash graph of the bench density (another graph
     # seed than the main path's, which generates its own)
     adj = er_packed_on_device(BENCH_N, BENCH_P, 1, bench_n_pad, device=device)
@@ -133,13 +164,14 @@ def phase_k1(device, shapes, bench_n_pad=None, bench_colors=1152, seed=5):
     kernel_ms = _median_ms(lambda: k1.packed_nc_cuda(adj, colors, ncp))
     plain_ms = _median_ms(lambda: k1.packed_nc_reference(adj, colors, ncp))
     set_bits = int(degrees_from_packed(adj).sum())
+    n_bytes = _nbytes(adj, colors) + adj.shape[0] * ncp * 4
     print(
         f"phase 2 K1 bench shape n_pad={bench_n_pad} words={adj.shape[1]} "
         f"n_col_pad={ncp} set_bits={set_bits}: exact; "
         f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms "
-        f"(median of {TIMED_RUNS}, CUDA events)"
+        f"(median of {TIMED_RUNS}, CUDA events); moves {n_bytes} bytes"
     )
-    return max(err, e), kernel_ms, plain_ms
+    return max(err, e), kernel_ms, plain_ms, n_bytes, set_bits
 
 
 def _pack_edges_host(edges, n_pad: int):
@@ -315,9 +347,9 @@ def setup_config3(device):
     return g, ell, sb
 
 
-def _k3_check(k3, nc, allow, n_colors, cur, label):
-    got = k3.first_fit_cuda(nc, allow, n_colors, cur)
-    want = k3.first_fit_reference(nc, allow, n_colors, cur)
+def _k3_check(k3, neighbors, colors, allow, n_colors, cur, label):
+    got = k3.first_fit_cuda(neighbors, colors, allow, n_colors, cur)
+    want = k3.first_fit_plain(neighbors, colors, allow, n_colors, cur)
     err = int((got - want).abs().max()) if got.numel() else 0
     _require(err == 0, f"K3 differs from its plain version at {label}: {err}")
     print(f"phase 7 K3 {label}: exact ({int((got >= 0).sum())} of {got.numel()} rows found a colour)")
@@ -325,12 +357,14 @@ def _k3_check(k3, nc, allow, n_colors, cur, label):
 
 
 def phase_k3(device, ell3, sb):
-    """K3 against its plain version, exactly; timed at the config-3 band."""
+    """K3 (neighbour ids in, colours gathered in the kernel) against its
+    plain version (the gather, then first fit), exactly; timed at the
+    config-3 band.  Returns (max_abs_err, kernel_ms, plain_ms, bytes
+    moved, neighbour slots) at that band."""
     import torch
 
     from mcmc_colorer_tpu_torch.graph.generate import erdos_renyi
     from mcmc_colorer_tpu_torch.ops import firstfit as k3
-    from mcmc_colorer_tpu_torch.ops.neighbor import neighbor_colors
 
     gen = torch.Generator(device=device)
     gen.manual_seed(7)
@@ -342,25 +376,35 @@ def phase_k3(device, ell3, sb):
     colors = torch.randint(-1, ncol, (ell.n_pad,), generator=gen, device=device, dtype=i32)
     allow = torch.ones((ncol,), dtype=i32, device=device)
     allow[::7] = 0
-    err = _k3_check(k3, neighbor_colors(ell.neighbors, colors), allow, ncol, colors,
-                    f"ER(500, 0.05) n_colors={ncol} allow+cur")
-    # the shape of test_chunked_first_fit_wide_palette: 4500 colours
-    nc = torch.randint(-1, 4500, (256, 40), generator=gen, device=device, dtype=i32)
+    err = _k3_check(k3, ell.neighbors, colors, allow, ncol, colors,
+                    f"ER(500, 0.05) [{ell.n_pad}, {ell.d_pad}] n_colors={ncol} allow+cur")
+    # the palette of test_chunked_first_fit_wide_palette, 4500 colours:
+    # random ids (the padding id among them) into a random colour vector,
+    # rows of whole 16-byte vectors and rows that are not
+    n_ids = 1000
+    colors = torch.randint(-1, 4500, (n_ids,), generator=gen, device=device, dtype=i32)
     allow = torch.randint(0, 2, (4500,), generator=gen, device=device, dtype=i32)
     allow[:64] = 0
     cur = torch.randint(-1, 4500, (256,), generator=gen, device=device, dtype=i32)
-    err = max(err, _k3_check(k3, nc, allow, 4500, cur, "4500 colours allow+cur"))
-    # config 3: one band of the main path's tailcut, random colours
+    for d_pad in (40, 37):
+        ids = torch.randint(0, n_ids + 1, (256, d_pad), generator=gen, device=device, dtype=i32)
+        err = max(err, _k3_check(k3, ids, colors, allow, 4500, cur,
+                                 f"4500 colours, random ids [256, {d_pad}], allow+cur"))
+    # config 3: one band of the main path's first fit, random colours
     ncol = ell3.max_degree
     colors = _real_colors(ell3.n_nodes, ell3.n_pad, ncol, gen, device)
-    nc = neighbor_colors(ell3.neighbors[:sb], colors)
+    neigh = ell3.neighbors[:sb]
     allow = torch.ones((ncol,), dtype=i32, device=device)
-    err = max(err, _k3_check(k3, nc, allow, ncol, None, f"config-3 band [{sb}, {ell3.d_pad}] n_colors={ncol}"))
-    k_ms = _median_ms(lambda: k3.first_fit_cuda(nc, allow, ncol))
-    p_ms = _median_ms(lambda: k3.first_fit_reference(nc, allow, ncol))
-    print(f"phase 7 K3 config-3 band: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-          f"(median of {TIMED_RUNS}, CUDA events)")
-    return err, k_ms, p_ms
+    err = max(err, _k3_check(k3, neigh, colors, allow, ncol, None,
+                             f"config-3 band [{sb}, {ell3.d_pad}] n_colors={ncol}"))
+    k_ms = _median_ms(lambda: k3.first_fit_cuda(neigh, colors, allow, ncol))
+    p_ms = _median_ms(lambda: k3.first_fit_plain(neigh, colors, allow, ncol))
+    slots = int((neigh < colors.shape[0]).sum())
+    n_bytes = _nbytes(neigh, colors, allow) + sb * 4
+    print(f"phase 7 K3 config-3 band: kernel {k_ms:.3f} ms, plain (gather + first fit) "
+          f"{p_ms:.3f} ms (median of {TIMED_RUNS}, CUDA events); {slots} neighbour slots, "
+          f"moves {n_bytes} bytes")
+    return err, k_ms, p_ms, n_bytes, slots
 
 
 def _k2_inputs(ell, params, gen, device, taboo_max: int, rows: int | None = None):
@@ -464,9 +508,12 @@ def phase_k2(device, ell3, sb):
     frac, qerr = max(frac, f), max(qerr, e)
     k_ms = _median_ms(lambda: k2.resample_sweep_cuda(*args, p.epsilon, p))
     p_ms = _median_ms(lambda: k2.resample_sweep_reference(*args, p.epsilon, p))
+    rows, d_pad = args[0].shape
+    n_bytes = _nbytes(*args) + rows * 12  # star, qstar, new_taboo
+    ops = rows * (d_pad + p.n_colors)  # a compare a slot, a CDF step a colour
     print(f"phase 8 K2 config-3 band: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-          f"(median of {TIMED_RUNS}, CUDA events)")
-    return frac, qerr, k_ms, p_ms
+          f"(median of {TIMED_RUNS}, CUDA events); moves {n_bytes} bytes")
+    return frac, qerr, k_ms, p_ms, n_bytes, ops
 
 
 def phase_config3(device, g):
@@ -514,9 +561,9 @@ def phase_config3(device, g):
     l3 = k3.launches
     k3_total += l3
     valid = check_coloring(g, r.colors)
-    print(f"phase 9 config3 GreedyFF: setup {setup_s:.3f} s, rounds {r.iterations}, used "
-          f"colours {r.n_colors} (bound {gff.max_colors}), run {r.duration_ms / 1e3:.3f} s; "
-          f"K3 launches {l3}; valid {valid}")
+    print(f"phase 9 config3 GreedyFF: setup {setup_s:.3f} s; {r.n_colors} colours in "
+          f"{r.iterations} rounds (palette bound {gff.max_colors}), run "
+          f"{r.duration_ms / 1e3:.3f} s; K3 launches {l3}; valid {valid}")
     _require(l3 > 0, "GreedyFF launched K3 no time")
     _require(valid, "GreedyFF: invalid colouring")
     return k2_total, k3_total
@@ -623,7 +670,8 @@ def main() -> int:
     b1, b2, b3 = (built[k][1] for k in ("K1", "K2", "K3"))
     print(f"phase 1 build K1: {b1.seconds:.3f} s ({b1.path.name}); ptxas: {_ptxas(b1)}")
 
-    err, k_ms, p_ms = phase_k1(device, K1_SHAPES, bench_n_pad=_round_up(BENCH_N, 2048))
+    err, k_ms, p_ms, k1_bytes, k1_bits = phase_k1(
+        device, K1_SHAPES, bench_n_pad=_round_up(BENCH_N, 2048))
     torch.cuda.empty_cache()
     phase_hash(device)
     _, c, launches, g_bench = phase_main(device)
@@ -633,14 +681,21 @@ def main() -> int:
         print(f"phase 6 build {label}: {b.seconds:.3f} s ({b.path.name}); ptxas: {_ptxas(b)}")
     print(f"phase 6 all three builds, started together: {build_s:.3f} s")
     g3, ell3, sb = setup_config3(device)
-    err3, k3_ms, p3_ms = phase_k3(device, ell3, sb)
-    frac2, err2, k2_ms, p2_ms = phase_k2(device, ell3, sb)
+    err3, k3_ms, p3_ms, k3_bytes, k3_slots = phase_k3(device, ell3, sb)
+    frac2, err2, k2_ms, p2_ms, k2_bytes, k2_ops = phase_k2(device, ell3, sb)
     torch.cuda.empty_cache()
     launches2, launches3 = phase_config3(device, g3)
     del g3, ell3
     torch.cuda.empty_cache()
     phase_config4(device)
     phase_k2_vs_k1(device, c, g_bench)
+
+    def bound_keys(ms, n_bytes, ops, ops_per_s):
+        bound_ms, bound_by = _bound(n_bytes, ops, ops_per_s)
+        # no single PyTorch call computes what K1, K2 or K3 compute from
+        # their inputs (PERF.md): library_ms is null
+        return {"bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+                "library_ms": None}
 
     print(json.dumps({"kernels": [
         {
@@ -652,6 +707,8 @@ def main() -> int:
             "max_abs_err": err,
             "ms": k_ms,
             "plain_ms": p_ms,
+            # an add a set bit
+            **bound_keys(k_ms, k1_bytes, k1_bits, INT32_OPS_PER_S),
         },
         {
             "name": "resample_sweep",
@@ -663,6 +720,7 @@ def main() -> int:
             "boundary_fraction": frac2,
             "ms": k2_ms,
             "plain_ms": p2_ms,
+            **bound_keys(k2_ms, k2_bytes, k2_ops, FP32_OPS_PER_S),
         },
         {
             "name": "first_fit",
@@ -673,11 +731,13 @@ def main() -> int:
             "max_abs_err": err3,
             "ms": k3_ms,
             "plain_ms": p3_ms,
+            # an OR a neighbour
+            **bound_keys(k3_ms, k3_bytes, k3_slots, INT32_OPS_PER_S),
         },
     ]}))
     print(smi)
-    # the run uses one card, whatever the host holds
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
     return 0
 
 

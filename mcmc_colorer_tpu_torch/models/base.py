@@ -20,6 +20,22 @@ from mcmc_colorer_tpu_torch.graph.container import EllGraph, Graph
 CHECK_BAND_EDGES = 1 << 22
 
 
+def colorer_device(device="cuda") -> torch.device:
+    """The device a colorer runs on.  ``"cuda"`` (the colorers' default)
+    or ``None`` is the current CUDA device; without one this raises: a
+    colorer runs on the CPU only when asked to (``device="cpu"``)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"no CUDA device for device={str(dev)!r}: the colorers run on "
+                "the card; pass device='cpu' to run their plain versions on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 @dataclass
 class Coloring:
     """Result of a colorer: ``colors[i]`` is the 0-based colour of node i;

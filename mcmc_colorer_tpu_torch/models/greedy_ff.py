@@ -20,15 +20,17 @@ import numpy as np
 import torch
 
 from mcmc_colorer_tpu_torch.graph.container import EllGraph, Graph, degree_pad_for
-from mcmc_colorer_tpu_torch.models.base import Coloring
+from mcmc_colorer_tpu_torch.models.base import Coloring, colorer_device
 from mcmc_colorer_tpu_torch.models.mcmc import _bands, _sync, choose_block_size
-from mcmc_colorer_tpu_torch.ops.firstfit import first_fit, first_fit_reference
+from mcmc_colorer_tpu_torch.ops.firstfit import first_fit, first_fit_plain
 from mcmc_colorer_tpu_torch.ops.neighbor import neighbor_colors
 
 
 class GreedyFFColorer:
     """``backend``: ``pallas`` (K3 on CUDA tensors), ``xla`` (K3's plain
-    version everywhere) or ``auto`` (= ``pallas``)."""
+    version everywhere) or ``auto`` (= ``pallas``).  ``device``: the
+    current CUDA device by default (``colorer_device``); the CPU only
+    when asked for."""
 
     def __init__(
         self,
@@ -37,7 +39,7 @@ class GreedyFFColorer:
         backend: str = "auto",
         active: bool = False,
         layout: str = "flat",
-        device="cpu",
+        device="cuda",
     ) -> None:
         if active:
             raise NotImplementedError(
@@ -57,7 +59,7 @@ class GreedyFFColorer:
             raise ValueError(f"unknown backend {backend!r}")
         self.graph = graph
         self.backend = backend
-        self.device = torch.device(device)
+        self.device = colorer_device(device)
         self.max_colors = graph.max_degree + 1
         self.block = block_size or choose_block_size(graph.n, self.max_colors)
         self.ell = graph.to_ell(
@@ -90,12 +92,13 @@ class GreedyFFColorer:
 def _first_fit_pass(ell: EllGraph, colors, max_colors: int, block: int,
                     backend: str = "pallas"):
     """tentative_coloring: uncoloured vertices take their smallest colour
-    no neighbour uses, in row bands (one K3 launch a band)."""
-    ff_fn = first_fit if backend == "pallas" else first_fit_reference
+    no neighbour uses, in row bands (one K3 launch a band, which gathers
+    the neighbours' colours itself)."""
+    ff_fn = first_fit if backend == "pallas" else first_fit_plain
     allow = torch.ones((max_colors,), dtype=torch.int32, device=colors.device)
     out = torch.empty_like(colors)
     for s, e in _bands(ell.n_pad, ell.d_pad):
-        ff = ff_fn(neighbor_colors(ell.neighbors[s:e], colors), allow, max_colors)
+        ff = ff_fn(ell.neighbors[s:e], colors, allow, max_colors)
         # max_colors = maxDeg + 1 leaves a free colour for every real vertex
         out[s:e] = torch.where(colors[s:e] < 0, ff, colors[s:e])
     return out

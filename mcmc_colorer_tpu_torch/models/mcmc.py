@@ -38,7 +38,7 @@ import torch
 
 from mcmc_colorer_tpu_torch.config import InitKind, MCMCParams, ProposalKind
 from mcmc_colorer_tpu_torch.graph.container import EllGraph, Graph, degree_pad_for
-from mcmc_colorer_tpu_torch.models.base import Coloring
+from mcmc_colorer_tpu_torch.models.base import Coloring, colorer_device
 from mcmc_colorer_tpu_torch.ops.dense_adj import (
     SWEEP_BLOCK_BYTES,
     neighbor_color_counts,
@@ -671,7 +671,7 @@ def _tailcut_body_flat(ell: EllGraph, carry, source, *, params: MCMCParams,
         same = nc == cols_r[s:e, None]
         conf += (same & (neigh > ids[s:e, None])).sum()
         flags[s:e] = same.any(1)
-        cand[s:e] = first_fit(nc, allow, n_colors)
+        cand[s:e] = first_fit(neigh, cols_r, allow, n_colors)
     flags &= ell.node_mask
     cand = torch.where(ell.node_mask, cand, -1)
     movable = flags & (cand >= 0)
@@ -719,7 +719,9 @@ class MCMCColorer:
     JAX's generic loop) or ``auto`` (= ``pallas``).  Hastings always runs
     the generic loop, with K2 under ``pallas``.  The tailcut's first fit
     is kernel K3 on CUDA tensors.  ``matmul`` / ``packed`` over a host
-    graph and ``layout="bucketed"`` are not ported yet.
+    graph and ``layout="bucketed"`` are not ported yet.  ``device``: the
+    current CUDA device by default (``colorer_device``); the CPU only
+    when asked for.
     """
 
     def __init__(
@@ -729,7 +731,7 @@ class MCMCColorer:
         block_size: int | None = None,
         backend: str = "auto",
         layout: str = "flat",
-        device="cpu",
+        device="cuda",
     ) -> None:
         if layout == "bucketed":
             raise NotImplementedError(
@@ -752,7 +754,7 @@ class MCMCColorer:
         self.params = params
         self.backend = backend
         self.layout = layout
-        self.device = torch.device(device)
+        self.device = colorer_device(device)
         self.block = block_size or choose_block_size(graph.n, params.n_colors)
         t0 = time.perf_counter()
         self.ell = graph.to_ell(

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind, default_n_colors
-from mcmc_colorer_tpu_torch.models.base import Coloring
+from mcmc_colorer_tpu_torch.models.base import Coloring, colorer_device
 from mcmc_colorer_tpu_torch.models.mcmc import (
     _at_color,
     _chain_init,
@@ -123,8 +123,9 @@ class _StatsShim:
 
 class ResidentMCMCColorer:
     """MCMC balanced colorer over a hash-defined G(n, p) that lives on
-    ``device``.  ``params.n_colors <= 0`` means "palette = measured max
-    degree / num_col_ratio"."""
+    ``device``: the current CUDA device by default (``colorer_device``),
+    the CPU only when asked for.  ``params.n_colors <= 0`` means
+    "palette = measured max degree / num_col_ratio"."""
 
     def __init__(
         self,
@@ -136,7 +137,7 @@ class ResidentMCMCColorer:
         num_col_ratio: float = 1.0,
         n_chains: int = 1,
         active: bool = False,
-        device="cpu",
+        device="cuda",
     ) -> None:
         if n_chains > 1:
             raise NotImplementedError(
@@ -148,7 +149,7 @@ class ResidentMCMCColorer:
                 "resident frontier mode (active=True) is not ported yet "
                 "(ROADMAP.md Queue 1 item 9)"
             )
-        self.device = torch.device(device)
+        self.device = colorer_device(device)
         self.n, self.p, self.graph_seed = n, p, graph_seed
         self.n_chains, self.active = n_chains, active
         n_pad = _round_up(n, row_chunk)

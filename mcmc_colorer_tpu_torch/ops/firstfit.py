@@ -1,17 +1,23 @@
-"""Kernel K3 — masked first fit — and its plain version.
+"""Kernel K3 — masked first fit over gathered neighbour colours — and its
+plain version.
 
-Replaces ``mcmc_colorer_tpu/ops/pallas_firstfit.py:pallas_first_fit``.
-Per row of neighbour colours ``nc`` it returns the smallest colour
-``c < n_colors`` that no neighbour uses, that ``allow[c]`` admits and
-that is not the row's own colour ``cur`` (when given), or -1.
+Replaces ``mcmc_colorer_tpu/ops/pallas_firstfit.py:pallas_first_fit``
+together with the neighbour gather in front of it.  Per row of neighbour
+ids ``neighbors`` it returns the smallest colour ``c < n_colors`` that no
+neighbour's colour ``ext[id]`` is (``ext`` = ``colors`` with a -1 slot
+for the ELL padding id), that ``allow[c]`` admits and that is not the
+row's own colour ``cur`` (when given), or -1.
 
-``first_fit`` dispatches on where ``nc`` lies:
+``first_fit`` dispatches on where ``neighbors`` lies:
 
-- CPU tensors go to ``first_fit_reference`` (``occupancy_matrix``, the
-  eligibility mask, ``argmax`` with -1 where nothing is eligible);
+- CPU tensors go to ``first_fit_plain``: ``neighbor_colors`` and then
+  ``first_fit_reference``, the first fit over a gathered band
+  (``occupancy_matrix``, the eligibility mask, ``argmax`` with -1 where
+  nothing is eligible);
 - CUDA tensors go to the hand-written kernel ``csrc/first_fit.cu``
-  (built with nvcc for sm_90a at first use) or raise.  There is no
-  fallback from the card to the plain version.
+  (built with nvcc for sm_90a at first use), which gathers the colours
+  itself, or raise.  There is no fallback from the card to the plain
+  version.
 
 Both are integer work and agree exactly.  ``launches`` counts the
 kernel's launches.
@@ -24,11 +30,12 @@ from pathlib import Path
 
 import torch
 
-from mcmc_colorer_tpu_torch.ops.neighbor import occupancy_matrix
+from mcmc_colorer_tpu_torch.ops.neighbor import neighbor_colors, occupancy_matrix
 from mcmc_colorer_tpu_torch.ops.packed_nc import SMEM_BLOCK_BYTES
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "first_fit.cu"
 ROWS_PER_BLOCK = 8  # one warp per row
+COPIES = 4          # interleaved copies of a row's occupancy mask
 # one row's occupancy bitmask (n_colors bits) must fit a block's shared
 # memory: 232,448 bytes = 1,859,584 colours, a multiple of 128
 PALETTE_MAX = SMEM_BLOCK_BYTES * 8
@@ -52,7 +59,10 @@ def load_kernel():
 
         built = build_library("first_fit", SOURCE)
         fn = built.lib.first_fit_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        )
         fn.restype = ctypes.c_int
         err = built.lib.first_fit_error_string
         err.argtypes = [ctypes.c_int]
@@ -75,6 +85,15 @@ def _check(nc, allow, n_colors, cur):
             raise ValueError(f"nc on {nc.device} but an argument on {t.device}")
 
 
+def _check_ids(neighbors, colors, allow, n_colors, cur):
+    """``_check`` on the ids, plus the colour vector they index."""
+    _check(neighbors, allow, n_colors, cur)
+    if colors.dtype != torch.int32 or colors.dim() != 1:
+        raise TypeError(f"colors must be 1-D int32, got {colors.dtype} {tuple(colors.shape)}")
+    if colors.device != neighbors.device:
+        raise ValueError(f"neighbors on {neighbors.device} but colors on {colors.device}")
+
+
 def pack_bits(mask: torch.Tensor) -> torch.Tensor:
     """[n] bool/int -> [ceil(n/32)] int32 holding uint32 bit patterns: bit
     c % 32 of word c // 32 is set iff mask[c] != 0."""
@@ -87,42 +106,56 @@ def pack_bits(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
 
 
-def first_fit(nc, allow, n_colors: int, cur=None) -> torch.Tensor:
-    """[rows] int32: the smallest free, allowed colour other than ``cur``,
-    or -1."""
-    if nc.device.type == "cpu":
-        return first_fit_reference(nc, allow, n_colors, cur)
-    if nc.device.type != "cuda":
-        raise ValueError(f"no K3 for device {nc.device}")
-    return first_fit_cuda(nc, allow, n_colors, cur)
+def first_fit(neighbors, colors, allow, n_colors: int, cur=None) -> torch.Tensor:
+    """[rows] int32: the smallest allowed colour other than ``cur`` that no
+    neighbour holds, or -1."""
+    if neighbors.device.type == "cpu":
+        return first_fit_plain(neighbors, colors, allow, n_colors, cur)
+    if neighbors.device.type != "cuda":
+        raise ValueError(f"no K3 for device {neighbors.device}")
+    return first_fit_cuda(neighbors, colors, allow, n_colors, cur)
 
 
-def first_fit_cuda(nc, allow, n_colors: int, cur=None) -> torch.Tensor:
+def _kernel_shape(n_colors: int):
+    """(rows a block, mask copies): ROWS_PER_BLOCK rows of COPIES copies
+    each if they fit shared memory; wide palettes take fewer copies, then
+    fewer rows."""
+    n_words = (n_colors + 31) // 32
+    rows = max(1, min(ROWS_PER_BLOCK, SMEM_BLOCK_BYTES // (n_words * 4)))
+    copies = COPIES
+    while copies > 1 and rows * n_words * copies * 4 > SMEM_BLOCK_BYTES:
+        copies //= 2
+    return rows, copies
+
+
+def first_fit_cuda(neighbors, colors, allow, n_colors: int, cur=None) -> torch.Tensor:
     """Launch K3 on the current stream of the tensors' card."""
     global launches
-    _check(nc, allow, n_colors, cur)
-    if nc.device.type != "cuda":
-        raise ValueError(f"K3 needs CUDA tensors, got {nc.device}")
-    if not nc.is_contiguous() or (cur is not None and not cur.is_contiguous()):
-        raise ValueError("K3 needs contiguous nc and cur")
+    _check_ids(neighbors, colors, allow, n_colors, cur)
+    if neighbors.device.type != "cuda":
+        raise ValueError(f"K3 needs CUDA tensors, got {neighbors.device}")
+    if not (neighbors.is_contiguous() and colors.is_contiguous()
+            and (cur is None or cur.is_contiguous())):
+        raise ValueError("K3 needs contiguous neighbors, colors and cur")
     if not palette_ok(n_colors):
         raise ValueError(
             f"n_colors={n_colors}: one row's occupancy bitmask exceeds the "
             f"{SMEM_BLOCK_BYTES} bytes of shared memory a block may use"
         )
-    rows, d_pad = nc.shape
-    n_words = (n_colors + 31) // 32
-    rows_per_block = max(1, min(ROWS_PER_BLOCK, SMEM_BLOCK_BYTES // (n_words * 4)))
+    rows, d_pad = neighbors.shape
+    if d_pad % 4 == 0 and neighbors.data_ptr() % 16:
+        raise ValueError("K3 reads rows of d_pad % 4 == 0 as 16-byte vectors: align neighbors")
+    rows_per_block, copies = _kernel_shape(n_colors)
     allow_bits = pack_bits(allow)
-    out = torch.empty((rows,), dtype=torch.int32, device=nc.device)
+    out = torch.empty((rows,), dtype=torch.int32, device=neighbors.device)
     if rows == 0:
         return out
     lib = load_kernel().lib
-    with torch.cuda.device(nc.device):
+    with torch.cuda.device(neighbors.device):
         rc = lib.first_fit_launch(
-            nc.data_ptr(), allow_bits.data_ptr(),
-            cur.data_ptr() if cur is not None else None, out.data_ptr(),
-            rows, d_pad, n_colors, rows_per_block,
+            neighbors.data_ptr(), colors.data_ptr(), colors.shape[0],
+            allow_bits.data_ptr(), cur.data_ptr() if cur is not None else None,
+            out.data_ptr(), rows, d_pad, n_colors, rows_per_block, copies,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
@@ -133,9 +166,17 @@ def first_fit_cuda(nc, allow, n_colors: int, cur=None) -> torch.Tensor:
     return out
 
 
+def first_fit_plain(neighbors, colors, allow, n_colors: int, cur=None) -> torch.Tensor:
+    """Plain version of K3: the gather ``neighbor_colors`` (padding ids
+    land on -1), then ``first_fit_reference`` on the gathered band."""
+    _check_ids(neighbors, colors, allow, n_colors, cur)
+    return first_fit_reference(neighbor_colors(neighbors, colors), allow, n_colors, cur)
+
+
 def first_fit_reference(nc, allow, n_colors: int, cur=None) -> torch.Tensor:
-    """Plain version of K3 (the XLA formulation of
-    ``tests/test_pallas_firstfit.py``): occupancy, eligibility, argmax."""
+    """First fit over a gathered band ``nc`` of neighbour colours (the XLA
+    formulation of ``tests/test_pallas_firstfit.py``): occupancy,
+    eligibility, argmax."""
     _check(nc, allow, n_colors, cur)
     occ = occupancy_matrix(nc, n_colors)
     col_ids = torch.arange(n_colors, dtype=torch.int32, device=nc.device)[None, :]

@@ -27,6 +27,10 @@ from mcmc_colorer_tpu_torch.ops.dense_adj import PACKED_K_CHUNK
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "packed_nc.cu"
 ROWS_PER_BLOCK = 8                # one warp per row
 SMEM_BLOCK_BYTES = 232_448        # shared memory one block may use on Hopper
+RING_BYTES = 3 * 4096 * 2         # three windows of uint16 colours
+# colours travel as uint16 with 0xFFFF meaning none; a row of that many
+# 16-bit counts (128 KB) fits beside the ring
+N_COL_PAD_MAX = 65_408
 
 launches = 0
 _built = None
@@ -41,7 +45,7 @@ def load_kernel():
 
         built = build_library("packed_nc", SOURCE)
         fn = built.lib.packed_nc_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = built.lib.packed_nc_error_string
         err.argtypes = [ctypes.c_int]
@@ -86,22 +90,31 @@ def packed_nc(packed: torch.Tensor, colors: torch.Tensor, n_col_pad: int) -> tor
     return packed_nc_cuda(packed, colors, n_col_pad)
 
 
-def packed_nc_cuda(packed: torch.Tensor, colors: torch.Tensor, n_col_pad: int) -> torch.Tensor:
-    """Launch K1 on the current stream of the tensors' card."""
+def _colors16(colors_k: torch.Tensor, n_col_pad: int) -> torch.Tensor:
+    """The kernel's colour vector: uint16 bit patterns in an int16 tensor,
+    0xFFFF (counts nowhere) for colours outside [0, n_col_pad)."""
+    v = torch.where((colors_k >= 0) & (colors_k < n_col_pad), colors_k, 0xFFFF)
+    return torch.where(v >= 2**15, v - 2**16, v).to(torch.int16)
+
+
+def packed_nc_cuda(packed: torch.Tensor, colors: torch.Tensor, n_col_pad: int, *,
+                   mode: int = 0) -> torch.Tensor:
+    """Launch K1 on the current stream of the tensors' card.  ``mode`` 1
+    or 2 launches one of the measurement variants of ``csrc/packed_nc.cu``
+    (no defined output), for measuring what holds the kernel."""
     global launches
     _check(packed, colors, n_col_pad)
     if packed.device.type != "cuda":
         raise ValueError(f"K1 needs CUDA tensors, got {packed.device}")
     if not packed.is_contiguous() or not colors.is_contiguous():
         raise ValueError("K1 needs contiguous packed and colors")
-    rows, words = packed.shape
-    rows_per_block = min(ROWS_PER_BLOCK, SMEM_BLOCK_BYTES // (n_col_pad * 4))
-    if rows_per_block < 1:
+    if n_col_pad > N_COL_PAD_MAX:
         raise ValueError(
-            f"n_col_pad={n_col_pad}: one histogram row exceeds the "
-            f"{SMEM_BLOCK_BYTES} bytes of shared memory a block may use"
+            f"n_col_pad={n_col_pad} > {N_COL_PAD_MAX}: K1 passes colours as uint16"
         )
-    colors_k = _pad_colors(colors, words * 32)
+    rows, words = packed.shape
+    rows_per_block = min(ROWS_PER_BLOCK, (SMEM_BLOCK_BYTES - RING_BYTES) // (n_col_pad * 2))
+    colors16 = _colors16(_pad_colors(colors, words * 32), n_col_pad)
     out = torch.empty((rows, n_col_pad), dtype=torch.int32, device=packed.device)
     if packed.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("K1 reads and writes 16-byte vectors: align packed and out")
@@ -110,8 +123,8 @@ def packed_nc_cuda(packed: torch.Tensor, colors: torch.Tensor, n_col_pad: int) -
     lib = load_kernel().lib
     with torch.cuda.device(packed.device):
         rc = lib.packed_nc_launch(
-            packed.data_ptr(), colors_k.data_ptr(), out.data_ptr(),
-            rows, words, n_col_pad, rows_per_block,
+            packed.data_ptr(), colors16.data_ptr(), out.data_ptr(),
+            rows, words, n_col_pad, rows_per_block, mode,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:

@@ -253,7 +253,7 @@ def test_whole_slice(medium_er, backend):
         p = MCMCParams(n_colors=n_col, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True,
                        taboo_iterations=2, max_iterations=max_it)
         before = (k2.launches, k3.launches)
-        r = tm.MCMCColorer(g, p, backend=backend).run(seed=31)
+        r = tm.MCMCColorer(g, p, backend=backend, device="cpu").run(seed=31)
         assert (k2.launches, k3.launches) == before  # CPU: the plain versions
         assert r.extra["final_conflicts"] == 0 and r.extra["tailcut_rounds"] >= 1
         assert r.colors.shape == (g.n,) and r.colors.max() < n_col
@@ -265,21 +265,21 @@ def test_hastings_run_and_unported_paths(medium_er, monkeypatch):
     g = interop.graph_from_jax(medium_er)
     p = MCMCParams(n_colors=g.max_degree, hastings=True, lambda_=25.0, tailcut=True,
                    max_iterations=5)
-    r = tm.MCMCColorer(g, p, backend="pallas").run(seed=2)
+    r = tm.MCMCColorer(g, p, backend="pallas", device="cpu").run(seed=2)
     assert r.extra["final_conflicts"] == 0 and tbase.check_coloring(g, r.colors)
     with pytest.raises(NotImplementedError, match="item 7"):
-        tm.MCMCColorer(g, p, layout="bucketed")
+        tm.MCMCColorer(g, p, layout="bucketed", device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
-        tm.MCMCColorer(g, p, backend="matmul")
+        tm.MCMCColorer(g, p, backend="matmul", device="cpu")
     with pytest.raises(ValueError, match="backend"):
-        tm.MCMCColorer(g, p, backend="nope")
+        tm.MCMCColorer(g, p, backend="nope", device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
-        GreedyFFColorer(g, active=True)
+        GreedyFFColorer(g, active=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
-        GreedyFFColorer(g, layout="bucketed")
+        GreedyFFColorer(g, layout="bucketed", device="cpu")
     monkeypatch.setenv("MCMC_COLORER_TRACE", "1")
     with pytest.raises(NotImplementedError, match="TRACE"):
-        tm.MCMCColorer(g, p).run(seed=1)
+        tm.MCMCColorer(g, p, device="cpu").run(seed=1)
 
 
 @pytest.mark.parametrize("fixture", ["small_er", "medium_er"])
@@ -288,7 +288,7 @@ def test_greedy_ff_matches_jax(request, fixture, backend):
     """GreedyFF is deterministic: the port's colours equal JAX's."""
     jg = request.getfixturevalue(fixture)
     want = JGreedyFF(jg).run()
-    got = GreedyFFColorer(interop.graph_from_jax(jg), backend=backend).run()
+    got = GreedyFFColorer(interop.graph_from_jax(jg), backend=backend, device="cpu").run()
     assert np.array_equal(got.colors, want.colors)
     assert (got.n_colors, got.iterations) == (want.n_colors, want.iterations)
     assert got.extra == want.extra

@@ -105,3 +105,17 @@ def test_packed_adj_max_n_follows_its_formula():
     assert td.resident_bytes(m, 2048) <= td.RESIDENT_BUDGET_BYTES
     assert td.resident_bytes(m + 2048, 2048) > td.RESIDENT_BUDGET_BYTES
 
+
+
+@pytest.mark.parametrize("n_col_pad", [128, 1152, k1.N_COL_PAD_MAX])
+def test_kernel_colour_vector(n_col_pad):
+    """K1 reads colours as uint16, 0xFFFF where a colour counts nowhere
+    (phantoms, masked vertices, colours past the palette)."""
+    rng = np.random.default_rng(n_col_pad)
+    colors = rng.integers(-3, n_col_pad + 3, 5000).astype(np.int32)
+    got = k1._colors16(torch.from_numpy(colors), n_col_pad).numpy().view(np.uint16)
+    keep = (colors >= 0) & (colors < n_col_pad)
+    assert np.array_equal(got[keep], colors[keep]) and (got[~keep] == 0xFFFF).all()
+    assert k1.N_COL_PAD_MAX < 0xFFFF and k1.N_COL_PAD_MAX % 128 == 0
+    # a row of 16-bit counts of the widest palette fits beside the ring
+    assert k1.RING_BYTES + 2 * k1.N_COL_PAD_MAX <= k1.SMEM_BLOCK_BYTES

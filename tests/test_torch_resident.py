@@ -148,7 +148,7 @@ def test_teacher_forced_chain(jax_colorer, case):
 
 
 def test_whole_slice_default_palette(jax_colorer):
-    c = ResidentMCMCColorer(N, P, GRAPH_SEED)
+    c = ResidentMCMCColorer(N, P, GRAPH_SEED, device="cpu")
     assert (c.n_edges, c.max_degree, c.params.n_colors) == (
         jax_colorer.n_edges, jax_colorer.max_degree, jax_colorer.params.n_colors
     )
@@ -165,9 +165,9 @@ def test_whole_slice_default_palette(jax_colorer):
 
 def test_whole_slice_tight_palette():
     """Mirrors tests/test_resident.py:test_resident_tailcut_tight_palette."""
-    c0 = ResidentMCMCColorer(N, P, graph_seed=GRAPH_SEED)
+    c0 = ResidentMCMCColorer(N, P, graph_seed=GRAPH_SEED, device="cpu")
     p = MCMCParams(proposal=ProposalKind.BALANCE_DYNAMIC, **tight(c0.max_degree))
-    c = ResidentMCMCColorer(N, P, graph_seed=GRAPH_SEED, params=p)
+    c = ResidentMCMCColorer(N, P, graph_seed=GRAPH_SEED, params=p, device="cpu")
     r = c.run(seed=5)
     assert r.extra["final_conflicts"] == 0
     assert r.extra["tailcut_rounds"] >= 1
@@ -192,17 +192,17 @@ def test_interop_round_trip(jax_colorer):
 
 def test_unported_paths_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        ResidentMCMCColorer(300, 0.05, 1, n_chains=2)
+        ResidentMCMCColorer(300, 0.05, 1, n_chains=2, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ResidentMCMCColorer(300, 0.05, 1, active=True)
-    c = ResidentMCMCColorer(300, 0.05, 1)
+        ResidentMCMCColorer(300, 0.05, 1, active=True, device="cpu")
+    c = ResidentMCMCColorer(300, 0.05, 1, device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoints"):
         c.run(seed=1, checkpoint_path="x")
     monkeypatch.setenv("MCMC_COLORER_TRACE", "1")
     with pytest.raises(NotImplementedError, match="TRACE"):
         c.run(seed=1)
     with pytest.raises(ValueError, match="packed-adjacency HBM cap"):
-        ResidentMCMCColorer(td.PACKED_ADJ_MAX_N + 1, 0.001, graph_seed=1)
+        ResidentMCMCColorer(td.PACKED_ADJ_MAX_N + 1, 0.001, graph_seed=1, device="cpu")
 
 
 def test_port_imports_no_jax():
