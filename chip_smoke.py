@@ -21,7 +21,20 @@ the card by default:
   native sampler at numColRatio 1, 2 and 4, plus GreedyFF; config 4, a
   BA(50k, 8) graph written in the network-repository layout, converted,
   loaded by the native importer and coloured; and the K2 chain beside the
-  K1 chain on the ER(100k, 0.01) graph of slice 1.
+  K1 chain on the ER(100k, 0.01) graph of slice 1;
+- slice 4, the other colorers and the CLI: at config 3 the frontier
+  GreedyFF (its colours must equal the full loop's) and VFF, full and
+  frontier (K3 with allow and cur), each also on K3's plain version: all
+  four must end phase 2 in the same colours, which the livelock fallback
+  would otherwise hide, and K3 is held exactly at VFF's two call sites
+  with phase 2's own allow and cur; on the ER(100k, 0.01) graph Luby's
+  gather and frontier loops and resident Luby on the hash graph (K1),
+  which must equal the gather loop fed the same draws, and K1 held
+  exactly and timed at resident Luby's two shapes; then the CLI as a
+  user runs it, in subprocesses: the four device colorers on a simulated
+  ER(100k, 0.01), the resident path with MCMC and Luby sharing one
+  adjacency, and --mcmccpu on ER(2000, 0.01), each with --check, every
+  log carrying the reference's field names.
 
 Every colouring is checked with ``check_coloring``.  Any failed check
 raises, so the exit code is non-zero.  Without CUDA, or outside a
@@ -33,6 +46,8 @@ that holds the kernels' launch counts, errors and times, each beside its
 bound: the least time the card could take for the same work, the larger
 of the bytes it must move (each input read once, each output written
 once) over the memory rate and its operations over their peak rate.
+K1 runs at three shapes on the main paths; its times and bound are
+their means weighted by the launches at each, listed under ``shapes``.
 """
 
 from __future__ import annotations
@@ -53,6 +68,8 @@ ROOT = Path(__file__).resolve().parent
 # per block and more than 48 KB of shared memory
 K1_SHAPES = [(1500, 0.05, 150), (4700, 0.01, 1100), (640, 0.3, 64), (3000, 0.5, 8000)]
 BENCH_N, BENCH_P = 100_000, 0.01
+# K1 is timed at the chain's palette on the bench graph (max degree 1150)
+K1_BENCH_COLORS = 1152
 TIMED_RUNS = 10
 # BASELINE.md config 3 (scripts/run_baseline_configs.py:140-194) and
 # config 4 (:196-240)
@@ -118,7 +135,7 @@ def _random_colors(n: int, n_pad: int, n_colors: int, gen, device):
     return c
 
 
-def phase_k1(device, shapes, bench_n_pad=None, bench_colors=1152, seed=5):
+def phase_k1(device, shapes, bench_n_pad=None, bench_colors=K1_BENCH_COLORS, seed=5):
     """K1 against its plain version, exactly, at ``shapes``, on rows of
     2**16 set bits (the kernel's 32-bit path) and (if given) at the bench
     shape, where both are also timed.  Returns (max_abs_err, kernel_ms,
@@ -347,12 +364,13 @@ def setup_config3(device):
     return g, ell, sb
 
 
-def _k3_check(k3, neighbors, colors, allow, n_colors, cur, label):
+def _k3_check(k3, neighbors, colors, allow, n_colors, cur, label, phase=7):
     got = k3.first_fit_cuda(neighbors, colors, allow, n_colors, cur)
     want = k3.first_fit_plain(neighbors, colors, allow, n_colors, cur)
     err = int((got - want).abs().max()) if got.numel() else 0
     _require(err == 0, f"K3 differs from its plain version at {label}: {err}")
-    print(f"phase 7 K3 {label}: exact ({int((got >= 0).sum())} of {got.numel()} rows found a colour)")
+    print(f"phase {phase} K3 {label}: exact ({int((got >= 0).sum())} of {got.numel()} rows "
+          f"found a colour)")
     return err
 
 
@@ -566,7 +584,7 @@ def phase_config3(device, g):
           f"{r.duration_ms / 1e3:.3f} s; K3 launches {l3}; valid {valid}")
     _require(l3 > 0, "GreedyFF launched K3 no time")
     _require(valid, "GreedyFF: invalid colouring")
-    return k2_total, k3_total
+    return k2_total, k3_total, (r, l3)
 
 
 def phase_config4(device):
@@ -646,6 +664,243 @@ def phase_k2_vs_k1(device, c, g, seed=5):
              "phase 11: invalid K2 colouring")
 
 
+def _vff_k3_checks(k3, c, gff):
+    """K3 against its plain version at VFF's two call sites with the real
+    ``allow`` and ``cur`` of phase 2's first round on ``c``'s graph, from
+    GreedyFF's colours ``gff``: the first row band of the full pass
+    (vff.py:_tentative_rebalance) and the frontier round at its cap
+    (vff.py:_vff_active_round).  The frontier round is also timed.
+    Returns the largest error."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.models.mcmc import _bands
+    from mcmc_colorer_tpu_torch.models.mcmc_active import _buckets, pick_cap
+    from mcmc_colorer_tpu_torch.models.vff import _phase2_start
+    from mcmc_colorer_tpu_torch.ops.neighbor import frontier_ids, take_rows
+
+    ell, max_colors, dev = c.ell, c.max_colors, c.device
+    colors = torch.zeros((ell.n_pad,), dtype=torch.int32, device=dev)
+    colors[: ell.n_nodes] = torch.from_numpy(gff.colors).to(dev)
+    n_used, gamma, bins, unb, _ = _phase2_start(ell, colors, max_colors)
+    allow = ((bins < gamma) & (torch.arange(max_colors, device=dev) < n_used)).to(torch.int32)
+    s, e = next(_bands(ell.n_pad, ell.d_pad))
+    err = _k3_check(k3, ell.neighbors[s:e], colors, allow, max_colors, colors[s:e],
+                    f"VFF full pass, band [{e - s}, {ell.d_pad}] n_colors={max_colors}, "
+                    f"{int(allow.sum())} classes allowed", phase=13)
+    n_unb = int(unb.sum())
+    cap = pick_cap(_buckets(ell.n_pad, c._min_bucket, c._bucket_factor), n_unb)
+    ids, valid = frontier_ids(unb, cap)
+    rows = take_rows(ell, ids, valid)
+    cur = torch.where(valid, colors[ids.clamp(max=ell.n_pad - 1).to(torch.int64)], max_colors)
+    label = f"VFF frontier round, rows [{cap}, {ell.d_pad}] ({n_unb} flagged)"
+    err = max(err, _k3_check(k3, rows, colors, allow, max_colors, cur, label, phase=13))
+    k_ms = _median_ms(lambda: k3.first_fit_cuda(rows, colors, allow, max_colors, cur))
+    p_ms = _median_ms(lambda: k3.first_fit_plain(rows, colors, allow, max_colors, cur), runs=3)
+    print(f"phase 13 K3 {label}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (CUDA events)")
+    return err
+
+
+def phase_frontier_config3(device, g, full_gff):
+    """Slice 4 at BASELINE config 3: the frontier GreedyFF (K3 on the
+    frontier's rows, palette cut to d_pad + 1) against phase 9's full
+    loop, then VFF full and frontier (K3 with allow and cur), each also
+    with K3's plain version: all four must end phase 2 in the same
+    colours, rounds and livelock flag.  Returns (K3 launches of the K3
+    runs, largest K3 error at VFF's call sites)."""
+    import numpy as np
+
+    from mcmc_colorer_tpu_torch.models.base import check_coloring
+    from mcmc_colorer_tpu_torch.models.greedy_ff import GreedyFFColorer
+    from mcmc_colorer_tpu_torch.models.vff import VFFColorer
+    from mcmc_colorer_tpu_torch.ops import firstfit as k3
+
+    full, full_l3 = full_gff
+    t0 = time.perf_counter()
+    k3.launches = 0
+    r = GreedyFFColorer(g, active=True, device=device).run()
+    l3 = total = k3.launches
+    same = bool(np.array_equal(r.colors, full.colors))
+    print(f"phase 12 config3 frontier GreedyFF: {r.n_colors} colours in {r.iterations} "
+          f"rounds, run {r.duration_ms / 1e3:.3f} s (full loop {full.duration_ms / 1e3:.3f} "
+          f"s); K3 launches {l3} (full loop {full_l3}); colours equal the full loop's "
+          f"{same}; phase {time.perf_counter() - t0:.3f} s")
+    _require(l3 > 0, "the frontier GreedyFF launched K3 no time")
+    _require(same and r.iterations == full.iterations,
+             "the frontier GreedyFF differs from the full loop")
+    runs, err = {}, 0
+    for active in (False, True):
+        for backend in ("pallas", "xla"):
+            t0 = time.perf_counter()
+            c = VFFColorer(g, active=active, backend=backend, device=device)
+            k3.launches = 0
+            r = c.run()
+            l3 = k3.launches
+            t_run = time.perf_counter() - t0
+            runs[active, backend] = (r, c.phase2_colors)
+            name = f"{'frontier' if active else 'full'}, {'K3' if backend == 'pallas' else 'plain'}"
+            if backend == "xla":
+                _require(l3 == 0, "VFF's plain route launched K3")
+                print(f"phase 13 config3 VFF {name}: {r.iterations} phase-2 rounds, livelock "
+                      f"{r.extra['livelock_fallback']}, run {r.duration_ms / 1e3:.3f} s")
+                continue
+            total += l3
+            valid = check_coloring(g, r.colors)
+            print(f"phase 13 config3 VFF {name}: {r.n_colors} colours used, {r.iterations} "
+                  f"phase-2 rounds, livelock {r.extra['livelock_fallback']}, balance index "
+                  f"{r.balance_index(CONFIG3_P):.4f} (GreedyFF "
+                  f"{full.balance_index(CONFIG3_P):.4f}), run {r.duration_ms / 1e3:.3f} s; "
+                  f"K3 launches {l3}; valid {valid}; phase {time.perf_counter() - t0:.3f} s "
+                  f"({t_run:.3f} s before the check)")
+            _require(l3 > 0, "VFF launched K3 no time")
+            _require(valid and int(r.colors.max()) < r.n_colors, "VFF: invalid colouring")
+            if not active:
+                err = _vff_k3_checks(k3, c, full)
+            del c
+    # under the livelock fallback the result is GreedyFF's colouring, so
+    # the colours phase 2 ended in are compared as well
+    r0, p0 = runs[False, "pallas"]
+    moved = int((p0 != full.colors).sum())
+    for (active, backend), (r, p2) in runs.items():
+        _require(np.array_equal(r.colors, r0.colors) and np.array_equal(p2, p0)
+                 and (r.n_colors, r.iterations, r.extra) == (r0.n_colors, r0.iterations, r0.extra),
+                 f"VFF active={active} backend={backend} differs from the full loop with K3")
+    _require(moved > 0, "VFF's phase 2 moved no vertex")
+    print(f"phase 13 config3 VFF: full and frontier, K3 and plain: equal colours, rounds, "
+          f"livelock flag and phase-2 colours ({moved} vertices moved off GreedyFF's colours)")
+    return total, err
+
+
+def _k1_luby_shapes(k1, c, seed):
+    """K1 against its plain version, exactly, at resident Luby's two
+    shapes on its own adjacency (``c.adj``), with colours of the kinds
+    its rounds pass: the degree classes of a random half of the vertices
+    (the survival test), and one colour for a sparse set (the survivors'
+    neighbours).  Timed.  Returns one (n_col_pad, max_abs_err, kernel_ms,
+    plain_ms, bytes moved, adds) a shape."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.ops.dense_adj import n_col_pad_of
+    from mcmc_colorer_tpu_torch.ops.hashgen import degrees_from_packed
+
+    gen = torch.Generator(device=c.adj.device)
+    gen.manual_seed(seed)
+    u = torch.rand((c.n_pad,), generator=gen, device=c.adj.device)
+    sel = c.node_mask & (u < 0.5)
+    degrees = degrees_from_packed(c.adj)
+    out = []
+    for label, colors, n_col in (
+        ("degree classes", torch.where(sel, c.rank_class, -1), c.n_classes),
+        ("survivors", torch.where(sel & (u < 0.01), 0, -1).to(torch.int32), 1),
+    ):
+        ncp = n_col_pad_of(n_col)
+        e = int((k1.packed_nc_cuda(c.adj, colors, ncp)
+                 - k1.packed_nc_reference(c.adj, colors, ncp)).abs().max())
+        _require(e == 0, f"K1 differs from its plain version at Luby's {label}: {e}")
+        k_ms = _median_ms(lambda: k1.packed_nc_cuda(c.adj, colors, ncp))
+        p_ms = _median_ms(lambda: k1.packed_nc_reference(c.adj, colors, ncp), runs=3)
+        n_bytes = _nbytes(c.adj, colors) + c.n_pad * ncp * 4
+        adds = int(degrees[colors >= 0].sum())  # an add a set bit of a coloured column
+        print(f"phase 14 K1 Luby {label} n_pad={c.n_pad} n_col_pad={ncp}: exact; kernel "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (CUDA events); moves {n_bytes} bytes, "
+              f"{adds} adds")
+        out.append((ncp, e, k_ms, p_ms, n_bytes, adds))
+    return out
+
+
+def phase_luby(device, g, seed=5):
+    """Slice 4's Luby at ER(100k, 0.01) (phase 4's hash graph): the gather
+    loop and the frontier loop on the host graph's ELL, and resident Luby
+    on the hash graph (K1).  Resident Luby must equal the gather loop on
+    the same graph padded to the same n_pad with the same draws.  Returns
+    (K1 launches of the resident run, its rounds, K1 at its two shapes:
+    ``_k1_luby_shapes``)."""
+    import numpy as np
+
+    from mcmc_colorer_tpu_torch.models import luby as tl
+    from mcmc_colorer_tpu_torch.models.base import check_coloring
+    from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+    from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource
+
+    for active in (False, True):
+        t0 = time.perf_counter()
+        r = tl.LubyColorer(g, active=active, device=device).run(seed=seed)
+        valid = check_coloring(g, r.colors)
+        print(f"phase 14 Luby {'frontier' if active else 'gather'} ER({BENCH_N}, {BENCH_P}): "
+              f"{r.n_colors} colours in {r.extra['rounds']} rounds, run "
+              f"{r.duration_ms / 1e3:.3f} s; valid {valid}; phase "
+              f"{time.perf_counter() - t0:.3f} s")
+        _require(valid and int(r.colors.min()) >= 0, "Luby: invalid colouring")
+    t0 = time.perf_counter()
+    k1.launches = 0
+    c = tl.LubyColorer(None, resident_spec=(BENCH_N, BENCH_P, 0), device=device)
+    setup_s = time.perf_counter() - t0
+    r = c.run(seed=seed)
+    launches = k1.launches
+    rounds = r.extra["rounds"]
+    valid = check_coloring(g, r.colors)
+    ell = g.to_ell(pad_nodes_to=2048, device=device)
+    _require(ell.n_pad == c.n_pad, f"n_pad {ell.n_pad} vs {c.n_pad}")
+    colors, _, _ = tl._run_luby(ell, TorchUniformSource(seed, 0, device))
+    same = bool(np.array_equal(colors[:BENCH_N].cpu().numpy(), r.colors))
+    print(f"phase 14 Luby resident ER({BENCH_N}, {BENCH_P}): {c.n_classes} degree classes, "
+          f"setup (hash graph) {setup_s:.3f} s; {r.n_colors} colours in {rounds} "
+          f"rounds, run {r.duration_ms / 1e3:.3f} s; K1 launches {launches}; valid {valid}; "
+          f"equals the gather loop on the same draws {same}; phase "
+          f"{time.perf_counter() - t0:.3f} s")
+    _require(launches > 0, "resident Luby launched K1 no time")
+    # one launch a shape a round: the survival test, then the neighbours
+    _require(launches == 2 * rounds, f"{launches} K1 launches in {rounds} rounds")
+    _require(valid and same, "resident Luby: invalid or differs from the gather loop")
+    del ell, colors
+    return launches, rounds, _k1_luby_shapes(k1, c, seed)
+
+
+LOG_FIELDS = ("Nodes:", "Edges:", "Max deg:", "Edge probability", "Seed:", "Repetition:",
+              "Execution time:", "Iteration performed:", "Max iteration reached:",
+              "Color histogram:", "Number of colors:", "Used colors:", "Color ratio:",
+              "Average number of nodes for each color:", "Variance:", "StD:",
+              "BalancingIndex")
+
+
+def _cli_run(args, n, tags):
+    """Run the port's CLI in a subprocess into a temporary directory;
+    check its exit code, its logs' field names and its colour files."""
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mcmc_colorer_tpu_torch.cli", *args, "--outDir", td],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+        )
+        wall = time.perf_counter() - t0
+        _require(proc.returncode == 0,
+                 f"CLI {' '.join(args)} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        files = sorted(os.listdir(td))
+        logs = [f for f in files if f.endswith(".log")]
+        _require({f.split("-")[-2] for f in logs} == set(tags), f"CLI logs {logs}")
+        for f in logs:
+            text = Path(td, f).read_text()
+            missing = [k for k in LOG_FIELDS if k not in text]
+            _require(not missing, f"{f} lacks {missing}")
+            cf = Path(td, f[:-4] + "-colors.txt")
+            _require(len(cf.read_text().splitlines()) == n, f"{cf.name}: not {n} lines")
+    runs = [ln.split(" → ")[0] for ln in proc.stdout.splitlines() if " rep 0: " in ln]
+    print(f"phase 15 CLI {' '.join(args)}: exit 0 in {wall:.3f} s; {len(logs)} logs with "
+          f"the reference's fields; {'; '.join(runs)}")
+    _require(len(runs) == len(tags) and all("VALID" in x for x in runs), "CLI: a run not VALID")
+
+
+def phase_cli():
+    """The port's CLI as a user runs it: the four device colorers on a
+    simulated ER(100k, 0.01), the resident path, and --mcmccpu."""
+    _cli_run(["--simulate", "0.01", "-n", "100000", "--mcmcgpu", "--lubygpu", "--grdffgpu",
+              "--vffgpu", "--tailcut", "--check", "--seed", "5"], 100_000,
+             ("MCMC_GPU", "LUBY", "GFF", "VFF"))
+    _cli_run(["--resident", "--simulate", "0.01", "-n", "100000", "--mcmcgpu", "--lubygpu",
+              "--tailcut", "--check", "--seed", "5"], 100_000, ("MCMC_GPU", "LUBY"))
+    _cli_run(["--simulate", "0.01", "-n", "2000", "--mcmccpu", "--tailcut", "--check",
+              "--seed", "5"], 2_000, ("MCMC_CPU",))
+
+
 def main() -> int:
     import torch
 
@@ -653,6 +908,8 @@ def main() -> int:
         raise SystemExit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is false)")
     if not (ROOT / "mcmc_colorer_tpu_torch" / "csrc" / "packed_nc.cu").is_file():
         raise SystemExit(f"chip_smoke.py: {ROOT} is not a checkout of the repository")
+    from mcmc_colorer_tpu_torch.ops.dense_adj import n_col_pad_of
+
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 
@@ -675,6 +932,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_hash(device)
     _, c, launches, g_bench = phase_main(device)
+    chain_ncp = n_col_pad_of(c.params.n_colors)
+    _require(chain_ncp == n_col_pad_of(K1_BENCH_COLORS),
+             f"the chain ran K1 at {chain_ncp} padded colours, timed at {K1_BENCH_COLORS}")
     phase_tight(device)
 
     for label, b in (("K2", b2), ("K3", b3)):
@@ -684,11 +944,19 @@ def main() -> int:
     err3, k3_ms, p3_ms, k3_bytes, k3_slots = phase_k3(device, ell3, sb)
     frac2, err2, k2_ms, p2_ms, k2_bytes, k2_ops = phase_k2(device, ell3, sb)
     torch.cuda.empty_cache()
-    launches2, launches3 = phase_config3(device, g3)
-    del g3, ell3
+    launches2, launches3, full_gff = phase_config3(device, g3)
+    del ell3
+    torch.cuda.empty_cache()
+    l3, e3 = phase_frontier_config3(device, g3, full_gff)
+    launches3, err3 = launches3 + l3, max(err3, e3)
+    del g3
     torch.cuda.empty_cache()
     phase_config4(device)
     phase_k2_vs_k1(device, c, g_bench)
+    luby_launches, luby_rounds, luby_k1 = phase_luby(device, g_bench)
+    del c
+    torch.cuda.empty_cache()
+    phase_cli()
 
     def bound_keys(ms, n_bytes, ops, ops_per_s):
         bound_ms, bound_by = _bound(n_bytes, ops, ops_per_s)
@@ -697,18 +965,40 @@ def main() -> int:
         return {"bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
                 "library_ms": None}
 
+    # K1 ran at three shapes on the main paths: the chain's palette
+    # (phase 4) and resident Luby's two, one launch each a round (phase
+    # 14); its times are their means weighted by those launches
+    k1_shapes = [(chain_ncp, launches, err, k_ms, p_ms, k1_bytes, k1_bits)]
+    k1_shapes += [(ncp, luby_rounds, *rest) for ncp, *rest in luby_k1]
+    k1_rows = []
+    for ncp, n, e, ms, pms, n_bytes, ops in k1_shapes:
+        b_ms, b_by = _bound(n_bytes, ops, INT32_OPS_PER_S)
+        k1_rows.append({"n_col_pad": ncp, "launches": n, "max_abs_err": e, "ms": ms,
+                        "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by})
+    k1_n = sum(x["launches"] for x in k1_rows)
+
+    def k1_mean(key):
+        return sum(x[key] * x["launches"] for x in k1_rows) / k1_n
+
+    k1_ms, k1_bound = k1_mean("ms"), k1_mean("bound_ms")
+    _require(k1_n == launches + luby_launches, "K1 launches by shape do not add up")
+
     print(json.dumps({"kernels": [
         {
             "name": "packed_nc",
             "route": "cuda",
             "source": "mcmc_colorer_tpu_torch/csrc/packed_nc.cu",
             "replaces": "mcmc_colorer_tpu/ops/pallas_bitmatmul.py:92",
-            "launches": launches,
-            "max_abs_err": err,
-            "ms": k_ms,
-            "plain_ms": p_ms,
-            # an add a set bit
-            **bound_keys(k_ms, k1_bytes, k1_bits, INT32_OPS_PER_S),
+            "launches": k1_n,
+            "max_abs_err": max(x["max_abs_err"] for x in k1_rows),
+            "ms": k1_ms,
+            "plain_ms": k1_mean("plain_ms"),
+            "bound_ms": k1_bound,
+            "bound_by": "bytes" if all(x["bound_by"] == "bytes" for x in k1_rows)
+            else "operations",
+            "bound_share": k1_bound / k1_ms,
+            "library_ms": None,
+            "shapes": k1_rows,
         },
         {
             "name": "resample_sweep",

@@ -1,0 +1,552 @@
+"""Command-line interface of the PyTorch/CUDA port.
+
+Counterpart of ``mcmc_colorer_tpu/cli.py``, with the same flags, defaults,
+messages and exit codes over the port's colorers, and the reference's
+output contract (``<name>-<ALGO>-<rep>.log`` and ``...-colors.txt`` in
+``<graphName>_out``).  One flag is added: ``--device`` (default
+``cuda``, the current card); ``--device cpu`` runs the colorers' plain
+versions on the CPU.  Without a card and without ``--device cpu`` it
+refuses (exit 2).
+
+``--mcmcgpu``/``--lubygpu``/``--grdffgpu``/``--vffgpu`` run the device
+colorers; the device MCMC's log tag is ``MCMC_GPU``, the reference's own.
+``--mcmccpu`` and ``--greedycpu`` run the sequential host colorers.
+
+Paths the port does not have yet print a message naming their
+ROADMAP.md Queue 1 item and exit 2: ``--layout bucketed`` (item 7),
+``--backend matmul|packed`` over a host graph (item 8), ``--mcmcgpu
+--active`` (item 9), ``--chains > 1`` and ``--dbg`` (item 11),
+``--mesh-chains``, ``--mesh-shards`` and ``--anneal`` (item 12),
+``--ckpt``, ``--resume`` and the device MCMC's TRACE output (item 5).
+
+Run ``python -m mcmc_colorer_tpu_torch.cli --help``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+
+from mcmc_colorer_tpu_torch.config import (
+    ColorerKind,
+    MCMCParams,
+    ProposalKind,
+    default_n_colors,
+)
+from mcmc_colorer_tpu_torch.graph.container import Graph
+from mcmc_colorer_tpu_torch.graph.generate import erdos_renyi
+from mcmc_colorer_tpu_torch.graph.io import load_edge_list
+from mcmc_colorer_tpu_torch.models.base import check_coloring, colorer_device
+from mcmc_colorer_tpu_torch.utils.logging import save_run
+
+_LOGO = r"""
+  __  __  ___ __  __  ___    ___     _                      ___ ___ _   _
+ |  \/  |/ __|  \/  |/ __|  / __|___| |___ _ _ ___ _ _     / __| _ \ | | |
+ | |\/| | (__| |\/| | (__  | (__/ _ \ / _ \ '_/ -_) '_|   | (_ |  _/ |_| |
+ |_|  |_|\___|_|  |_|\___|  \___\___/_\___/_| \___|_|      \___|_|  \___/
+"""
+
+_CITATION = (
+    "Based on: Conte, Grossi, Lanzarotti, Lin, Petrini,\n"
+    '"A parallel MCMC algorithm for the Balanced Graph Coloring problem",\n'
+    "IAPR TC-15 Workshop on Graph-based Representations (GbR 2019)."
+)
+
+# --cite-me output (ArgHandle::citeMe, ArgHandle.cpp:341-353)
+_BIBTEX = """\
+This work can be cited by adding the following items to your bibliografy:
+
+@inproceedings{colorerGbR2019,
+	author    = {Conte, Donatello and Grossi, Giuliano and Lanzarotti, Raffaella and Lin, Jianyi and Petrini, Alessandro},
+	title     = {A parallel MCMC algorithm for the Balanced Graph Coloring problem},
+	booktitle = {IAPR International workshop on Graph-Based Representation in Pattern Recognition, Tours, France},
+	year      = {2019},
+	month     = {Jul},
+	day       = {19-21}
+}
+"""
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="mcmc-colorer-torch",
+        description="Balanced graph coloring framework on PyTorch/CUDA.",
+        epilog=_CITATION,
+    )
+    ds = p.add_argument_group("Dataset")
+    ds.add_argument("-g", "--graph", metavar="file.txt", help="input edge list")
+    ds.add_argument("-o", "--outDir", dest="out_dir", help="output directory")
+    ds.add_argument(
+        "-s",
+        "--simulate",
+        type=float,
+        metavar="P",
+        help="simulate an Erdős–Rényi graph with edge probability P",
+    )
+    ds.add_argument("-n", "--nodes", type=int, default=0, help="node count")
+    alg = p.add_argument_group("Coloring algorithm")
+    alg.add_argument("--mcmccpu", "-1", action="store_true", help="sequential MCMC")
+    alg.add_argument("--mcmcgpu", "-2", action="store_true", help="parallel MCMC")
+    alg.add_argument("--lubygpu", "-3", action="store_true", help="Luby MIS")
+    alg.add_argument("--grdffgpu", "-4", action="store_true", help="Greedy FF")
+    alg.add_argument("--vffgpu", "-5", action="store_true", help="GFF + VFF rebalance")
+    alg.add_argument(
+        "--greedycpu",
+        action="store_true",
+        help="sequential degree-sorted greedy first-fit (the reference's "
+        "ColoringGreedyCPU, colorer.cpp:135-208 — not CLI-reachable there)",
+    )
+    mc = p.add_argument_group("Coloring options (MCMC)")
+    mc.add_argument("-k", "--nCol", dest="n_col", type=int, default=0)
+    mc.add_argument(
+        "-r", "--numColRatio", dest="num_col_ratio", type=float, default=1.0
+    )
+    # the reference spells the flag singular (ArgHandle.cpp:46); both
+    # spellings are accepted so its command lines run unmodified
+    mc.add_argument(
+        "-t",
+        "--tabooIteration",
+        "--tabooIterations",
+        dest="taboo_iterations",
+        type=int,
+        default=0,
+    )
+    mc.add_argument("-l", "--tailcut", action="store_true")
+    mc.add_argument(
+        "--proposal",
+        choices=[k.value for k in ProposalKind],
+        default=ProposalKind.BALANCE_DYNAMIC.value,
+        help="MCMC proposal variant (reference default: balance_dynamic)",
+    )
+    mc.add_argument(
+        "--hastings",
+        action="store_true",
+        help="enable Metropolis-Hastings acceptance (off in the reference)",
+    )
+    mc.add_argument(
+        "--seq-stall-escape",
+        action="store_true",
+        help="back the sequential tailcut with the reference's intended "
+        "unlock_stall (random re-color on a no-progress pass); default "
+        "off = faithful stall semantics",
+    )
+    gen = p.add_argument_group("General")
+    gen.add_argument("-R", "--repet", type=int, default=1)
+    gen.add_argument(
+        "-S", "--seed", type=int, default=None, help="RNG seed (default: time)"
+    )
+    gen.add_argument(
+        "-v",
+        "--verbose-level",
+        dest="verbose_level",
+        type=int,
+        default=0,
+        help="0-3 (clamped); >=1 enables TRACE output, like switching "
+        "TRACE ENABLE in logger.conf (ArgHandle.cpp:51,217)",
+    )
+    gen.add_argument(
+        "-M",
+        "--cite-me",
+        dest="cite_me",
+        action="store_true",
+        help="print the BibTeX entry and exit (ArgHandle.cpp:341)",
+    )
+    gen.add_argument(
+        "--dbg",
+        action="store_true",
+        help="interactive debugger of the parallel MCMC chain (not ported "
+        "yet: ROADMAP.md Queue 1 item 11)",
+    )
+    gen.add_argument(
+        "--device",
+        default="cuda",
+        help="device of the device colorers: 'cuda' (default, the current "
+        "card; refused without one) or 'cpu' (their plain versions)",
+    )
+    dev = p.add_argument_group("Device scaling (no reference counterpart)")
+    dev.add_argument(
+        "--chains", type=int, default=1,
+        help="independent chains (ensemble; > 1 not ported yet: item 11)",
+    )
+    dev.add_argument("--mesh-chains", type=int, default=0, help="not ported yet (item 12)")
+    dev.add_argument("--mesh-shards", type=int, default=0, help="not ported yet (item 12)")
+    dev.add_argument(
+        "--backend",
+        choices=["auto", "pallas", "xla", "matmul", "packed"],
+        default="auto",
+        help="device backend: 'pallas' = the hand-written kernels (auto), "
+        "'xla' = their plain PyTorch versions; 'matmul'/'packed' serve "
+        "--resident only here (over a host graph: item 8)",
+    )
+    dev.add_argument(
+        "--layout",
+        choices=["flat", "bucketed"],
+        default="flat",
+        help="ELL device layout; 'bucketed' is not ported yet (item 7)",
+    )
+    dev.add_argument(
+        "--anneal", action="store_true", help="pooled epsilon annealing (item 12)"
+    )
+    dev.add_argument(
+        "--resident",
+        action="store_true",
+        help="with --simulate: define the ER graph as a stateless hash "
+        "and materialise the bit-packed adjacency ON the device (zero "
+        "bytes uploaded; models/mcmc_resident.py).  --mcmcgpu and/or "
+        "--lubygpu; --check re-derives the identical graph host-side",
+    )
+    dev.add_argument("--ckpt", metavar="PATH", help="chain checkpoints (item 5)")
+    dev.add_argument("--resume", metavar="PATH", help="resume a checkpoint (item 5)")
+    dev.add_argument(
+        "--active",
+        action="store_true",
+        help="frontier mode: Luby/GFF/VFF gather only candidate/uncolored "
+        "rows (the frontier MCMC is item 9)",
+    )
+    p.add_argument("--check", action="store_true", help="validate colorings")
+    p.add_argument("--quiet", action="store_true")
+    return p
+
+
+def _refuse(msg: str) -> None:
+    print(msg, file=sys.stderr)
+    sys.exit(2)
+
+
+def _trace_on() -> bool:
+    return os.environ.get("MCMC_COLORER_TRACE", "") not in ("", "0", "false")
+
+
+def _check_unported(args) -> None:
+    """Refuse, naming the ROADMAP.md item, every path the port lacks."""
+    item = "is not ported yet (ROADMAP.md Queue 1 item"
+    if args.layout == "bucketed":
+        _refuse(f"--layout bucketed: the degree-bucketed ELL layout {item} 7).")
+    if args.backend in ("matmul", "packed") and not args.resident:
+        _refuse(f"--backend {args.backend} over a host graph (get_adjacency) {item} 8); "
+                "--resident runs the packed backend.")
+    if args.mcmcgpu and args.active:
+        _refuse(f"--mcmcgpu --active: the frontier MCMC chain {item} 9).")
+    if args.chains > 1:
+        _refuse(f"--chains {args.chains}: MCMC ensembles {item} 11).")
+    if args.dbg:
+        _refuse(f"--dbg: the interactive chain debugger {item} 11).")
+    for flag, on in (("--mesh-chains", args.mesh_chains), ("--mesh-shards", args.mesh_shards),
+                     ("--anneal", args.anneal)):
+        if on:
+            _refuse(f"{flag}: multi-device meshes and annealing {item} 12).")
+    for flag, on in (("--ckpt", args.ckpt), ("--resume", args.resume)):
+        if on:
+            _refuse(f"{flag}: chain checkpoints {item} 5).")
+    if args.mcmcgpu and _trace_on():
+        _refuse(f"--verbose-level >= 1 with --mcmcgpu: the device chain's free-colour "
+                f"TRACE {item} 5).")
+
+
+def _load_graph(args, seed: int) -> tuple[Graph, float | None]:
+    if args.graph:
+        g = load_edge_list(args.graph)
+        return g, None
+    if args.simulate is None:
+        print(
+            "Either --graph or --simulate must be given (see --help).",
+            file=sys.stderr,
+        )
+        sys.exit(2)
+    if not (0.0 < args.simulate < 1.0):
+        print("Simulation: P must be 0 < P < 1.", file=sys.stderr)
+        sys.exit(2)
+    if args.nodes <= 0:
+        print("Simulation: -n N (positive) is mandatory.", file=sys.stderr)
+        sys.exit(2)
+    g = erdos_renyi(args.nodes, args.simulate, seed=seed)
+    return g, args.simulate
+
+
+def _algos(args) -> list[ColorerKind]:
+    sel = []
+    if args.mcmccpu:
+        sel.append(ColorerKind.MCMC_SEQ)
+    if args.mcmcgpu:
+        sel.append(ColorerKind.MCMC)
+    if args.lubygpu:
+        sel.append(ColorerKind.LUBY)
+    if args.grdffgpu:
+        sel.append(ColorerKind.GREEDY_FF)
+    if args.vffgpu:
+        sel.append(ColorerKind.VFF)
+    if args.greedycpu:
+        sel.append(ColorerKind.GREEDY_SEQ)
+    if not sel:
+        # reference default: MCMC CPU (ArgHandle.cpp:247-249)
+        print(
+            "No colorer selected: defaulting to sequential MCMC (--mcmccpu).",
+            file=sys.stderr,
+        )
+        sel.append(ColorerKind.MCMC_SEQ)
+    return sel
+
+
+_ALGO_TAG = {
+    ColorerKind.MCMC_SEQ: "MCMC_CPU",
+    ColorerKind.MCMC: "MCMC_GPU",
+    ColorerKind.LUBY: "LUBY",
+    ColorerKind.GREEDY_FF: "GFF",
+    ColorerKind.VFF: "VFF",
+    ColorerKind.GREEDY_SEQ: "GREEDY_CPU",
+}
+
+
+def _check_resident_args(args) -> None:
+    """--resident is the zero-upload hash-graph path: --mcmcgpu (single
+    chain) and/or the matmul Luby loop (--lubygpu) over a --simulate
+    graph."""
+    if args.graph or args.simulate is None:
+        print("--resident requires --simulate (it IS the generator).",
+              file=sys.stderr)
+        sys.exit(2)
+    others = (
+        args.mcmccpu or args.grdffgpu or args.vffgpu
+        or args.greedycpu or not (args.mcmcgpu or args.lubygpu)
+    )
+    if others:
+        print(
+            "--resident runs the NC-native colorers only: --mcmcgpu "
+            "(any driver) and/or --lubygpu (no mesh); other colorers "
+            "gather neighbor lists, which the resident graph never "
+            "materialises.",
+            file=sys.stderr,
+        )
+        sys.exit(2)
+    if args.backend not in ("auto", "matmul", "packed"):
+        print(
+            f"--resident implies the packed-MXU backend; ignoring "
+            f"--backend {args.backend}.",
+            file=sys.stderr,
+        )
+
+
+def _make_colorer(kind: ColorerKind, g: Graph, args, params: MCMCParams, device):
+    if kind == ColorerKind.MCMC_SEQ:
+        from mcmc_colorer_tpu_torch.models.mcmc_sequential import SequentialMCMCColorer
+
+        return SequentialMCMCColorer(g, params)
+    if kind == ColorerKind.MCMC:
+        from mcmc_colorer_tpu_torch.models.mcmc import MCMCColorer
+
+        return MCMCColorer(g, params, backend=args.backend, layout=args.layout, device=device)
+    if kind == ColorerKind.LUBY:
+        from mcmc_colorer_tpu_torch.models.luby import LubyColorer
+
+        return LubyColorer(g, active=args.active, layout=args.layout, device=device)
+    if kind == ColorerKind.GREEDY_FF:
+        from mcmc_colorer_tpu_torch.models.greedy_ff import GreedyFFColorer
+
+        return GreedyFFColorer(
+            g, backend=args.backend, active=args.active, layout=args.layout, device=device
+        )
+    if kind == ColorerKind.VFF:
+        from mcmc_colorer_tpu_torch.models.vff import VFFColorer
+
+        return VFFColorer(
+            g, backend=args.backend, active=args.active, layout=args.layout, device=device
+        )
+    if kind == ColorerKind.GREEDY_SEQ:
+        from mcmc_colorer_tpu_torch.models.greedy_seq import SequentialGreedyColorer
+
+        return SequentialGreedyColorer(g)
+    raise ValueError(kind)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.cite_me:
+        # print the BibTeX entry and exit (ArgHandle.cpp:230-232)
+        print(_BIBTEX)
+        return 0
+    # --verbose-level: clamp to 0..3 with the reference's warnings
+    # (ArgHandle.cpp:278-286); >=1 turns the TRACE gate on
+    if args.verbose_level > 3:
+        print("verbose-level higher than 3.", file=sys.stderr)
+        args.verbose_level = 3
+    if args.verbose_level < 0:
+        print("verbose-level lower than 0.", file=sys.stderr)
+        args.verbose_level = 0
+    if args.verbose_level >= 1:
+        os.environ["MCMC_COLORER_TRACE"] = "1"
+    _check_unported(args)
+    try:
+        device = colorer_device(args.device)
+    except RuntimeError as e:  # no card: refuse, never run on the CPU instead
+        _refuse(f"--device {args.device}: {e}")
+    if not args.quiet:
+        print(_LOGO)
+        print(_CITATION)
+        print()
+    # seed drawn ONCE and used for both the simulated graph and the chains
+    # (the reference seeds once, ArgHandle.cpp:272-276)
+    seed = args.seed if args.seed is not None else int(time.time())
+    ratio = min(16.0, max(1.0, args.num_col_ratio))
+    resident = None
+    resident_luby = None
+    if args.resident:
+        _check_resident_args(args)
+        if not (0.0 < args.simulate < 1.0) or args.nodes <= 0:
+            print("Simulation: need 0 < P < 1 and -n N > 0.",
+                  file=sys.stderr)
+            sys.exit(2)
+        template = MCMCParams(
+            n_colors=args.n_col or 0,
+            taboo_iterations=args.taboo_iterations,
+            tailcut=args.tailcut,
+            proposal=ProposalKind(args.proposal),
+            hastings=args.hastings,
+            seq_stall_escape=args.seq_stall_escape,
+        )
+        if args.lubygpu:
+            # NC-native Luby over the same hash graph (models/luby.py)
+            from mcmc_colorer_tpu_torch.models.luby import LubyColorer
+
+            resident_luby = LubyColorer(
+                None, resident_spec=(args.nodes, args.simulate, seed), device=device
+            )
+        prob = args.simulate
+        if not args.mcmcgpu:
+            # Luby-only resident run: no MCMC palette to resolve
+            g = resident_luby.host_graph() if args.check else resident_luby.graph
+            params = template.replace(
+                n_colors=args.n_col or default_n_colors(g.max_degree, ratio)
+            )
+        else:
+            from mcmc_colorer_tpu_torch.models.mcmc_resident import ResidentMCMCColorer
+
+            resident = ResidentMCMCColorer(
+                args.nodes,
+                args.simulate,
+                graph_seed=seed,
+                params=template,
+                num_col_ratio=ratio,
+                device=device,
+            )
+            if not args.quiet:
+                print(
+                    f"Resident graph materialised on device in "
+                    f"{resident.gen_seconds:.1f}s (zero bytes uploaded)."
+                )
+            # --check re-derives the identical graph host-side (threaded
+            # C++ hash enumeration) so validation runs against real
+            # edges; plain runs use the cheap stats view
+            g = resident.host_graph() if args.check else resident.stats_graph()
+            params = resident.params
+        n_col = params.n_colors
+    else:
+        g, prob = _load_graph(args, seed)
+        n_col = args.n_col or default_n_colors(g.max_degree, ratio)
+        params = MCMCParams(
+            n_colors=n_col,
+            taboo_iterations=args.taboo_iterations,
+            tailcut=args.tailcut,
+            proposal=ProposalKind(args.proposal),
+            hastings=args.hastings,
+            seq_stall_escape=args.seq_stall_escape,
+        )
+    graph_name = (
+        g.name
+        if args.graph
+        else f"{args.nodes}_{args.simulate}_{ratio}"
+    )
+    out_dir = args.out_dir or f"{graph_name}_out"
+    if not args.quiet:
+        print(
+            f"Graph: {graph_name} — n={g.n} m={g.n_edges} "
+            f"maxDeg={g.max_degree} meanDeg={g.mean_degree:.2f}"
+        )
+        print(f"Colors: {n_col} (ratio {ratio}) — seed {seed} — device {device}")
+
+    from mcmc_colorer_tpu_torch.utils import term
+
+    rc = 0
+    for kind in _algos(args):
+        if resident is not None and kind == ColorerKind.MCMC:
+            colorer = resident
+        elif resident_luby is not None and kind == ColorerKind.LUBY:
+            colorer = resident_luby
+        else:
+            colorer = _make_colorer(kind, g, args, params, device)
+        tag = _ALGO_TAG[kind]
+        for rep in range(args.repet):
+            result = colorer.run(seed, repetition=rep)
+            log_path, _ = save_run(
+                out_dir,
+                graph_name,
+                tag,
+                rep,
+                g,
+                result,
+                seed=seed,
+                prob=prob,
+                num_color_ratio=ratio,
+            )
+            valid = (
+                check_coloring(g, result.colors) if args.check else None
+            )
+            if args.check and not valid:
+                rc = 1
+            if not args.quiet:
+                extra = (
+                    ""
+                    if valid is None
+                    else (" — VALID" if valid else " — INVALID!")
+                )
+                print(
+                    f"{tag} rep {rep}: colors used "
+                    f"{len(np.unique(result.colors))}/{result.n_colors}, "
+                    f"iterations {result.iterations}, "
+                    f"{result.duration_ms:.0f} ms, "
+                    f"converged={result.converged}{extra} → {log_path}"
+                )
+            # TRACE-gated per-iteration + histogram output (the reference's
+            # LOG(TRACE) / PRINTHISTOGRAM prints, coloringMCMC_prints.cu)
+            if term.trace_enabled():
+                if result.conflict_trace is not None:
+                    term.trace(
+                        f"{tag} rep {rep} conflict trace: "
+                        f"{list(map(int, result.conflict_trace))}"
+                    )
+                # per-iteration free-color stats (the reference's
+                # getStatsFreeColors TRACE lines,
+                # coloringMCMC_prints.cu:117-131 / _CPU.cpp:203-207)
+                fct = (result.extra or {}).get("free_color_trace")
+                if fct is not None:
+                    for it, (lo, hi, avg) in enumerate(fct, start=1):
+                        term.trace(
+                            f"{tag} rep {rep} iter {it}: free colors "
+                            f"min {int(lo)} max {int(hi)} avg {avg:.2f}"
+                        )
+                term.trace(result.ascii_histogram())
+    return rc
+
+
+def dataset_gen_main(argv=None) -> int:
+    """``datasetGen`` equivalent (datasetGenerator.cpp:21-24):
+    ``dataset-gen-torch nNodes prob outFile [seed]``."""
+    argv = argv if argv is not None else sys.argv[1:]
+    if len(argv) < 3:
+        print("Usage: dataset-gen nNodes prob outFile [seed]", file=sys.stderr)
+        return 2
+    n, prob, out = int(argv[0]), float(argv[1]), argv[2]
+    seed = int(argv[3]) if len(argv) > 3 else 10000  # fixed default seed,
+    # like the reference (datasetGenerator.cpp:39)
+    from mcmc_colorer_tpu_torch.graph import native
+
+    m = native.generate_dataset(out, n, prob, seed=seed)
+    print(f"Wrote {out}: {n} nodes, {m} edges.")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

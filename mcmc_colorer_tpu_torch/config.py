@@ -1,8 +1,9 @@
 """Runtime configuration of the MCMC colorer.
 
-Counterpart of ``mcmc_colorer_tpu/config.py`` (``ProposalKind``,
-``InitKind``, ``MCMCParams``, ``default_n_colors``), copied because
-importing anything under ``mcmc_colorer_tpu`` pulls in jax.
+Counterpart of ``mcmc_colorer_tpu/config.py`` (``ColorerKind``,
+``ProposalKind``, ``InitKind``, ``MCMCParams``, ``default_n_colors``),
+copied because importing anything under ``mcmc_colorer_tpu`` pulls in
+jax.
 """
 
 from __future__ import annotations
@@ -10,6 +11,18 @@ from __future__ import annotations
 import dataclasses
 import enum
 from dataclasses import dataclass
+
+
+class ColorerKind(str, enum.Enum):
+    """Algorithm selection: the reference's five CLI colorers
+    (README.md:111-115) plus the sequential greedy (colorer.cpp:135-208)."""
+
+    MCMC = "mcmc"            # fully-parallel MCMC balanced colorer (--mcmcgpu)
+    MCMC_SEQ = "mcmc_seq"    # sequential-semantics MCMC (--mcmccpu)
+    LUBY = "luby"            # Luby-inspired greedy MIS colorer (--lubygpu)
+    GREEDY_FF = "greedy_ff"  # Greedy First-Fit (--grdffgpu)
+    VFF = "vff"              # Greedy FF + vertex-centric rebalancing (--vffgpu)
+    GREEDY_SEQ = "greedy_seq"  # sequential degree-sorted first-fit
 
 
 class ProposalKind(str, enum.Enum):
@@ -45,7 +58,7 @@ class MCMCParams:
     tailcut: bool = False
     proposal: ProposalKind = ProposalKind.BALANCE_DYNAMIC
     init: InitKind = InitKind.UNIFORM
-    seq_stall_escape: bool = False     # sequential colorer only (not ported)
+    seq_stall_escape: bool = False     # sequential colorer's tailcut only
     hastings: bool = False
     count_edges: bool = True
 

@@ -32,6 +32,21 @@ card's clock during the run reaches them all; a round's time is the
 median CUDA-event time of ``--runs`` calls after one warm-up, and each
 variant reports the median of its rounds with their range.  The result
 goes to ``--out`` as JSON, with the card's name and power limit.
+
+    python3 -m mcmc_colorer_tpu_torch.measure_kernels --colorers [--out PATH]
+
+times the colorers around K1 and K3 instead: at BASELINE config 3
+(ER(1M, 0.001), seed 3, the native sampler) GreedyFF and VFF, full and
+frontier; at ER(100k, 0.01) (the hash graph of graph seed 0, re-derived
+on the host) Luby's gather, frontier and resident loops.  Each colorer
+runs once to warm up, once timed (wall seconds on the host clock
+between synchronizations, the peak of allocated device bytes), and once
+under ``torch.profiler``: the device's idle share, the ten operations
+with the most device time, and the frontier rounds grouped by their
+profiler range (``models/mcmc_active.py:round_range``, named by loop and
+cap): rounds and host milliseconds a round.  A frontier round ends in a
+host read, so its host time is its wall time.  It also times an empty
+``round_range`` without a profiler, the range's cost a round.
 """
 
 from __future__ import annotations
@@ -164,6 +179,98 @@ def _k3(device, runs: int, rounds: int, gen, parent=None) -> list[dict]:
     return _rounds(variants, runs, rounds, label)
 
 
+CONFIG3 = (1_000_000, 0.001, 3)   # n, p, seed: BASELINE.md config 3
+LUBY_GRAPH = (100_000, 0.01, 0)   # n, p, graph seed: the resident bench
+LUBY_SEED = 5
+ROUND_TAG = " round cap="         # in the names of round_range's ranges
+
+
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def _colorer(label: str, make, top: int = 10) -> dict:
+    """``make()`` (one colorer run) warm, timed and profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcmc_colorer_tpu_torch.utils.memtrack import device_memory_stats
+    from mcmc_colorer_tpu_torch.utils.timer import Timer
+
+    make()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Timer() as wall:
+        make()
+        torch.cuda.synchronize()
+    row = {"wall_s": wall.duration_ms / 1e3,
+           "peak_bytes": device_memory_stats()["peak_bytes_in_use"]}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with Timer() as prof_wall:
+            make()
+            torch.cuda.synchronize()
+    device, rounds = [], {}
+    for e in prof.key_averages():
+        on_card = str(e.device_type).endswith("CUDA")
+        if ROUND_TAG in e.key:
+            # a range's row on the card repeats the time of its kernels
+            if not on_card:
+                ms = e.cpu_time_total / 1e3
+                rounds[e.key] = {"rounds": e.count, "ms": ms, "ms_a_round": ms / e.count}
+        elif on_card:
+            device.append(e)
+    device.sort(key=_device_us, reverse=True)
+    device_ms = sum(map(_device_us, device)) / 1e3
+    row["profile"] = {
+        "wall_s": prof_wall.duration_ms / 1e3, "device_ms": device_ms,
+        "idle_share": 1 - device_ms / prof_wall.duration_ms,
+        "top": [{"op": e.key, "count": e.count, "device_ms": _device_us(e) / 1e3}
+                for e in device[:top]],
+        "rounds": dict(sorted(rounds.items(), key=lambda kv: int(kv[0].split("=")[1]))),
+    }
+    print(f"{label}: {json.dumps(row)[:3000]}", flush=True)
+    return row
+
+
+def _range_cost_us(n: int = 10_000) -> float:
+    """Host microseconds of one empty ``round_range`` without a profiler."""
+    from mcmc_colorer_tpu_torch.models.mcmc_active import round_range
+    from mcmc_colorer_tpu_torch.utils.timer import Timer
+
+    with Timer() as t:
+        for _ in range(n):
+            with round_range("probe", 128):
+                pass
+    return t.duration_ms * 1e3 / n
+
+
+def _colorers(device) -> dict:
+    from mcmc_colorer_tpu_torch.graph.generate import erdos_renyi
+    from mcmc_colorer_tpu_torch.models.greedy_ff import GreedyFFColorer
+    from mcmc_colorer_tpu_torch.models.luby import LubyColorer
+    from mcmc_colorer_tpu_torch.models.vff import VFFColorer
+
+    out = {"round_range_us": _range_cost_us()}
+    resident = LubyColorer(None, resident_spec=LUBY_GRAPH, device=device)
+    g = resident.host_graph()
+    for label, c in (("Luby gather", LubyColorer(g, device=device)),
+                     ("Luby frontier", LubyColorer(g, active=True, device=device)),
+                     ("Luby resident", resident)):
+        out[label] = _colorer(label, lambda c=c: c.run(LUBY_SEED))
+    del resident, c, g
+    torch.cuda.empty_cache()
+    g = erdos_renyi(CONFIG3[0], CONFIG3[1], seed=CONFIG3[2])
+    for label, make in (("GreedyFF full", lambda: GreedyFFColorer(g, device=device)),
+                        ("GreedyFF frontier", lambda: GreedyFFColorer(g, active=True,
+                                                                      device=device)),
+                        ("VFF full", lambda: VFFColorer(g, device=device)),
+                        ("VFF frontier", lambda: VFFColorer(g, active=True, device=device))):
+        c = make()
+        out[f"{label}, config 3"] = _colorer(f"{label}, config 3", c.run)
+        del c
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="build/measure_kernels.json")
@@ -171,6 +278,8 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--parent", default=None,
                     help="a checkout of an earlier commit whose kernels are timed alongside")
+    ap.add_argument("--colorers", action="store_true",
+                    help="time the colorers around K1 and K3 instead of the kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("measure_kernels: no CUDA device")
@@ -190,6 +299,11 @@ def main() -> int:
         for built in list(pool.map(lambda m: m.load_kernel(), (k1, k3))):
             print(f"built {built.path.name} in {built.seconds:.3f} s: " + " | ".join(
                 ln.strip() for ln in built.log.splitlines() if "registers" in ln))
+    if args.colorers:
+        result = {"card": smi, "colorers": _colorers(device)}
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+        return 0
     gen = torch.Generator(device=device)
     gen.manual_seed(17)
     k3_rows = _k3(device, args.runs, args.rounds, gen, _load_parent(args.parent, "firstfit"))

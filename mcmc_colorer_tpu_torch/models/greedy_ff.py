@@ -8,8 +8,11 @@ vertex holds a colour.  Colours are 0-based, -1 = uncoloured; the
 palette bound is max degree + 1, which always leaves a free colour.
 Deterministic, so its colours equal JAX's exactly.
 
-The frontier variant (``active=True``) and the bucketed layout are not
-ported yet.
+``active=True`` runs the frontier variant: each round first-fits only
+the rows of the still-uncoloured vertices (``take_rows``), with K3's
+palette cut to the row width + 1.  Same rules, so the same colours and
+rounds as the full loop.  The bucketed layout is not ported yet
+(ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -22,15 +25,27 @@ import torch
 from mcmc_colorer_tpu_torch.graph.container import EllGraph, Graph, degree_pad_for
 from mcmc_colorer_tpu_torch.models.base import Coloring, colorer_device
 from mcmc_colorer_tpu_torch.models.mcmc import _bands, _sync, choose_block_size
+from mcmc_colorer_tpu_torch.models.mcmc_active import (
+    DEFAULT_BUCKET_FACTOR,
+    _buckets,
+    pick_cap,
+    round_range,
+)
 from mcmc_colorer_tpu_torch.ops.firstfit import first_fit, first_fit_plain
-from mcmc_colorer_tpu_torch.ops.neighbor import neighbor_colors
+from mcmc_colorer_tpu_torch.ops.neighbor import (
+    frontier_ids,
+    neighbor_colors,
+    scatter_drop,
+    take_rows,
+)
 
 
 class GreedyFFColorer:
     """``backend``: ``pallas`` (K3 on CUDA tensors), ``xla`` (K3's plain
     version everywhere) or ``auto`` (= ``pallas``).  ``device``: the
     current CUDA device by default (``colorer_device``); the CPU only
-    when asked for."""
+    when asked for.  ``ell``: a prebuilt flat ELL on that device to
+    reuse (VFF's phase 1 passes its own)."""
 
     def __init__(
         self,
@@ -38,14 +53,12 @@ class GreedyFFColorer:
         block_size: int | None = None,
         backend: str = "auto",
         active: bool = False,
+        min_bucket: int = 128,
+        bucket_factor: int | None = None,
+        ell: EllGraph | None = None,
         layout: str = "flat",
         device="cuda",
     ) -> None:
-        if active:
-            raise NotImplementedError(
-                "the frontier GreedyFF (active=True) is not ported yet "
-                "(ROADMAP.md Queue 1 item 10)"
-            )
         if layout == "bucketed":
             raise NotImplementedError(
                 "the degree-bucketed ELL layout is not ported yet "
@@ -62,21 +75,44 @@ class GreedyFFColorer:
         self.device = colorer_device(device)
         self.max_colors = graph.max_degree + 1
         self.block = block_size or choose_block_size(graph.n, self.max_colors)
-        self.ell = graph.to_ell(
+        self.active = active
+        self.ell = ell if ell is not None else graph.to_ell(
             pad_nodes_to=max(self.block, 128),
             pad_degree_to=degree_pad_for(graph, backend),
             device=self.device,
         )
+        self._min_bucket = min_bucket
+        self._bucket_factor = bucket_factor or DEFAULT_BUCKET_FACTOR
+
+    def _run_active(self):
+        """Host-driven frontier loop: (colours, rounds).  Each round reads
+        the count of conflict losers on the host to size the next one."""
+        ell = self.ell
+        caps = _buckets(ell.n_pad, self._min_bucket, self._bucket_factor)
+        colors = torch.where(ell.node_mask, -1, self.max_colors).to(torch.int32)
+        uncolored, rounds = self.graph.n, 0
+        while uncolored > 0:
+            cap = pick_cap(caps, uncolored)
+            with round_range("gff", cap):
+                colors, n_unc = _gff_active_round(
+                    ell, colors, cap=cap, max_colors=self.max_colors, backend=self.backend,
+                )
+                uncolored = int(n_unc)
+            rounds += 1
+        return colors, rounds
 
     def run(self, seed: int = 0, repetition: int = 0) -> Coloring:
         """Colour the graph (``seed`` and ``repetition`` are unused: the
         algorithm is deterministic; they keep the colorer interface)."""
         _sync(self.device)
         t0 = time.perf_counter()
-        colors, rounds, _ = _gff_segment(
-            self.ell, _gff_init(self.ell), 2**30,
-            max_colors=self.max_colors, block=self.block, backend=self.backend,
-        )
+        if self.active:
+            colors, rounds = self._run_active()
+        else:
+            colors, rounds, _ = _gff_segment(
+                self.ell, _gff_init(self.ell), 2**30,
+                max_colors=self.max_colors, block=self.block, backend=self.backend,
+            )
         colors = colors[: self.graph.n].cpu().numpy()
         dur = (time.perf_counter() - t0) * 1e3
         return Coloring(
@@ -115,6 +151,27 @@ def _conflict_losers(ell: EllGraph, colors):
         nc = neighbor_colors(neigh, colors, fill=-2)
         out[s:e] = ((nc == own) & (own >= 0) & (neigh < ids[s:e, None])).any(1)
     return out
+
+
+def _gff_active_round(ell: EllGraph, colors, *, cap: int, max_colors: int,
+                      backend: str = "pallas"):
+    """One frontier round over the <= ``cap`` uncoloured vertices: first
+    fit on their gathered rows (K3 on the card), then the conflicts among
+    the frontier only (a neighbour coloured earlier was occupied at first
+    fit), the higher id losing.  Returns (colours, number of losers)."""
+    ids, valid = frontier_ids((colors < 0) & ell.node_mask, cap)
+    rows = take_rows(ell, ids, valid)
+    # a first-fit colour is <= the degree <= the row width, so the
+    # palette is cut to d_pad + 1
+    pal = min(max_colors, rows.shape[1] + 1)
+    ff_fn = first_fit if backend == "pallas" else first_fit_plain
+    allow = torch.ones((pal,), dtype=torch.int32, device=colors.device)
+    tentative = torch.where(valid, ff_fn(rows, colors, allow, pal), max_colors)
+    colors_t = scatter_drop(colors, ids, tentative)
+    nc_new = neighbor_colors(rows, colors_t)
+    losers = valid & ((nc_new == tentative[:, None]) & (rows < ids[:, None])).any(1)
+    final = torch.where(losers, -1, tentative)
+    return scatter_drop(colors, ids, final), losers.sum()
 
 
 def _gff_init(ell: EllGraph):

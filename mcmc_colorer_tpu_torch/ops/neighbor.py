@@ -1,8 +1,8 @@
 """Neighbour-colour gathers, occupancy and the colour-class histogram.
 
 Counterpart of ``mcmc_colorer_tpu/ops/neighbor.py``: ``extend_colors``,
-``neighbor_colors``, ``occupancy_matrix`` and ``color_histogram``.
-``take_rows`` (the frontier gather) waits for the frontier slice.
+``neighbor_colors``, ``occupancy_matrix``, ``take_rows`` (the frontier
+gather, flat ELL only) and ``color_histogram``.
 """
 
 from __future__ import annotations
@@ -38,6 +38,50 @@ def occupancy_matrix(neigh_cols: torch.Tensor, n_colors: int) -> torch.Tensor:
     occ = torch.zeros((b, n_colors + 1), dtype=torch.bool, device=neigh_cols.device)
     occ.scatter_(1, idx, True)
     return occ[:, :n_colors]
+
+
+def take_rows(ell, ids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """[cap, d_pad] int32 adjacency rows of the padded vertex ids ``ids``
+    (one ``index_select``, a fresh contiguous tensor); every slot of an
+    invalid row holds the sentinel ``ell.n_pad``.  Flat ELL only."""
+    if getattr(ell, "slices", None) is not None:
+        raise NotImplementedError(
+            "take_rows over the degree-bucketed layout is not ported yet "
+            "(ROADMAP.md Queue 1 item 7)"
+        )
+    n_pad = ell.n_pad
+    rows = ell.neighbors.index_select(0, ids.clamp(max=n_pad - 1))
+    return torch.where(valid[:, None], rows, n_pad)
+
+
+def frontier_ids(mask: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ids, valid): the indices of ``mask``'s set entries in ascending
+    order, padded to ``cap`` with the sentinel ``len(mask)`` (JAX's
+    ``jnp.nonzero(mask, size=cap, fill_value=n_pad)``; entries past
+    ``cap`` are cut, as there)."""
+    n_pad = mask.shape[0]
+    nz = torch.nonzero(mask)[:cap, 0].to(torch.int32)
+    ids = torch.full((cap,), n_pad, dtype=torch.int32, device=mask.device)
+    ids[: nz.shape[0]] = nz
+    return ids, ids < n_pad
+
+
+def scatter_drop(dst: torch.Tensor, ids: torch.Tensor, values,
+                 accumulate: bool = False) -> torch.Tensor:
+    """A copy of ``dst`` with ``dst[ids] = values`` (``+= values`` with
+    ``accumulate``), where ids equal to ``len(dst)`` are dropped: JAX's
+    ``.at[ids].set(values, mode="drop")`` / ``.add`` for the sentinel of
+    ``frontier_ids``.  The write goes through one extra slot that is cut
+    off.  ``values`` is a tensor like ``ids`` or a scalar."""
+    ext = torch.cat([dst, dst.new_zeros((1,))])
+    values = torch.as_tensor(values, dtype=dst.dtype, device=dst.device)
+    if accumulate:
+        # index_add_ adds with atomics; index_put_(accumulate=True) would
+        # sort the ids first (~20 ms at 1M ids on an H100)
+        ext.index_add_(0, ids, values.expand(ids.shape))
+    else:
+        ext.index_put_((ids.to(torch.int64),), values)
+    return ext[:-1]
 
 
 def color_histogram(

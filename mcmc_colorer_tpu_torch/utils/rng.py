@@ -15,6 +15,16 @@ the JAX chain consumes keys:
   tailcut (``randint``, drawn every round, stalled or not, as JAX draws
   ``randint(fold_in(key, round))``).
 
+Luby (``models/luby.py``) draws from its own source, seeded the same
+way, in the order JAX splits its key (``key, sub = split(key)`` then
+``uniform(sub, ...)``, luby.py:263,329,397-398):
+
+- the full loop (gather or resident): one ``next(n_pad)`` per round,
+  the round that commits a colour included;
+- the frontier loop: one ``next(cap)`` per round, ``cap`` the ladder
+  rung of that round; the i-th uniform goes to the i-th candidate in
+  ascending id order.
+
 Tests substitute a source that replays JAX's own draws in that order, so
 both packages can be fed identical uniforms.  The two generators give
 different numbers for the same seed; whole-chain bit parity is not a

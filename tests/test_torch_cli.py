@@ -1,0 +1,272 @@
+"""The port's command-line interface (``mcmc_colorer_tpu_torch/cli.py``).
+
+Ports of the JAX CLI's tests (``tests/test_cli_analysis.py``), run with
+``--device cpu``; the refusals of the paths the port lacks (exit 2,
+naming their ROADMAP.md item); the refusal to run without a card unless
+asked for the CPU; and the JAX package's ``log_parser`` reading the
+port's logs with the same fields as the JAX CLI's.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from mcmc_colorer_tpu.analysis.log_parser import parse_results_dir, speedups
+from mcmc_colorer_tpu.cli import main as jax_main
+
+from mcmc_colorer_tpu_torch.cli import dataset_gen_main
+from mcmc_colorer_tpu_torch.cli import main as cli_main
+from mcmc_colorer_tpu_torch.ops import hashgen
+
+torch.set_num_threads(2)
+
+CPU = ["--device", "cpu"]
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def _no_trace(monkeypatch):
+    # -v >= 1 sets MCMC_COLORER_TRACE in the process environment; setenv
+    # (not delenv of an absent name) makes monkeypatch remove it afterwards
+    monkeypatch.setenv("MCMC_COLORER_TRACE", "0")
+
+
+def test_cli_simulate_all_algos(tmp_path):
+    out = tmp_path / "out"
+    rc = cli_main(
+        [
+            "--simulate", "0.1", "-n", "120",
+            "--mcmcgpu", "--mcmccpu", "--lubygpu", "--grdffgpu", "--vffgpu",
+            "--seed", "7", "--tailcut", "--check", "--quiet", "--outDir", str(out),
+            *CPU,
+        ]
+    )
+    assert rc == 0
+    logs = sorted(os.listdir(out))
+    tags = {f.split("-")[-2] for f in logs if f.endswith(".log")}
+    assert tags == {"MCMC_GPU", "MCMC_CPU", "LUBY", "GFF", "VFF"}
+    colors = [f for f in logs if f.endswith("-colors.txt")]
+    assert len(colors) == 5
+    for cf in colors:
+        lines = (out / cf).read_text().strip().split("\n")
+        assert len(lines) == 120 and lines[0].startswith("0 ")
+    # the reference's own device tag pairs in the analysis
+    sp = speedups(parse_results_dir(str(out)))
+    assert {"MCMC_CPU/MCMC_GPU", "LUBY/MCMC_GPU"} <= set(sp)
+
+
+def test_cli_errors():
+    for argv in (
+        ["--simulate", "1.5", "-n", "10", "--quiet"],
+        ["--simulate", "0.5", "--quiet"],  # missing -n
+        ["--quiet"],  # neither graph nor simulate
+    ):
+        with pytest.raises(SystemExit) as e:
+            cli_main(argv + CPU)
+        assert e.value.code == 2
+
+
+def test_dataset_gen_and_graph_input(tmp_path):
+    ds = tmp_path / "g.txt"
+    assert dataset_gen_main(["150", "0.05", str(ds), "5"]) == 0
+    assert dataset_gen_main(["150"]) == 2
+    out = tmp_path / "out"
+    rc = cli_main(
+        ["--graph", str(ds), "--lubygpu", "--seed", "1", "--check", "--quiet",
+         "--outDir", str(out), *CPU]
+    )
+    assert rc == 0
+    assert (out / "g-LUBY-0.log").exists()
+
+
+def test_cli_greedycpu(tmp_path):
+    out = tmp_path / "out"
+    rc = cli_main(
+        ["--simulate", "0.1", "-n", "100", "--greedycpu", "--seed", "5", "--check",
+         "--quiet", "--outDir", str(out), *CPU]
+    )
+    assert rc == 0
+    logs = [f for f in os.listdir(out) if f.endswith(".log")]
+    assert any("GREEDY_CPU" in f for f in logs)
+
+
+def test_cli_resident_luby(tmp_path):
+    out = tmp_path / "out"
+    rc = cli_main(
+        ["--simulate", "0.05", "-n", "600", "--lubygpu", "--resident", "--seed", "2",
+         "--check", "--quiet", "--outDir", str(out), *CPU]
+    )
+    assert rc == 0
+    assert (out / "600_0.05_1.0-LUBY-0.log").exists()
+    with pytest.raises(SystemExit) as e:  # no mesh for resident Luby
+        cli_main(["--simulate", "0.05", "-n", "100", "--lubygpu", "--resident",
+                  "--mesh-shards", "2", "--quiet", *CPU])
+    assert e.value.code == 2
+
+
+def test_cli_resident_runs_and_validates(tmp_path):
+    out = tmp_path / "out"
+    rc = cli_main(
+        ["--simulate", "0.04", "-n", "900", "--mcmcgpu", "--resident", "--tailcut",
+         "--seed", "11", "--check", "--quiet", "--outDir", str(out), *CPU]
+    )
+    assert rc == 0
+    logs = sorted(os.listdir(out))
+    log = [f for f in logs if f.endswith(".log")][0]
+    text = (out / log).read_text()
+    assert "Nodes: 900" in text
+    assert "Execution time:" in text
+    assert "Iteration performed:" in text
+    assert "-MCMC_GPU-0.log" in log
+    cf = [f for f in logs if f.endswith("-colors.txt")][0]
+    assert len((out / cf).read_text().strip().split("\n")) == 900
+
+
+def test_cli_resident_mcmc_and_luby_share_adjacency(tmp_path, monkeypatch):
+    """--resident --mcmcgpu --lubygpu builds A once: both colorers take
+    it from the one cache slot."""
+    builds = []
+    build = hashgen.er_packed_on_device
+    monkeypatch.setattr(hashgen, "_PACKED_CACHE", {})
+    monkeypatch.setattr(hashgen, "er_packed_on_device",
+                        lambda *a, **k: builds.append(a) or build(*a, **k))
+    out = tmp_path / "out"
+    rc = cli_main(
+        ["--simulate", "0.05", "-n", "500", "--mcmcgpu", "--lubygpu", "--resident",
+         "--tailcut", "--seed", "4", "--check", "--quiet", "--outDir", str(out), *CPU]
+    )
+    assert rc == 0
+    assert len(builds) == 1 and builds[0][:3] == (500, 0.05, 4)
+    tags = {f.split("-")[-2] for f in os.listdir(out) if f.endswith(".log")}
+    assert tags == {"MCMC_GPU", "LUBY"}
+
+
+def test_cli_resident_errors():
+    for argv in (
+        ["--resident", "--mcmcgpu", "--quiet", "-n", "100"],
+        ["--resident", "--graph", "x.txt", "--mcmcgpu", "--quiet"],  # needs --simulate
+        ["--resident", "--simulate", "0.1", "-n", "60", "--grdffgpu", "--quiet"],
+        ["--resident", "--simulate", "0.1", "-n", "60", "--mcmcgpu", "--dbg", "--quiet"],
+    ):
+        with pytest.raises(SystemExit) as e:
+            cli_main(argv + CPU)
+        assert e.value.code == 2
+
+
+UNPORTED = {
+    "layout_bucketed": (["--grdffgpu", "--layout", "bucketed"], 7),
+    "backend_matmul": (["--mcmcgpu", "--backend", "matmul"], 8),
+    "backend_packed_luby": (["--lubygpu", "--backend", "packed"], 8),
+    "mcmc_active": (["--mcmcgpu", "--active"], 9),
+    "resident_mcmc_active": (["--mcmcgpu", "--active", "--resident"], 9),
+    "chains": (["--mcmcgpu", "--chains", "2"], 11),
+    "dbg": (["--mcmcgpu", "--dbg"], 11),
+    "mesh_chains": (["--mcmcgpu", "--mesh-chains", "2"], 12),
+    "mesh_shards": (["--mcmcgpu", "--mesh-shards", "2"], 12),
+    "anneal": (["--mcmcgpu", "--anneal"], 12),
+    "ckpt": (["--mcmcgpu", "--ckpt", "run.npz"], 5),
+    "resume": (["--mcmcgpu", "--resume", "run.npz"], 5),
+    "trace": (["--mcmcgpu", "-v", "1"], 5),
+    "resident_trace": (["--mcmcgpu", "--resident", "-v", "2"], 5),
+}
+
+
+@pytest.mark.parametrize("case", list(UNPORTED))
+def test_unported_flags_exit_2(tmp_path, capsys, case):
+    flags, item = UNPORTED[case]
+    out = tmp_path / "out"
+    with pytest.raises(SystemExit) as e:
+        cli_main(["--simulate", "0.1", "-n", "60", "--quiet", "--outDir", str(out),
+                  *flags, *CPU])
+    assert e.value.code == 2
+    assert f"ROADMAP.md Queue 1 item {item})" in capsys.readouterr().err
+    assert not out.exists()
+
+
+def test_cli_refuses_without_card(tmp_path, capsys, monkeypatch):
+    """Without a card and without --device cpu the CLI exits non-zero
+    and runs nothing on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "out"
+    for extra in ([], ["--device", "cuda"], ["--device", "cuda:0"]):
+        with pytest.raises(SystemExit) as e:
+            cli_main(["--simulate", "0.1", "-n", "60", "--grdffgpu", "--quiet",
+                      "--outDir", str(out), *extra])
+        assert e.value.code == 2
+        assert "device='cpu'" in capsys.readouterr().err
+    assert not out.exists()
+
+
+def test_cli_active_colorers(tmp_path):
+    out = tmp_path / "out"
+    rc = cli_main(
+        ["--simulate", "0.1", "-n", "150", "--lubygpu", "--grdffgpu", "--vffgpu",
+         "--active", "--seed", "3", "--check", "--quiet", "--outDir", str(out), *CPU]
+    )
+    assert rc == 0
+    tags = {f.split("-")[-2] for f in os.listdir(out) if f.endswith(".log")}
+    assert tags == {"LUBY", "GFF", "VFF"}
+
+
+def test_cli_trace_and_reference_flags(tmp_path, capsys):
+    """-v clamps with the reference's warning and turns TRACE on (the
+    histogram goes to stderr); --cite-me prints the BibTeX entry."""
+    assert cli_main(["--cite-me"]) == 0
+    assert "@inproceedings{colorerGbR2019" in capsys.readouterr().out
+    out = tmp_path / "out"
+    rc = cli_main(
+        ["-s", "0.1", "-n", "80", "-4", "-v", "5", "-S", "42", "--check", "--quiet",
+         "-o", str(out), *CPU]
+    )
+    assert rc == 0
+    err = capsys.readouterr().err
+    assert "verbose-level higher than 3." in err
+    assert "Every * is" in err
+    assert list(out.glob("*-GFF-0-colors.txt"))
+
+
+@pytest.mark.parametrize("active", [False, True])
+def test_log_parser_reads_port_logs(tmp_path, active):
+    """JAX's parse_results_dir reads the port's logs; for the
+    deterministic colorers every field but the time equals the JAX CLI's
+    on the same graph."""
+    argv = ["--simulate", "0.1", "-n", "120", "--grdffgpu", "--vffgpu", "--seed", "7",
+            "--repet", "2", "--quiet"] + (["--active"] if active else [])
+    assert jax_main(argv + ["--outDir", str(tmp_path / "jax")]) == 0
+    assert cli_main(argv + ["--outDir", str(tmp_path / "port"), *CPU]) == 0
+    want = parse_results_dir(str(tmp_path / "jax"))
+    got = parse_results_dir(str(tmp_path / "port"))
+    assert set(got) == set(want) == {"GFF", "VFF"}
+    for tag in want:
+        a = sorted(got[tag], key=lambda r: r["repetition"])
+        b = sorted(want[tag], key=lambda r: r["repetition"])
+        assert len(a) == len(b) == 2
+        for x, y in zip(a, b):
+            assert x.keys() == y.keys()
+            assert "execution_time_s" in x and "histogram" in x and "balancing_index" in x
+            for k in x:
+                if k not in ("path", "execution_time_s"):
+                    assert x[k] == y[k], (tag, k)
+    for f in (tmp_path / "port").glob("*-colors.txt"):
+        twin = tmp_path / "jax" / f.name
+        assert np.array_equal(np.loadtxt(f), np.loadtxt(twin))
+
+
+def test_cli_module_entry(tmp_path):
+    """``python -m mcmc_colorer_tpu_torch.cli`` runs main and exits with
+    its code."""
+    out = tmp_path / "out"
+    env = {k: v for k, v in os.environ.items() if k != "MCMC_COLORER_TRACE"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "mcmc_colorer_tpu_torch.cli", "--simulate", "0.1", "-n",
+         "80", "--grdffgpu", "--seed", "2", "--check", "--outDir", str(out), *CPU],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "GFF rep 0" in proc.stdout and "VALID" in proc.stdout
+    assert list(out.glob("*-GFF-0.log"))

@@ -273,8 +273,9 @@ def test_hastings_run_and_unported_paths(medium_er, monkeypatch):
         tm.MCMCColorer(g, p, backend="matmul", device="cpu")
     with pytest.raises(ValueError, match="backend"):
         tm.MCMCColorer(g, p, backend="nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        GreedyFFColorer(g, active=True, device="cpu")
+    # the frontier GreedyFF is ported: it runs and equals the full loop
+    assert np.array_equal(GreedyFFColorer(g, active=True, device="cpu").run().colors,
+                          GreedyFFColorer(g, device="cpu").run().colors)
     with pytest.raises(NotImplementedError, match="item 7"):
         GreedyFFColorer(g, layout="bucketed", device="cpu")
     monkeypatch.setenv("MCMC_COLORER_TRACE", "1")
