@@ -9,8 +9,10 @@ It builds every kernel from ``csrc/`` (one nvcc per source, all started
 together, into the git-ignored ``build/kernels/``) and holds each against
 its plain PyTorch version on the card: K1 (bit-packed NC) exactly, K3
 (masked first fit over the neighbours' colours, which it gathers itself)
-exactly, K2 (fused resample sweep) with exact conflict counts and sampled
-colours that may differ only at CDF-boundary vertices.  Then it drives
+exactly, K2 (the resample sweep, which also gathers the colours itself)
+with exact conflict counts and sampled colours that may differ only at
+CDF-boundary vertices, in both of its regimes (the colour vector staged
+in shared memory, and read from L2).  Then it drives
 both main paths through the library surface, where every colorer runs on
 the card by default:
 
@@ -21,7 +23,8 @@ the card by default:
   native sampler at numColRatio 1, 2 and 4, plus GreedyFF; config 4, a
   BA(50k, 8) graph written in the network-repository layout, converted,
   loaded by the native importer and coloured; and the K2 chain beside the
-  K1 chain on the ER(100k, 0.01) graph of slice 1;
+  K1 chain on the ER(100k, 0.01) graph of slice 1 (K2 staged there, L2
+  at config 3; one launch a sweep on both);
 - slice 4, the other colorers and the CLI: at config 3 the frontier
   GreedyFF (its colours must equal the full loop's) and VFF, full and
   frontier (K3 with allow and cur), each also on K3's plain version: all
@@ -46,8 +49,9 @@ that holds the kernels' launch counts, errors and times, each beside its
 bound: the least time the card could take for the same work, the larger
 of the bytes it must move (each input read once, each output written
 once) over the memory rate and its operations over their peak rate.
-K1 runs at three shapes on the main paths; its times and bound are
-their means weighted by the launches at each, listed under ``shapes``.
+K1 runs at three shapes on the main paths and K2 at two; their times and
+bounds are means weighted by the launches at each, listed under
+``shapes``.
 """
 
 from __future__ import annotations
@@ -426,14 +430,16 @@ def phase_k3(device, ell3, sb):
 
 
 def _k2_inputs(ell, params, gen, device, taboo_max: int, rows: int | None = None):
-    """nc, neighbors, cur, taboo, ids, unif, p_eff for a sweep over the
-    first ``rows`` rows of ``ell`` (all by default), random colours."""
+    """neighbors, colors, cur, taboo, row0, unif, p_eff for a sweep over
+    the first ``rows`` rows of ``ell`` (its real rows by default), random
+    colours (phantoms n_colors), handed over as the main path does: the
+    real vertices' colour vector (models/mcmc.py:_ell_sweep)."""
     import torch
 
     from mcmc_colorer_tpu_torch.models.mcmc import _needs_histogram, _variant_distribution
-    from mcmc_colorer_tpu_torch.ops.neighbor import color_histogram, neighbor_colors
+    from mcmc_colorer_tpu_torch.ops.neighbor import color_histogram
 
-    rows = rows or ell.n_pad
+    rows = rows or ell.n_nodes
     colors = _real_colors(ell.n_nodes, ell.n_pad, params.n_colors, gen, device)
     taboo = torch.randint(0, taboo_max + 1, (rows,), generator=gen, device=device,
                           dtype=torch.int32)
@@ -441,34 +447,47 @@ def _k2_inputs(ell, params, gen, device, taboo_max: int, rows: int | None = None
     hist = (color_histogram(colors, params.n_colors, ell.node_mask)
             if _needs_histogram(params) else None)
     p_eff = _variant_distribution(params, hist, ell.n_nodes, device)
-    ids = torch.arange(rows, dtype=torch.int32, device=device)
-    neigh = ell.neighbors[:rows]
-    return (neighbor_colors(neigh, colors), neigh, colors[:rows].contiguous(), taboo,
-            ids, unif, p_eff)
+    return (ell.neighbors[:rows], colors[: ell.n_nodes], colors[:rows].contiguous(), taboo,
+            0, unif, p_eff)
 
 
-def _k2_check(k2, args, params, label):
+def _k2_bytes_ops(args, n_colors: int) -> tuple[int, int]:
+    """What one K2 launch on ``args`` must move (the ids, the colour
+    vector, the row vectors and p_eff read once; star, qstar, new_taboo
+    and the conflict count written once) and its operations (a compare a
+    slot, a CDF step a colour)."""
+    neigh, colors, cur, taboo, _, unif, p_eff = args
+    rows, d_pad = neigh.shape
+    n_bytes = _nbytes(neigh, colors, cur, taboo, unif) + 4 * n_colors + rows * 12 + 8
+    return n_bytes, rows * (d_pad + n_colors)
+
+
+def _k2_check(k2, args, params, label, l2=False, phase=8):
     """K2 against its plain version: exact conflicts, samples equal but at
     CDF-boundary rows, new_taboo equal and qstar within rtol 1e-5 where
-    the samples agree.  Returns (boundary fraction, max |qstar error|)."""
+    the samples agree.  ``l2`` forces the L2 regime.  Returns (boundary
+    fraction, max |qstar error|)."""
     import torch
 
     from mcmc_colorer_tpu_torch.models.mcmc import _proposal_q
     from mcmc_colorer_tpu_torch.ops.neighbor import occupancy_matrix
 
-    nc, neigh, cur, taboo, ids, unif, p_eff = args
-    got = k2.resample_sweep_cuda(*args, params.epsilon, params)
-    want = k2.resample_sweep_reference(*args, params.epsilon, params)
+    neigh, colors, cur, taboo, row0, unif, p_eff = args
+    got = k2.resample_sweep_cuda(*args, params.epsilon, params, _l2=l2)
+    want = k2.resample_sweep_plain(*args, params.epsilon, params)
+    regime = "staged" if k2.sweep_shape(colors.shape[0], params.n_colors, l2).staged else "L2"
+    label = f"{label} ({regime})"
     _require(int(got[3]) == int(want[3]),
              f"K2 conflicts {int(got[3])} vs plain {int(want[3])} at {label}")
-    rows = nc.shape[0]
+    rows = neigh.shape[0]
     mism = (got[0] != want[0]).nonzero()[:, 0]
     frac = mism.numel() / rows
     _require(frac <= BOUNDARY_MAX_FRACTION,
              f"K2 samples differ at {mism.numel()} of {rows} rows at {label}")
     if mism.numel():
-        eps = torch.tensor(params.epsilon, dtype=torch.float32, device=nc.device)
-        q = _proposal_q(cur[mism], occupancy_matrix(nc[mism], params.n_colors), params,
+        nc = k2.gathered_colors(neigh[mism], colors)
+        eps = torch.tensor(params.epsilon, dtype=torch.float32, device=neigh.device)
+        q = _proposal_q(cur[mism], occupancy_matrix(nc, params.n_colors), params,
                         p_eff, eps, params.n_colors)
         cdf = torch.cumsum(q, dim=1)
         k = want[0][mism].to(torch.int64)
@@ -482,14 +501,45 @@ def _k2_check(k2, args, params, label):
     qerr = (got[1] - want[1]).abs()[keep]
     rel = (qerr / want[1].abs()[keep].clamp(min=1e-30)).max()
     _require(float(rel) <= 1e-5, f"K2 qstar off by {float(rel):.3g} (relative) at {label}")
-    print(f"phase 8 K2 {label}: conflicts {int(got[3])} exact; {mism.numel()} boundary "
+    print(f"phase {phase} K2 {label}: conflicts {int(got[3])} exact; {mism.numel()} boundary "
           f"rows of {rows}; qstar max rel err {float(rel):.3g}")
     return frac, float(qerr.max())
 
 
+def _k2_both(k2, args, params, label, phase=8):
+    """``_k2_check`` in the regime the shape takes and in L2."""
+    f1, e1 = _k2_check(k2, args, params, label, phase=phase)
+    f2, e2 = _k2_check(k2, args, params, label, l2=True, phase=phase)
+    return max(f1, f2), max(e1, e2)
+
+
+def _k2_timed(k2, args, params, label, plain_runs=TIMED_RUNS, phase=8):
+    """K2 (the shape's regime, and forced to L2 where that differs) and its
+    plain version, timed; a row of the kernels line's K2 ``shapes``."""
+    colors = args[1]
+    shape = k2.sweep_shape(colors.shape[0], params.n_colors)
+    k_ms = _median_ms(lambda: k2.resample_sweep_cuda(*args, params.epsilon, params))
+    l2_ms = (_median_ms(lambda: k2.resample_sweep_cuda(*args, params.epsilon, params,
+                                                       _l2=True))
+             if shape.staged else k_ms)
+    p_ms = _median_ms(lambda: k2.resample_sweep_plain(*args, params.epsilon, params),
+                      runs=plain_runs)
+    n_bytes, ops = _k2_bytes_ops(args, params.n_colors)
+    rows, d_pad = args[0].shape
+    regime = "staged" if shape.staged else "L2"
+    print(f"phase {phase} K2 {label} [{rows}, {d_pad}] n_ids={colors.shape[0]} "
+          f"n_colors={params.n_colors}: {regime} ({shape.warps} warps, {shape.copies} mask "
+          f"copies, {shape.smem_bytes} bytes of shared memory) {k_ms:.3f} ms, L2 regime "
+          f"{l2_ms:.3f} ms, plain {p_ms:.3f} ms (median of {TIMED_RUNS}, plain of "
+          f"{plain_runs}, CUDA events); moves {n_bytes} bytes")
+    return {"shape": label, "regime": regime, "rows": rows, "d_pad": d_pad, "ms": k_ms,
+            "l2_ms": l2_ms, "plain_ms": p_ms, "bytes": n_bytes, "ops": ops}
+
+
 def phase_k2(device, ell3, sb):
-    """K2 against its plain version at the test shapes and the config-3
-    band; timed at the latter."""
+    """K2 against its plain version, in both regimes, at the test shapes
+    and at the config-3 band and sweep (L2); timed at the sweep, the
+    shape the main path launches it at."""
     import torch
 
     from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
@@ -507,8 +557,8 @@ def phase_k2(device, ell3, sb):
         for taboo_iters in (0, 3):
             p = MCMCParams(n_colors=g.max_degree, proposal=kind,
                            taboo_iterations=taboo_iters, epsilon=1e-4)
-            f, e = _k2_check(k2, _k2_inputs(ell, p, gen, device, 1), p,
-                             f"ER(500, 0.05) {kind.value} taboo {taboo_iters}")
+            f, e = _k2_both(k2, _k2_inputs(ell, p, gen, device, 1), p,
+                            f"ER(500, 0.05) {kind.value} taboo {taboo_iters}")
             frac, qerr = max(frac, f), max(qerr, e)
     # test_chunked_kernel_wide_palette_matches_xla: 4500 colours
     g = erdos_renyi(512, 0.05, seed=3, use_native=False)
@@ -516,22 +566,41 @@ def phase_k2(device, ell3, sb):
     for kind in (ProposalKind.STANDARD, ProposalKind.BALANCE_DYNAMIC,
                  ProposalKind.DECREASE_EXP):
         p = MCMCParams(n_colors=4500, proposal=kind, taboo_iterations=2, epsilon=1e-6)
-        f, e = _k2_check(k2, _k2_inputs(ell, p, gen, device, 1), p,
-                         f"ER(512, 0.05) 4500 colours {kind.value}")
+        f, e = _k2_both(k2, _k2_inputs(ell, p, gen, device, 1), p,
+                        f"ER(512, 0.05) 4500 colours {kind.value}")
         frac, qerr = max(frac, f), max(qerr, e)
-    # config 3: one band of the main path's sweep, balance-dynamic
+    # config 3, balance-dynamic: one band, then the whole sweep in one
+    # launch, as the main path runs it
     p = MCMCParams(n_colors=ell3.max_degree, proposal=ProposalKind.BALANCE_DYNAMIC)
-    args = _k2_inputs(ell3, p, gen, device, 0, rows=sb)
-    f, e = _k2_check(k2, args, p, f"config-3 band [{sb}, {ell3.d_pad}] n_colors={p.n_colors}")
+    f, e = _k2_check(k2, _k2_inputs(ell3, p, gen, device, 0, rows=sb), p,
+                     f"config-3 band [{sb}, {ell3.d_pad}]")
     frac, qerr = max(frac, f), max(qerr, e)
-    k_ms = _median_ms(lambda: k2.resample_sweep_cuda(*args, p.epsilon, p))
-    p_ms = _median_ms(lambda: k2.resample_sweep_reference(*args, p.epsilon, p))
-    rows, d_pad = args[0].shape
-    n_bytes = _nbytes(*args) + rows * 12  # star, qstar, new_taboo
-    ops = rows * (d_pad + p.n_colors)  # a compare a slot, a CDF step a colour
-    print(f"phase 8 K2 config-3 band: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-          f"(median of {TIMED_RUNS}, CUDA events); moves {n_bytes} bytes")
-    return frac, qerr, k_ms, p_ms, n_bytes, ops
+    args = _k2_inputs(ell3, p, gen, device, 0)
+    f, e = _k2_check(k2, args, p, f"config-3 sweep [{ell3.n_nodes}, {ell3.d_pad}]")
+    frac, qerr = max(frac, f), max(qerr, e)
+    row = _k2_timed(k2, args, p, "config-3 sweep", plain_runs=3)
+    return frac, qerr, row
+
+
+def _chain_peak(colorer, seed: int) -> int:
+    """Peak device bytes, above what was allocated before, of the chain
+    alone: ``MCMCColorer.run``'s do-while on the same draws, without the
+    tailcut that follows it."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.models import mcmc as tm
+    from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource
+
+    ell, p = colorer.ell, colorer.params
+    source = TorchUniformSource(seed, 0, colorer.device)
+    state = tm._chain_init(ell.n_pad, ell.n_nodes, p, source, colorer.device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tm._chain_segment_fused(ell, state, p.max_iterations, params=p, block=colorer.block,
+                            source=source)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
 
 
 def phase_config3(device, g):
@@ -545,14 +614,20 @@ def phase_config3(device, g):
     from mcmc_colorer_tpu_torch.ops import firstfit as k3
     from mcmc_colorer_tpu_torch.ops import resample as k2
 
+    import torch
+
     k2_total = k3_total = 0
     for ratio in CONFIG3_RATIOS:
         n_col = max(4, int(g.max_degree / ratio))
         params = MCMCParams(n_colors=n_col, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
-        k2.launches = k3.launches = 0
         c = MCMCColorer(g, params, backend="pallas", device=device)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        k2.launches = k3.launches = 0
         r = c.run(seed=31)
         l2, l3 = k2.launches, k3.launches
+        peak = torch.cuda.max_memory_allocated() - base
+        chain_peak = _chain_peak(c, 31)
         k2_total, k3_total = k2_total + l2, k3_total + l3
         x = r.extra
         t0 = time.perf_counter()
@@ -566,9 +641,12 @@ def phase_config3(device, g):
             f"rounds {x['tailcut_rounds']} {x['tailcut_seconds']:.3f} s, run "
             f"{r.duration_ms / 1e3:.3f} s; used colours {r.used_colors}, balance index "
             f"{r.balance_index(CONFIG3_P):.4f}; K2 launches {l2}, K3 launches {l3}; "
-            f"valid {valid} (check {check_s:.3f} s), final conflicts {x['final_conflicts']}"
+            f"peak device memory of the run {peak} bytes above the {base} allocated before "
+            f"it, of the chain alone {chain_peak}; valid {valid} (check {check_s:.3f} s), "
+            f"final conflicts {x['final_conflicts']}"
         )
         _require(l2 > 0 and l3 > 0, f"ratio {ratio}: K2 launched {l2}, K3 {l3} times")
+        _require(l2 == x["sweeps"], f"ratio {ratio}: {l2} K2 launches in {x['sweeps']} sweeps")
         _require(valid and x["final_conflicts"] == 0, f"ratio {ratio}: invalid colouring")
         del c
     k3.launches = 0
@@ -641,9 +719,16 @@ def phase_config4(device):
 
 def phase_k2_vs_k1(device, c, g, seed=5):
     """The K2 chain and the K1 chain on one graph (phase 4's ER(100k,
-    0.01), its params and seed), both warm."""
+    0.01), its params and seed), both warm; K2 there in the staged regime,
+    held against its plain version in both regimes on the chain's ELL and
+    timed.  Returns (K2 launches of the timed chain run, its
+    ``_k2_timed`` row, boundary fraction, max |qstar error|)."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams
     from mcmc_colorer_tpu_torch.models.base import check_coloring
     from mcmc_colorer_tpu_torch.models.mcmc import MCMCColorer
+    from mcmc_colorer_tpu_torch.ops import resample as k2
 
     def per_sweep(r):
         return r.extra["chain_seconds"] / max(r.extra["sweeps"], 1) * 1e3
@@ -651,17 +736,38 @@ def phase_k2_vs_k1(device, c, g, seed=5):
     r1 = c.run(seed=seed)
     colorer = MCMCColorer(g, c.params, backend="pallas", device=device)
     colorer.run(seed=seed)  # warm-up
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k2.launches = 0
     r2 = colorer.run(seed=seed)
+    launches = k2.launches
+    peak = torch.cuda.max_memory_allocated() - base
+    chain_peak = _chain_peak(colorer, seed)
+    ell = colorer.ell
     print(
         f"phase 11 K2 vs K1, ER({BENCH_N}, {BENCH_P}) n_colors={c.params.n_colors} seed "
         f"{seed}, warm: resident/K1 {per_sweep(r1):.3f} ms/sweep, {r1.iterations} "
         f"iterations, {r1.extra['sweeps']} sweeps, run {r1.duration_ms / 1e3:.3f} s; "
-        f"ELL/K2 {per_sweep(r2):.3f} ms/sweep, {r2.iterations} iterations, "
-        f"{r2.extra['sweeps']} sweeps, tailcut rounds {r2.extra['tailcut_rounds']}, run "
-        f"{r2.duration_ms / 1e3:.3f} s (ELL setup {colorer.setup_seconds:.3f} s)"
+        f"ELL/K2 [{ell.n_pad}, {ell.d_pad}] {per_sweep(r2):.3f} ms/sweep, {r2.iterations} "
+        f"iterations, {r2.extra['sweeps']} sweeps, tailcut rounds "
+        f"{r2.extra['tailcut_rounds']}, run {r2.duration_ms / 1e3:.3f} s (ELL setup "
+        f"{colorer.setup_seconds:.3f} s); K2 launches {launches}; peak device memory of the "
+        f"run {peak} bytes above the {base} allocated before it, of the chain alone "
+        f"{chain_peak}"
     )
     _require(check_coloring(g, r2.colors) and r2.extra["final_conflicts"] == 0,
              "phase 11: invalid K2 colouring")
+    _require(launches == r2.extra["sweeps"] > 0,
+             f"phase 11: {launches} K2 launches in {r2.extra['sweeps']} sweeps")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    p = MCMCParams(n_colors=c.params.n_colors, proposal=c.params.proposal)
+    args = _k2_inputs(ell, p, gen, device, 0)
+    _require(k2.sweep_shape(args[1].shape[0], p.n_colors).staged,
+             "phase 11: K2 does not stage the colour vector")
+    frac, qerr = _k2_both(k2, args, p, f"ER({BENCH_N}, {BENCH_P}) sweep", phase=11)
+    row = _k2_timed(k2, args, p, f"ER({BENCH_N}, {BENCH_P}) sweep", phase=11)
+    return launches, row, frac, qerr
 
 
 def _vff_k3_checks(k3, c, gff):
@@ -942,7 +1048,7 @@ def main() -> int:
     print(f"phase 6 all three builds, started together: {build_s:.3f} s")
     g3, ell3, sb = setup_config3(device)
     err3, k3_ms, p3_ms, k3_bytes, k3_slots = phase_k3(device, ell3, sb)
-    frac2, err2, k2_ms, p2_ms, k2_bytes, k2_ops = phase_k2(device, ell3, sb)
+    frac2, err2, k2_config3 = phase_k2(device, ell3, sb)
     torch.cuda.empty_cache()
     launches2, launches3, full_gff = phase_config3(device, g3)
     del ell3
@@ -952,7 +1058,8 @@ def main() -> int:
     del g3
     torch.cuda.empty_cache()
     phase_config4(device)
-    phase_k2_vs_k1(device, c, g_bench)
+    l2_bench, k2_bench, f2, e2 = phase_k2_vs_k1(device, c, g_bench)
+    frac2, err2 = max(frac2, f2), max(err2, e2)
     luby_launches, luby_rounds, luby_k1 = phase_luby(device, g_bench)
     del c
     torch.cuda.empty_cache()
@@ -977,11 +1084,20 @@ def main() -> int:
                         "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by})
     k1_n = sum(x["launches"] for x in k1_rows)
 
-    def k1_mean(key):
-        return sum(x[key] * x["launches"] for x in k1_rows) / k1_n
+    def weighted(rows, key):
+        return sum(x[key] * x["launches"] for x in rows) / sum(x["launches"] for x in rows)
 
-    k1_ms, k1_bound = k1_mean("ms"), k1_mean("bound_ms")
+    k1_ms, k1_bound = weighted(k1_rows, "ms"), weighted(k1_rows, "bound_ms")
     _require(k1_n == launches + luby_launches, "K1 launches by shape do not add up")
+    # K2 ran at two shapes on the main paths, one launch a sweep: the
+    # config-3 sweep in the L2 regime (phase 9) and the ER(100k, 0.01)
+    # sweep staged (phase 11); weighted the same way
+    k2_rows = []
+    for row, n in ((k2_config3, launches2), (k2_bench, l2_bench)):
+        b_ms, b_by = _bound(row["bytes"], row["ops"], FP32_OPS_PER_S)
+        k2_rows.append({**row, "launches": n, "bound_ms": b_ms, "bound_by": b_by,
+                        "bound_share": b_ms / row["ms"]})
+    k2_ms, k2_bound = weighted(k2_rows, "ms"), weighted(k2_rows, "bound_ms")
 
     print(json.dumps({"kernels": [
         {
@@ -992,7 +1108,7 @@ def main() -> int:
             "launches": k1_n,
             "max_abs_err": max(x["max_abs_err"] for x in k1_rows),
             "ms": k1_ms,
-            "plain_ms": k1_mean("plain_ms"),
+            "plain_ms": weighted(k1_rows, "plain_ms"),
             "bound_ms": k1_bound,
             "bound_by": "bytes" if all(x["bound_by"] == "bytes" for x in k1_rows)
             else "operations",
@@ -1005,12 +1121,17 @@ def main() -> int:
             "route": "cuda",
             "source": "mcmc_colorer_tpu_torch/csrc/resample.cu",
             "replaces": "mcmc_colorer_tpu/ops/pallas_resample.py:451",
-            "launches": launches2,
+            "launches": launches2 + l2_bench,
             "max_abs_err": err2,  # of qstar, where the sampled colours agree
             "boundary_fraction": frac2,
             "ms": k2_ms,
-            "plain_ms": p2_ms,
-            **bound_keys(k2_ms, k2_bytes, k2_ops, FP32_OPS_PER_S),
+            "plain_ms": weighted(k2_rows, "plain_ms"),
+            "bound_ms": k2_bound,
+            "bound_by": "bytes" if all(x["bound_by"] == "bytes" for x in k2_rows)
+            else "operations",
+            "bound_share": k2_bound / k2_ms,
+            "library_ms": None,
+            "shapes": k2_rows,
         },
         {
             "name": "first_fit",

@@ -1,11 +1,13 @@
-"""Kernels K1 (``csrc/packed_nc.cu``) and K3 (``csrc/first_fit.cu``)
-timed on the card beside their variants and, optionally, an earlier
-commit's kernels.
+"""Kernels K1 (``csrc/packed_nc.cu``), K2 (``csrc/resample.cu``) and K3
+(``csrc/first_fit.cu``) timed on the card beside their variants and,
+optionally, an earlier commit's kernels.
 
     python3 -m mcmc_colorer_tpu_torch.measure_kernels [--parent DIR] [--out PATH]
 
 Needs one CUDA device.  Every variant that computes the kernel's function
-is first held against the plain version, exactly:
+is first held against the plain version (K1 and K3 exactly; K2 with
+exact conflict counts and at most 0.1 % of rows sampling another colour,
+at CDF steps):
 
 - K1 at the resident bench shape: the hash graph ER(100k, 0.01) (n_pad
   100,352, 3,200 words a row), 1152 padded colours, random colours, and
@@ -20,17 +22,30 @@ is first held against the plain version, exactly:
   the ``index_select`` gather of the band, which K3 now does itself, and
   probes of what holds it: K3 on the band with its ids folded into the
   first 2**10, 2**14 or 2**17 ids, so that its colour lookups fall in
-  4 KB, 64 KB or 512 KB.
+  4 KB, 64 KB or 512 KB;
+- K2 (balance-dynamic) at the same config-3 band, in the L2 regime, and
+  at a sweep of ER(100k, 0.01)'s shape (100,000 rows of d_pad 1152, the
+  same degree law capped at 1150, into the 100,000 real vertices'
+  colours, 1150 colours), staged and forced to L2; the ``index_select``
+  gather alone, and probes of what holds K2 (its measurement modes: 1
+  streams the ids alone, 2 adds the colour lookups and the occupancy,
+  without the palette passes); and each variant's peak device memory
+  above what was allocated before it.  With ``--parent``, the parent's
+  K2 also runs alone on a band gathered beforehand.
 
 With ``--parent DIR`` (a checkout of an earlier commit, e.g. unpacked
 with ``git archive`` into the git-ignored ``build/``), the earlier
-kernels run beside them: its K1 at the same shape, and the gather plus
-its K3 over the gathered band.
+kernels run beside them: its K1 and K3 at the same shapes, and the
+gather plus its K2 over the gathered band (the interface K2 had before
+it gathered for itself).
 
 The variants run in turn, ``--rounds`` times over, so that a drift of the
 card's clock during the run reaches them all; a round's time is the
 median CUDA-event time of ``--runs`` calls after one warm-up, and each
-variant reports the median of its rounds with their range.  The result
+variant reports the median of its rounds with their range.  A CUDA-event
+time around one call also holds the host's time before the launch, so
+each variant also reports its device time: the card's time for the work
+of ``--runs`` calls under ``torch.profiler``, a call's share of it.  The result
 goes to ``--out`` as JSON, with the card's name and power limit.
 
     python3 -m mcmc_colorer_tpu_torch.measure_kernels --colorers [--out PATH]
@@ -87,10 +102,27 @@ def _load_parent(root: str | None, name: str):
     return mod
 
 
+def _device_ms(fn, runs: int) -> float:
+    """Device time of one call of ``fn``: the time of all the work it puts
+    on the card, summed over ``runs`` calls under ``torch.profiler``, over
+    ``runs``.  Unlike a CUDA-event time around one call, it leaves out the
+    host's time before the launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / 1e3 / runs
+
+
 def _rounds(variants: dict, runs: int, rounds: int, label: str) -> list[dict]:
     """Time the variants in turn, ``rounds`` times over (so that a drift of
     the card's clock reaches them all); each round's time is a median of
-    ``runs`` calls."""
+    ``runs`` calls.  Then each variant's device time (``_device_ms``)."""
     times = {name: [] for name in variants}
     for _ in range(rounds):
         for name, fn in variants.items():
@@ -98,9 +130,10 @@ def _rounds(variants: dict, runs: int, rounds: int, label: str) -> list[dict]:
     out = []
     for name, t in times.items():
         med = statistics.median(t)
-        out.append({"variant": name, "ms": med, "rounds_ms": t})
+        dev_ms = _device_ms(variants[name], runs)
+        out.append({"variant": name, "ms": med, "rounds_ms": t, "device_ms": dev_ms})
         print(f"{label} {name}: {med:.4f} ms, median of {rounds} rounds "
-              f"({min(t):.4f}-{max(t):.4f})")
+              f"({min(t):.4f}-{max(t):.4f}); device time {dev_ms:.4f} ms a call")
     return out
 
 
@@ -136,9 +169,13 @@ def _k1(device, runs: int, rounds: int, gen, parent=None) -> list[dict]:
     return _rounds(variants, runs, rounds, label)
 
 
-def _config3_band(device, gen, rows=104_832, d_pad=1280, n_ids=2**20, n_real=1_000_000):
+def _config3_band(device, gen, rows=104_832, d_pad=1280, n_ids=2**20, n_real=1_000_000,
+                  max_degree=1173):
+    """[rows, d_pad] ids of ER degrees (mean 1000, sd 31.6) in order, drawn
+    from the first ``n_real`` ids, the padding id ``n_ids`` in the rest of
+    a row; and the number of neighbour slots."""
     deg = (torch.randn((rows,), generator=gen, device=device) * 31.6 + 1000).round()
-    deg = deg.clamp(0, 1173).to(torch.int32)
+    deg = deg.clamp(0, max_degree).to(torch.int32)
     ids = torch.randint(0, n_real, (rows, d_pad), generator=gen, device=device, dtype=torch.int32)
     slot = torch.arange(d_pad, device=device, dtype=torch.int32)[None, :]
     ids = torch.where(slot < deg[:, None], ids, n_ids)
@@ -168,15 +205,95 @@ def _k3(device, runs: int, rounds: int, gen, parent=None) -> list[dict]:
         variants[f"probe: ids folded into {m}"] = (
             lambda f=folded, c=colors[:m].contiguous(): k3.first_fit_cuda(f, c, allow, ncol))
     if parent is not None:
-        variants["index_select gather + parent K3"] = lambda: parent.first_fit_cuda(
-            neighbor_colors(ids, colors), allow, ncol)
+        variants["parent K3"] = lambda: parent.first_fit_cuda(ids, colors, allow, ncol)
     for name, fn in variants.items():
-        if name.startswith("K3") or name.startswith("index_select gather +"):
+        if "K3" in name:
             if not torch.equal(fn(), want):
                 raise RuntimeError(f"{name} differs from the plain version")
     label = (f"K3 band [{ids.shape[0]}, {ids.shape[1]}] n_ids={n_ids} n_colors={ncol} "
              f"neighbour slots={slots}")
     return _rounds(variants, runs, rounds, label)
+
+
+def _peak_bytes(fn) -> int:
+    """Device bytes ``fn`` allocates at its peak above what was allocated."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _k2_case(label, ids, colors, n_colors, gen, runs, rounds, parent, staged) -> dict:
+    """K2 (balance-dynamic, random colours and uniforms, no taboo) on one
+    band: its regimes, the gather, the probes and the parent's gather plus
+    K2, in turns."""
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+    from mcmc_colorer_tpu_torch.ops.neighbor import neighbor_colors
+
+    dev = ids.device
+    rows = ids.shape[0]
+    p = MCMCParams(n_colors=n_colors, proposal=ProposalKind.BALANCE_DYNAMIC)
+    p_eff = torch.rand((n_colors,), generator=gen, device=dev)
+    p_eff /= p_eff.sum()
+    cur = colors[:rows].contiguous()
+    taboo = torch.zeros((rows,), dtype=torch.int32, device=dev)
+    unif = torch.rand((rows,), generator=gen, device=dev)
+    args = (ids, colors, cur, taboo, 0, unif, p_eff, p.epsilon, p)
+    if k2.sweep_shape(colors.shape[0], n_colors).staged != staged:
+        raise RuntimeError(f"K2 at {label}: not the regime measured")
+    want = k2.resample_sweep_plain(*args)
+    variants = {"K2": lambda: k2.resample_sweep_cuda(*args)}
+    if staged:
+        variants["K2 forced to L2"] = lambda: k2.resample_sweep_cuda(*args, _l2=True)
+    variants["index_select gather"] = lambda: neighbor_colors(ids, colors)
+    variants["probe: ids streamed alone"] = lambda: k2.resample_sweep_cuda(*args, mode=1)
+    variants["probe: + lookups and occupancy"] = lambda: k2.resample_sweep_cuda(*args, mode=2)
+    if parent is not None:
+        self_ids = torch.arange(rows, dtype=torch.int32, device=dev)
+        nc = neighbor_colors(ids, colors)
+        variants["index_select gather + parent K2"] = lambda: parent.resample_sweep_cuda(
+            neighbor_colors(ids, colors), ids, cur, taboo, self_ids, unif, p_eff, p.epsilon, p)
+        variants["parent K2 on the gathered band"] = lambda: parent.resample_sweep_cuda(
+            nc, ids, cur, taboo, self_ids, unif, p_eff, p.epsilon, p)
+    for name, fn in variants.items():
+        if "K2" not in name:
+            continue
+        got = fn()
+        differ = int((got[0] != want[0]).sum())
+        if int(got[3]) != int(want[3]) or differ > 1e-3 * rows:
+            raise RuntimeError(f"{name} at {label}: conflicts {int(got[3])} vs "
+                               f"{int(want[3])}, {differ} samples differ")
+    peak = {name: _peak_bytes(fn) for name, fn in variants.items()}
+    label = f"K2 {label} n_ids={colors.shape[0]} n_colors={n_colors}"
+    out = _rounds(variants, runs, rounds, label)
+    for row in out:
+        row["peak_bytes"] = peak[row["variant"]]
+    print(f"{label} peak bytes above the inputs: {peak}")
+    return {"rows": rows, "d_pad": ids.shape[1], "n_ids": colors.shape[0],
+            "n_colors": n_colors, "variants": out}
+
+
+def _k2(device, runs: int, rounds: int, gen, parent=None) -> dict:
+    n_col3 = 1173
+    ids, slots = _config3_band(device, gen)
+    colors = torch.randint(0, n_col3, (2**20,), generator=gen, device=device, dtype=torch.int32)
+    colors[1_000_000:] = n_col3
+    out = {"config-3 band": _k2_case(
+        f"config-3 band [{ids.shape[0]}, {ids.shape[1]}] slots={slots}", ids, colors, n_col3,
+        gen, runs, rounds, parent, staged=False)}
+    del ids, colors
+    torch.cuda.empty_cache()
+    n, n_col = 100_000, 1150
+    ids, slots = _config3_band(device, gen, rows=n, d_pad=1152, n_ids=n, n_real=n,
+                               max_degree=n_col)
+    colors = torch.randint(0, n_col, (n,), generator=gen, device=device, dtype=torch.int32)
+    out["ER(100k, 0.01) sweep"] = _k2_case(
+        f"ER(100k, 0.01) sweep [{n}, 1152] slots={slots}", ids, colors, n_col, gen, runs,
+        rounds, parent, staged=True)
+    return out
 
 
 CONFIG3 = (1_000_000, 0.001, 3)   # n, p, seed: BASELINE.md config 3
@@ -294,9 +411,10 @@ def main() -> int:
 
     from mcmc_colorer_tpu_torch.ops import firstfit as k3
     from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+    from mcmc_colorer_tpu_torch.ops import resample as k2
 
-    with ThreadPoolExecutor(2) as pool:
-        for built in list(pool.map(lambda m: m.load_kernel(), (k1, k3))):
+    with ThreadPoolExecutor(3) as pool:
+        for built in list(pool.map(lambda m: m.load_kernel(), (k1, k2, k3))):
             print(f"built {built.path.name} in {built.seconds:.3f} s: " + " | ".join(
                 ln.strip() for ln in built.log.splitlines() if "registers" in ln))
     if args.colorers:
@@ -306,10 +424,12 @@ def main() -> int:
         return 0
     gen = torch.Generator(device=device)
     gen.manual_seed(17)
+    k2_rows = _k2(device, args.runs, args.rounds, gen, _load_parent(args.parent, "resample"))
+    torch.cuda.empty_cache()
     k3_rows = _k3(device, args.runs, args.rounds, gen, _load_parent(args.parent, "firstfit"))
     torch.cuda.empty_cache()
     k1_rows = _k1(device, args.runs, args.rounds, gen, _load_parent(args.parent, "packed_nc"))
-    result = {"card": smi, "k1": k1_rows, "k3": k3_rows}
+    result = {"card": smi, "k1": k1_rows, "k2": k2_rows, "k3": k3_rows}
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))

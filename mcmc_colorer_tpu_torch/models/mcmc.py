@@ -8,10 +8,11 @@ the Hastings reverse probability, the chain loops, the flat tailcut and
 - Packed chain (slice 1, ``models/mcmc_resident.py``): each sweep computes
   NC = A·onehot(colors) once (kernel K1 on the card) and reads occupancy,
   conflicts and proposal from it (``_sweep_matmul``).
-- ELL chain (``MCMCColorer``): each sweep gathers the neighbour colours of
-  a band of rows and hands them to kernel K2 (``_sweep_pallas_fused``,
-  backend ``pallas``), or to its plain version (``_sweep``, backend
-  ``xla``); the flat tailcut repairs what is left with kernel K3.
+- ELL chain (``MCMCColorer``): each sweep hands the neighbour ids and
+  the colour vector to kernel K2, which gathers the colours itself
+  (``_sweep_pallas_fused``, backend ``pallas``, one launch a sweep), or
+  to its plain version in row bands (``_sweep``, backend ``xla``); the
+  flat tailcut repairs what is left with kernel K3.
 
 The JAX loops are ``lax.while_loop``s with a masked body; here they are
 Python loops that read the body's conflict count to the host once per
@@ -329,15 +330,15 @@ def _reverse_logq_matmul(
 
 # ------------------------- ELL sweeps (gather) -------------------------
 
-# Cap on the temporaries of one row band of an ELL pass (sweep, conflict
-# count, tailcut round, first fit).  A band of SB rows materialises the
-# [SB, d_pad] int32 neighbour colours plus, in the plain passes, an int64
-# index of the same shape (torch's scatter and advanced indexing take
-# int64 indices; the gathers use index_select, which takes the int32 ids
-# as they are) and a few bool masks: _SLOT_BYTES per slot.  2 GiB of
-# band temporaries is small beside the 80 GB card yet gives bands of
-# ~100k rows at degree ~1300, so a sweep of ER(1M, 0.001) is ~10 K2
-# launches.
+# Cap on the temporaries of one row band of an ELL pass (the plain sweep,
+# conflict count, tailcut round, first fit).  A band of SB rows
+# materialises the [SB, d_pad] int32 neighbour colours plus, in the plain
+# passes, an int64 index of the same shape (torch's scatter and advanced
+# indexing take int64 indices; the gathers use index_select, which takes
+# the int32 ids as they are) and a few bool masks: _SLOT_BYTES per slot.
+# 2 GiB of band temporaries is small beside the 80 GB card yet gives
+# bands of ~100k rows at degree ~1300.  K2 gathers inside the kernel, so
+# its sweep on the card needs no band.
 _FUSED_NC_BYTES_CAP = 2 * 1024**3
 _SLOT_BYTES = 4 + 8 + 4
 
@@ -371,58 +372,58 @@ def _conflict_edges(ell: EllGraph, colors: torch.Tensor) -> torch.Tensor:
 
 
 def _ell_sweep(ell: EllGraph, params: MCMCParams, colors, taboo, unif, p_eff,
-               eps, sweep_fn):
-    """One full sweep over the ELL in row bands: gather the band's
-    neighbour colours, run ``sweep_fn`` (K2 or its plain version) on them,
-    then keep phantom rows as they are.  Returns (star, new_taboo,
-    Σ log qstar, conflict edges of ``colors``)."""
-    n_pad, d_pad = ell.neighbors.shape
+               eps, sweep_fn, bands: bool = True):
+    """One full sweep over the ELL's real rows: ``sweep_fn`` (K2 or its
+    plain version) on each row band, or on all of them at once with
+    ``bands=False``; phantom rows keep their colour.  A real row's
+    neighbours are real vertices or the padding id, so the colour vector
+    handed over is the real vertices' (at ER(100k, 0.01) K2 can then
+    stage it in shared memory).  Returns (star, new_taboo, Σ log qstar,
+    conflict edges of ``colors``)."""
+    n = ell.n_nodes
     dev = colors.device
     eps_t = torch.as_tensor(
         params.epsilon if eps is None else eps, dtype=torch.float32, device=dev
     )
-    ids = torch.arange(n_pad, dtype=torch.int32, device=dev)
-    star = torch.empty_like(colors)
-    qstar = torch.empty((n_pad,), dtype=torch.float32, device=dev)
-    new_taboo = torch.empty_like(taboo)
+    star = colors.clone()
+    qstar = torch.ones((ell.n_pad,), dtype=torch.float32, device=dev)
+    new_taboo = torch.zeros_like(taboo)
     conf = torch.zeros((), dtype=torch.int64, device=dev)
-    for s, e in _bands(n_pad, d_pad):
-        neigh = ell.neighbors[s:e]
+    real_colors = colors[:n]
+    for s, e in _bands(n, ell.d_pad) if bands else [(0, n)]:
         st, qs, nt, cf = sweep_fn(
-            neighbor_colors(neigh, colors), neigh, colors[s:e], taboo[s:e],
-            ids[s:e], unif[s:e], p_eff, eps_t, params,
+            ell.neighbors[s:e], real_colors, colors[s:e], taboo[s:e], s,
+            unif[s:e], p_eff, eps_t, params,
         )
         star[s:e], qstar[s:e], new_taboo[s:e] = st, qs, nt
         conf += cf
-    real = ell.node_mask
-    star = torch.where(real, star, colors)
-    qstar = torch.where(real, qstar, 1.0)
-    new_taboo = torch.where(real, new_taboo, 0)
     logq = torch.log(qstar.clamp(min=1e-30)).sum()
     return star, new_taboo, logq, conf
 
 
 def _sweep_pallas_fused(ell: EllGraph, params: MCMCParams, block: int, colors,
                         taboo, unif, p_eff, n_nodes: int | None = None, eps=None):
-    """The ``pallas`` backend's sweep: kernel K2 per row band, with the
-    conflict count of the CURRENT colouring fused in, so an iteration
-    costs one neighbour-colour gather.  Returns (star, new_taboo,
-    Σ log qstar, conflicts).  ``block`` and ``n_nodes`` are unused (the
-    bands are sized by ``_fused_super_block``, the ELL knows n_nodes);
-    they keep the signature of ``_sweep_matmul``."""
+    """The ``pallas`` backend's sweep: kernel K2, which gathers the
+    neighbour colours itself, with the conflict count of the CURRENT
+    colouring fused in.  On the card it is one launch over all real rows;
+    on the CPU its plain version runs in row bands.  Returns (star,
+    new_taboo, Σ log qstar, conflicts).  ``block`` and ``n_nodes`` are
+    unused (the ELL knows n_nodes); they keep the signature of
+    ``_sweep_matmul``."""
     from mcmc_colorer_tpu_torch.ops.resample import resample_sweep
 
-    return _ell_sweep(ell, params, colors, taboo, unif, p_eff, eps, resample_sweep)
+    return _ell_sweep(ell, params, colors, taboo, unif, p_eff, eps, resample_sweep,
+                      bands=colors.device.type != "cuda")
 
 
 def _sweep(ell: EllGraph, params: MCMCParams, block: int, colors, taboo, unif,
            p_eff, eps=None):
     """The ``xla`` backend's sweep, K2's plain version per row band.
     Returns (star, new_taboo, Σ log qstar), as JAX's ``_sweep``."""
-    from mcmc_colorer_tpu_torch.ops.resample import resample_sweep_reference
+    from mcmc_colorer_tpu_torch.ops.resample import resample_sweep_plain
 
     return _ell_sweep(
-        ell, params, colors, taboo, unif, p_eff, eps, resample_sweep_reference
+        ell, params, colors, taboo, unif, p_eff, eps, resample_sweep_plain
     )[:3]
 
 

@@ -1,21 +1,30 @@
-"""Kernel K2 — the fused resample sweep — and its plain version.
+"""Kernel K2 — the resample sweep over neighbour ids — and its plain
+version.
 
-Replaces ``mcmc_colorer_tpu/ops/pallas_resample.py:pallas_sweep``.  Per
-row it reads the gathered neighbour colours ``nc`` and ids
-``neighbors``, counts the conflicts of the current colour (neighbours
-with a larger id only), builds the occupancy, the proposal q of
-``params.proposal``, samples the inverse CDF at ``unif`` and applies the
-taboo.  It returns ``(star, qstar, new_taboo, conflicts)``, conflicts as
-a 0-dim int64 tensor on the device.
+Replaces ``mcmc_colorer_tpu/ops/pallas_resample.py:pallas_sweep``
+together with the neighbour gather in front of it.  Per row of neighbour
+ids ``neighbors`` (own vertex id ``row0`` + the row) it looks up the
+neighbours' colours in ``colors`` (an id outside ``[0, len(colors))``,
+such as the ELL padding id ``n_pad``, counts nowhere), counts the
+conflicts of the current colour (neighbours with a larger id only),
+builds the occupancy, the proposal q of ``params.proposal``, samples the
+inverse CDF at ``unif`` and applies the taboo.  It returns ``(star,
+qstar, new_taboo, conflicts)``, conflicts as a 0-dim tensor on the
+device.
 
-``resample_sweep`` dispatches on where ``nc`` lies:
+``resample_sweep`` dispatches on where ``neighbors`` lies:
 
-- CPU tensors go to ``resample_sweep_reference``, the port of the XLA
-  sweep's block function (``models/mcmc.py:_sweep``) plus the conflict
-  count;
+- CPU tensors go to ``resample_sweep_plain``: the gather
+  ``gathered_colors``, then ``resample_sweep_reference``, the port of the
+  XLA sweep's block function (``models/mcmc.py:_propose``) plus the
+  conflict count, over the gathered band;
 - CUDA tensors go to the hand-written kernel ``csrc/resample.cu`` (built
-  with nvcc for sm_90a at first use) or raise.  There is no fallback
-  from the card to the plain version.
+  with nvcc for sm_90a at first use), which looks the colours up itself,
+  or raise.  There is no fallback from the card to the plain version.
+
+The kernel runs in one of two regimes, chosen by shape alone
+(``sweep_shape``): it stages the colour vector in shared memory when it
+fits there, else it reads it from L2.
 
 Occupancy and conflicts are integer work and agree exactly.  The kernel
 adds the float32 reminder and the CDF prefix in another order than
@@ -27,14 +36,15 @@ lies on a CDF step (``tests/test_torch_resample.py`` states the rule).
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
 from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
 from mcmc_colorer_tpu_torch.ops.dense_adj import SWEEP_BLOCK_BYTES
-from mcmc_colorer_tpu_torch.ops.firstfit import ROWS_PER_BLOCK, palette_ok
-from mcmc_colorer_tpu_torch.ops.neighbor import occupancy_matrix
+from mcmc_colorer_tpu_torch.ops.firstfit import _kernel_shape, palette_ok
+from mcmc_colorer_tpu_torch.ops.neighbor import neighbor_colors, occupancy_matrix
 from mcmc_colorer_tpu_torch.ops.packed_nc import SMEM_BLOCK_BYTES
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "resample.cu"
@@ -46,6 +56,13 @@ _KIND_CODE = {
     ProposalKind.DECREASE_LINE: 2,
     ProposalKind.DECREASE_EXP: 2,
 }
+# the staged regime keeps colours as uint16, 0xFFFF marking one outside
+# [0, 65535), so it serves palettes below 65535 colours
+STAGED_COLORS_MAX = 0xFFFF
+STAGED_MAX_WARPS = 32  # 1024 threads, the most a block may have
+# fewer warps an SM keep too few id loads in flight to stream at memory
+# speed; the L2 regime then serves the shape
+STAGED_MIN_WARPS = 8
 
 launches = 0
 _built = None
@@ -61,8 +78,8 @@ def load_kernel():
         built = build_library("resample", SOURCE)
         fn = built.lib.resample_launch
         fn.argtypes = (
-            [ctypes.c_void_p] * 12
-            + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 9
+            + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 7
             + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -71,6 +88,42 @@ def load_kernel():
         err.restype = ctypes.c_char_p
         _built = built
     return _built
+
+
+@dataclass(frozen=True)
+class SweepShape:
+    """How K2 runs: staged or L2, warps (rows in flight) a block, copies of
+    a row's occupancy mask, and the block's shared memory in bytes."""
+
+    staged: bool
+    warps: int
+    copies: int
+    smem_bytes: int
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def sweep_shape(n_ids: int, n_colors: int, l2: bool = False) -> SweepShape:
+    """K2's regime for a colour vector of ``n_ids`` and a palette of
+    ``n_colors`` (``csrc/resample.cu`` lays shared memory out the same
+    way: masks, then p_eff, then the uint16 colours, each 16-byte
+    aligned).  Staged when the palette is below 65535 colours and, beside
+    p_eff and the staged colours, at least ``STAGED_MIN_WARPS`` rows'
+    masks fit (four copies each, fewer if that is what fits); else L2,
+    K3's shape (``ops/firstfit.py:_kernel_shape``).  ``l2`` forces L2."""
+    n_words = (n_colors + 31) // 32
+    if not l2 and n_colors < STAGED_COLORS_MAX:
+        stage = _round16(4 * n_colors) + _round16(2 * n_ids)
+        left = (SMEM_BLOCK_BYTES - stage) // 16 * 16
+        for copies in (4, 2, 1):
+            warps = min(STAGED_MAX_WARPS, max(left, 0) // (n_words * copies * 4))
+            if warps >= STAGED_MIN_WARPS:
+                return SweepShape(True, warps, copies,
+                                  _round16(warps * n_words * copies * 4) + stage)
+    rows, copies = _kernel_shape(n_colors)
+    return SweepShape(False, rows, copies, _round16(rows * n_words * copies * 4))
 
 
 def _eps_tensor(eps, device) -> torch.Tensor:
@@ -83,51 +136,67 @@ def _p_eff_or_zeros(p_eff, n_colors: int, device) -> torch.Tensor:
     return p_eff
 
 
-def _check(nc, neighbors, cur, taboo, self_ids, unif, p_eff, params):
-    if nc.dtype != torch.int32 or nc.dim() != 2:
-        raise TypeError(f"nc must be 2-D int32, got {nc.dtype} {tuple(nc.shape)}")
-    if neighbors.dtype != torch.int32 or neighbors.shape != nc.shape:
-        raise TypeError(f"neighbors must be int32 {tuple(nc.shape)}, got "
-                        f"{neighbors.dtype} {tuple(neighbors.shape)}")
-    rows = nc.shape[0]
-    for name, t, dt in (("cur", cur, torch.int32), ("taboo", taboo, torch.int32),
-                        ("self_ids", self_ids, torch.int32),
-                        ("unif", unif, torch.float32)):
+def _check_rows(rows: int, device, vectors, p_eff, params):
+    """``vectors``: (name, tensor, dtype) of the [rows] per-row inputs."""
+    for name, t, dt in vectors:
         if t.dtype != dt or t.shape != (rows,):
             raise TypeError(f"{name} must be [{rows}] {dt}, got {t.dtype} {tuple(t.shape)}")
     if p_eff.dtype != torch.float32 or p_eff.shape != (params.n_colors,):
         raise TypeError(f"p_eff must be [{params.n_colors}] float32, got "
                         f"{p_eff.dtype} {tuple(p_eff.shape)}")
-    for t in (neighbors, cur, taboo, self_ids, unif, p_eff):
-        if t.device != nc.device:
-            raise ValueError(f"nc on {nc.device} but an argument on {t.device}")
+    for t in (p_eff, *(v[1] for v in vectors)):
+        if t.device != device:
+            raise ValueError(f"the rows lie on {device} but an argument on {t.device}")
 
 
-def resample_sweep(nc, neighbors, cur, taboo, self_ids, unif, p_eff, eps,
+def _vectors(cur, taboo, unif):
+    return [("cur", cur, torch.int32), ("taboo", taboo, torch.int32),
+            ("unif", unif, torch.float32)]
+
+
+def _check(neighbors, colors, cur, taboo, row0, unif, p_eff, params):
+    if neighbors.dtype != torch.int32 or neighbors.dim() != 2:
+        raise TypeError(f"neighbors must be 2-D int32, got {neighbors.dtype} "
+                        f"{tuple(neighbors.shape)}")
+    if colors.dtype != torch.int32 or colors.dim() != 1:
+        raise TypeError(f"colors must be 1-D int32, got {colors.dtype} {tuple(colors.shape)}")
+    if colors.device != neighbors.device:
+        raise ValueError(f"neighbors on {neighbors.device} but colors on {colors.device}")
+    rows = neighbors.shape[0]
+    if not 0 <= row0 <= 2**31 - 1 - rows:
+        raise ValueError(f"row0={row0}: own ids must be int32")
+    _check_rows(rows, neighbors.device, _vectors(cur, taboo, unif), p_eff, params)
+
+
+def resample_sweep(neighbors, colors, cur, taboo, row0: int, unif, p_eff, eps,
                    params: MCMCParams):
-    """One fused sweep over the rows of ``nc``: (star, qstar, new_taboo,
-    conflicts).  ``p_eff`` is [n_colors] float32 (None for STANDARD)."""
-    if nc.device.type == "cpu":
-        return resample_sweep_reference(
-            nc, neighbors, cur, taboo, self_ids, unif, p_eff, eps, params
+    """One sweep over the rows of ``neighbors``, whose own ids are ``row0``
+    on: (star, qstar, new_taboo, conflicts).  ``p_eff`` is [n_colors]
+    float32 (None for STANDARD)."""
+    if neighbors.device.type == "cpu":
+        return resample_sweep_plain(
+            neighbors, colors, cur, taboo, row0, unif, p_eff, eps, params
         )
-    if nc.device.type != "cuda":
-        raise ValueError(f"no K2 for device {nc.device}")
+    if neighbors.device.type != "cuda":
+        raise ValueError(f"no K2 for device {neighbors.device}")
     return resample_sweep_cuda(
-        nc, neighbors, cur, taboo, self_ids, unif, p_eff, eps, params
+        neighbors, colors, cur, taboo, row0, unif, p_eff, eps, params
     )
 
 
-def resample_sweep_cuda(nc, neighbors, cur, taboo, self_ids, unif, p_eff, eps,
-                        params: MCMCParams):
-    """Launch K2 on the current stream of the tensors' card."""
+def resample_sweep_cuda(neighbors, colors, cur, taboo, row0: int, unif, p_eff, eps,
+                        params: MCMCParams, *, _l2: bool = False, mode: int = 0):
+    """Launch K2 on the current stream of the tensors' card.  ``_l2``
+    forces the L2 regime, so that a check can hold both regimes on the
+    same inputs.  ``mode`` 1 or 2 launches one of the measurement
+    variants of ``csrc/resample.cu`` (no defined output)."""
     global launches
     n_colors = params.n_colors
-    p_eff = _p_eff_or_zeros(p_eff, n_colors, nc.device)
-    _check(nc, neighbors, cur, taboo, self_ids, unif, p_eff, params)
-    if nc.device.type != "cuda":
-        raise ValueError(f"K2 needs CUDA tensors, got {nc.device}")
-    args = (nc, neighbors, cur, taboo, self_ids, unif, p_eff)
+    p_eff = _p_eff_or_zeros(p_eff, n_colors, neighbors.device)
+    _check(neighbors, colors, cur, taboo, row0, unif, p_eff, params)
+    if neighbors.device.type != "cuda":
+        raise ValueError(f"K2 needs CUDA tensors, got {neighbors.device}")
+    args = (neighbors, colors, cur, taboo, unif, p_eff)
     if not all(t.is_contiguous() for t in args):
         raise ValueError("K2 needs contiguous inputs")
     if not palette_ok(n_colors):
@@ -135,10 +204,14 @@ def resample_sweep_cuda(nc, neighbors, cur, taboo, self_ids, unif, p_eff, eps,
             f"n_colors={n_colors}: one row's occupancy bitmask exceeds the "
             f"{SMEM_BLOCK_BYTES} bytes of shared memory a block may use"
         )
-    rows, d_pad = nc.shape
-    n_words = (n_colors + 31) // 32
-    rows_per_block = max(1, min(ROWS_PER_BLOCK, SMEM_BLOCK_BYTES // (n_words * 4)))
-    dev = nc.device
+    rows, d_pad = neighbors.shape
+    if d_pad % 4 == 0 and neighbors.data_ptr() % 16:
+        raise ValueError("K2 reads rows of d_pad % 4 == 0 as 16-byte vectors: align neighbors")
+    dev = neighbors.device
+    shape = sweep_shape(colors.shape[0], n_colors, l2=_l2)
+    blocks = -(-rows // shape.warps)
+    if shape.staged:  # persistent: one block an SM, rows in a grid-stride loop
+        blocks = min(blocks, torch.cuda.get_device_properties(dev).multi_processor_count)
     eps_t = _eps_tensor(eps, dev)
     star = torch.empty((rows,), dtype=torch.int32, device=dev)
     qstar = torch.empty((rows,), dtype=torch.float32, device=dev)
@@ -149,11 +222,12 @@ def resample_sweep_cuda(nc, neighbors, cur, taboo, self_ids, unif, p_eff, eps,
     lib = load_kernel().lib
     with torch.cuda.device(dev):
         rc = lib.resample_launch(
-            *(t.data_ptr() for t in args), eps_t.data_ptr(),
-            star.data_ptr(), qstar.data_ptr(), new_taboo.data_ptr(), conf.data_ptr(),
-            rows, d_pad, n_colors, _KIND_CODE[params.proposal],
-            float(params.lambda_), int(params.lambda_ == 0.0),
-            params.taboo_iterations, rows_per_block,
+            neighbors.data_ptr(), colors.data_ptr(), colors.shape[0],
+            cur.data_ptr(), taboo.data_ptr(), unif.data_ptr(), p_eff.data_ptr(),
+            eps_t.data_ptr(), star.data_ptr(), qstar.data_ptr(), new_taboo.data_ptr(),
+            conf.data_ptr(), rows, d_pad, row0, n_colors, _KIND_CODE[params.proposal],
+            float(params.lambda_), int(params.lambda_ == 0.0), params.taboo_iterations,
+            int(shape.staged), shape.warps, shape.copies, blocks, mode,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
@@ -164,20 +238,48 @@ def resample_sweep_cuda(nc, neighbors, cur, taboo, self_ids, unif, p_eff, eps,
     return star, qstar, new_taboo, conf.sum()
 
 
+def resample_sweep_plain(neighbors, colors, cur, taboo, row0: int, unif, p_eff, eps,
+                         params: MCMCParams):
+    """Plain version of K2: the gather ``gathered_colors``, then
+    ``resample_sweep_reference`` on the gathered band with own ids
+    ``row0`` on."""
+    _check(neighbors, colors, cur, taboo, row0, unif,
+           _p_eff_or_zeros(p_eff, params.n_colors, neighbors.device), params)
+    self_ids = torch.arange(row0, row0 + neighbors.shape[0], dtype=torch.int32,
+                            device=neighbors.device)
+    return resample_sweep_reference(gathered_colors(neighbors, colors), neighbors, cur,
+                                    taboo, self_ids, unif, p_eff, eps, params)
+
+
+def gathered_colors(neighbors, colors) -> torch.Tensor:
+    """[rows, d_pad] neighbour colours as K2 sees them: ``colors[id]``, and
+    -1 for an id outside ``[0, len(colors))``."""
+    n_ids = colors.shape[0]
+    ids = torch.where((neighbors >= 0) & (neighbors < n_ids), neighbors, n_ids)
+    return neighbor_colors(ids, colors)
+
+
 def resample_sweep_reference(nc, neighbors, cur, taboo, self_ids, unif, p_eff,
                              eps, params: MCMCParams, block: int | None = None):
-    """Plain version of K2: per row block, ``occupancy_matrix`` and the
-    proposal, sample and taboo keep of ``models/mcmc.py:_propose`` (the
-    XLA sweep's block function), plus the conflict count.  Blocks bound
-    the [rows, n_colors] float32 temporaries."""
+    """K2 over a gathered band ``nc`` (-1 = padding) and its ids: per row
+    block, ``occupancy_matrix`` and the proposal, sample and taboo keep of
+    ``models/mcmc.py:_propose`` (the XLA sweep's block function), plus the
+    conflict count.  Blocks bound the [rows, n_colors] float32
+    temporaries."""
     from mcmc_colorer_tpu_torch.models.mcmc import _propose
 
     n_colors = params.n_colors
     dev = nc.device
     p_eff = _p_eff_or_zeros(p_eff, n_colors, dev)
-    _check(nc, neighbors, cur, taboo, self_ids, unif, p_eff, params)
-    eps_t = _eps_tensor(eps, dev)
+    if nc.dtype != torch.int32 or nc.dim() != 2:
+        raise TypeError(f"nc must be 2-D int32, got {nc.dtype} {tuple(nc.shape)}")
+    if neighbors.dtype != torch.int32 or neighbors.shape != nc.shape:
+        raise TypeError(f"neighbors must be int32 {tuple(nc.shape)}, got "
+                        f"{neighbors.dtype} {tuple(neighbors.shape)}")
     rows = nc.shape[0]
+    _check_rows(rows, dev, _vectors(cur, taboo, unif) + [("self_ids", self_ids, torch.int32)],
+                p_eff, params)
+    eps_t = _eps_tensor(eps, dev)
     block = block or max(128, SWEEP_BLOCK_BYTES // (4 * n_colors))
     star = torch.empty((rows,), dtype=torch.int32, device=dev)
     qstar = torch.empty((rows,), dtype=torch.float32, device=dev)

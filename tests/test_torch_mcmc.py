@@ -241,6 +241,34 @@ def test_super_blocks_do_not_change_the_sweep(medium_er, monkeypatch):
     assert tm._sweep(te, p, 128, colors, taboo, unif, p_eff)[0].equal(ref[0])
 
 
+@pytest.mark.parametrize("kind", [ProposalKind.BALANCE_DYNAMIC, ProposalKind.DECREASE_EXP])
+def test_ell_sweep_bands_or_one_piece(medium_er, monkeypatch, kind):
+    """The plain sweep gives bit-equal results in row bands and in one
+    piece (K2 runs in one piece on the card); phantom rows keep their
+    colour, no taboo, log qstar 0."""
+    te = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=128)
+    p = MCMCParams(n_colors=medium_er.max_degree, proposal=kind, taboo_iterations=2)
+    rng = np.random.default_rng(4)
+    colors = rng.integers(0, p.n_colors, te.n_pad).astype(np.int32)
+    colors[te.n_nodes:] = p.n_colors
+    colors = torch.from_numpy(colors)
+    taboo = torch.from_numpy(rng.integers(0, 2, te.n_pad).astype(np.int32))
+    unif = torch.from_numpy(rng.random(te.n_pad, dtype=np.float32))
+    p_eff = tm._p_eff_of(colors, p, te.n_nodes, te.node_mask)
+    assert te.n_pad > te.n_nodes
+    whole = tm._ell_sweep(te, p, colors, taboo, unif, p_eff, None, k2.resample_sweep_plain,
+                          bands=False)
+    monkeypatch.setattr(tm, "_FUSED_NC_BYTES_CAP", 128 * te.d_pad * tm._SLOT_BYTES)
+    assert len(list(tm._bands(te.n_nodes, te.d_pad))) > 1
+    banded = tm._ell_sweep(te, p, colors, taboo, unif, p_eff, None, k2.resample_sweep_plain)
+    for a, b in zip(whole, banded):
+        assert torch.equal(a, b)
+    phantom = ~te.node_mask
+    assert torch.equal(whole[0][phantom], colors[phantom])
+    assert not whole[1][phantom].any()
+    assert int(whole[3]) == int(tbase.count_conflict_edges(te, colors))
+
+
 @pytest.mark.parametrize("backend", ["pallas", "xla"])
 def test_whole_slice(medium_er, backend):
     """MCMCColorer on medium_er ends valid with 0 conflicts, at JAX's

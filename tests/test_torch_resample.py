@@ -1,6 +1,9 @@
-"""K2's plain version (``ops/resample.py:resample_sweep_reference``)
-against the JAX package's Pallas kernel ``pallas_sweep`` (interpret mode
-on the CPU), fed the same numpy-made state and the same p_eff.
+"""K2's plain version against the JAX package's Pallas kernel
+``pallas_sweep`` (interpret mode on the CPU), fed the same numpy-made
+state and the same p_eff: ``resample_sweep_reference`` over the gathered
+band, and ``resample_sweep`` over neighbour ids and the colour vector
+(on CPU tensors, the gather and then the reference).  Also K2's regime
+choice (``sweep_shape``), a pure function of the shapes.
 
 Tolerances, and why:
 
@@ -36,6 +39,7 @@ from mcmc_colorer_tpu.ops.pallas_resample import pallas_sweep
 from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
 from mcmc_colorer_tpu_torch.interop import graph_from_jax
 from mcmc_colorer_tpu_torch.ops import resample as k2
+from mcmc_colorer_tpu_torch.ops.firstfit import PALETTE_MAX
 from mcmc_colorer_tpu_torch.ops.neighbor import neighbor_colors
 
 torch.set_num_threads(2)
@@ -57,9 +61,13 @@ def assert_boundary_only(star_t, star_j, unif, cdf_j, n_real):
     return mism
 
 
-def run_both(jg, n_colors, kind, taboo_iters, eps, seed):
+def run_both(jg, n_colors, kind, taboo_iters, eps, seed, ids_form=False):
     """One sweep of JAX's kernel and of the port's plain version from the
-    same state; checks the stated tolerances."""
+    same state; checks the stated tolerances.  ``ids_form``: the port
+    takes neighbour ids and the colour vector (``resample_sweep``, whose
+    result must not change when the vector is cut to the real vertices,
+    the only ids an ELL row holds besides the padding id), else the
+    gathered band (``resample_sweep_reference``)."""
     g = graph_from_jax(jg)
     je = jg.to_ell(pad_nodes_to=128)
     te = g.to_ell(pad_nodes_to=128)
@@ -86,12 +94,19 @@ def run_both(jg, n_colors, kind, taboo_iters, eps, seed):
     )
     nc_t = neighbor_colors(te.neighbors, t(colors))
     assert np.array_equal(nc_t.numpy(), nc)
-    ids = torch.arange(n_pad, dtype=torch.int32)
-    before = k2.launches
-    star_t, qstar_t, taboo_t, conf_t = k2.resample_sweep(
-        nc_t, te.neighbors, t(colors), t(taboo), ids, t(unif), t(p_eff), eps, tp
-    )
-    assert k2.launches == before  # CPU tensors never reach the kernel
+    if ids_form:
+        before = k2.launches
+        rest = (t(colors), t(taboo), 0, t(unif), t(p_eff), eps, tp)
+        star_t, qstar_t, taboo_t, conf_t = k2.resample_sweep(te.neighbors, t(colors), *rest)
+        real_only = k2.resample_sweep(te.neighbors, t(colors[: jg.n]), *rest)
+        assert k2.launches == before  # CPU tensors never reach the kernel
+        for a, b in zip((star_t, qstar_t, taboo_t, conf_t), real_only):
+            assert torch.equal(a, b)
+    else:
+        ids = torch.arange(n_pad, dtype=torch.int32)
+        star_t, qstar_t, taboo_t, conf_t = k2.resample_sweep_reference(
+            nc_t, te.neighbors, t(colors), t(taboo), ids, t(unif), t(p_eff), eps, tp
+        )
     assert int(conf_t) == int(conf_j)
     # JAX's cdf: the XLA formulation, bit-identical to its kernel's
     occ = j_occ(jnp.asarray(nc), n_colors)
@@ -130,6 +145,27 @@ def test_reference_matches_pallas_sweep_wide_palette(kind):
     run_both(jg, 4500, kind, 2, 1e-6, seed=7)
 
 
+KINDS = [ProposalKind.STANDARD, ProposalKind.BALANCE_DYNAMIC, ProposalKind.DECREASE_EXP,
+         ProposalKind.BALANCE_LINE]
+WIDE_KINDS = [ProposalKind.STANDARD, ProposalKind.BALANCE_DYNAMIC, ProposalKind.DECREASE_EXP]
+IDS_CASES = ([("medium_er", kind, taboo) for kind in KINDS for taboo in (0, 3)]
+             + [("wide", kind, 2) for kind in WIDE_KINDS])
+
+
+@pytest.mark.parametrize("graph, kind, taboo_iters", IDS_CASES,
+                         ids=[f"{g}-{k.value}-{tb}" for g, k, tb in IDS_CASES])
+def test_ids_form_matches_pallas_sweep(request, graph, kind, taboo_iters):
+    """``resample_sweep(neighbors, colors, ...)`` on CPU tensors against
+    JAX's kernel fed ``colors[neighbors]``: the cases of the two tests
+    above (phantoms hold colour n_colors, padding slots the id n_pad)."""
+    if graph == "wide":
+        run_both(j_er(512, 0.05, seed=3, use_native=False), 4500, kind, taboo_iters, 1e-6,
+                 seed=7, ids_form=True)
+    else:
+        jg = request.getfixturevalue(graph)
+        run_both(jg, jg.max_degree, kind, taboo_iters, 1e-4, seed=5, ids_form=True)
+
+
 def test_reference_blocks_do_not_change_the_sweep(medium_er):
     """Row blocks of the plain version only bound memory."""
     g = graph_from_jax(medium_er)
@@ -151,17 +187,47 @@ def test_reference_blocks_do_not_change_the_sweep(medium_er):
 
 def test_wrapper_checks():
     p = MCMCParams(n_colors=5)
-    nc = torch.zeros((4, 8), dtype=torch.int32)
+    ids = torch.zeros((4, 8), dtype=torch.int32)
+    colors = torch.zeros(16, dtype=torch.int32)
     v = torch.zeros(4, dtype=torch.int32)
     u = torch.zeros(4)
     with pytest.raises(TypeError, match="neighbors"):
-        k2.resample_sweep(nc, nc[:, :4], v, v, v, u, None, 0.0, p)
+        k2.resample_sweep(ids[0], colors, v, v, 0, u, None, 0.0, p)
+    with pytest.raises(TypeError, match="colors"):
+        k2.resample_sweep(ids, ids, v, v, 0, u, None, 0.0, p)
     with pytest.raises(TypeError, match="unif"):
-        k2.resample_sweep(nc, nc, v, v, v, v, None, 0.0, p)
+        k2.resample_sweep(ids, colors, v, v, 0, v, None, 0.0, p)
     with pytest.raises(TypeError, match="p_eff"):
-        k2.resample_sweep(nc, nc, v, v, v, u, torch.zeros(4), 0.0, p)
+        k2.resample_sweep(ids, colors, v, v, 0, u, torch.zeros(4), 0.0, p)
+    with pytest.raises(ValueError, match="row0"):
+        k2.resample_sweep(ids, colors, v, v, -1, u, None, 0.0, p)
     with pytest.raises(ValueError, match="CUDA"):
-        k2.resample_sweep_cuda(nc, nc, v, v, v, u, None, 0.0, p)
-    star, qstar, new_taboo, conf = k2.resample_sweep(nc, nc, v, v, v, u, None, 0.0, p)
+        k2.resample_sweep_cuda(ids, colors, v, v, 0, u, None, 0.0, p)
+    star, qstar, new_taboo, conf = k2.resample_sweep(ids, colors, v, v, 0, u, None, 0.0, p)
     assert star.dtype == new_taboo.dtype == torch.int32 and qstar.dtype == torch.float32
     assert conf.dim() == 0
+
+
+@pytest.mark.parametrize("n_ids, n_colors, l2, want", [
+    # ER(100k, 0.01)'s real vertices: staged, a full block of 32 warps
+    (100_000, 1150, False, (True, 32, 4)),
+    (100_000, 1150, True, (False, 8, 4)),       # forced to L2
+    (1_000_000, 1173, False, (False, 8, 4)),    # config 3: the vector does not fit
+    (500, 4500, False, (True, 32, 4)),          # the wide test palette
+    (111_616, 1150, False, (True, 8, 4)),       # the longest vector with 4 mask copies,
+    (111_624, 1150, False, (True, 15, 2)),      # then fewer copies (and so more warps),
+    (113_344, 1150, False, (True, 8, 1)),       # down to one,
+    (113_345, 1150, False, (False, 8, 4)),      # then L2
+    (1_000, 46_084, False, (True, 8, 1)),       # the widest palette staged beside 1,000 ids
+    (1_000, 46_085, False, (False, 8, 4)),
+    (1_000, PALETTE_MAX, False, (False, 1, 1)),
+])
+def test_sweep_shape(n_ids, n_colors, l2, want):
+    """K2's regime is a function of the vector's length, the palette and
+    the shared-memory constants, and always fits a block's shared memory."""
+    s = k2.sweep_shape(n_ids, n_colors, l2)
+    assert (s.staged, s.warps, s.copies) == want
+    n_words = (n_colors + 31) // 32
+    masks = -(-s.warps * n_words * s.copies * 4 // 16) * 16
+    staged = (-(-4 * n_colors // 16) + -(-2 * n_ids // 16)) * 16 if s.staged else 0
+    assert s.smem_bytes == masks + staged <= k2.SMEM_BLOCK_BYTES
