@@ -37,7 +37,21 @@ the card by default:
   user runs it, in subprocesses: the four device colorers on a simulated
   ER(100k, 0.01), the resident path with MCMC and Luby sharing one
   adjacency, and --mcmccpu on ER(2000, 0.01), each with --check, every
-  log carrying the reference's field names.
+  log carrying the reference's field names;
+- slice 6, the frontier MCMC chain and the packed backend over a host
+  graph: at config 3 the frontier chain (``ActiveMCMCColorer``: K2 once a
+  full sweep and once a frontier iteration, with ``self_ids``; its kept
+  cnt a fresh count at the chain's end) beside phase 9's full chain; on
+  the ER(100k, 0.01) hash graph the resident frontier (the README's
+  command: K1 sweeps and cnt, K2 on rows unpacked from A, which must
+  equal the host ELL's sorted rows); on its host graph
+  ``MCMCColorer(backend="packed")``, whose A built from the ELL must equal
+  the resident A on the real rows; K2 with ``self_ids`` held at each
+  (palette, cap) both frontiers ran, in both regimes, K1 at the host
+  graph's shape; one host read a frontier iteration, under torch's sync
+  debug mode; short Hastings runs over K2 and over K1 and an ``xla``
+  run, each valid; and the CLI's ``--mcmcgpu --active`` (also
+  ``--resident``) and ``--backend packed`` at ER(20k, 0.01).
 
 Every colouring is checked with ``check_coloring``.  Any failed check
 raises, so the exit code is non-zero.  Without CUDA, or outside a
@@ -49,9 +63,9 @@ that holds the kernels' launch counts, errors and times, each beside its
 bound: the least time the card could take for the same work, the larger
 of the bytes it must move (each input read once, each output written
 once) over the memory rate and its operations over their peak rate.
-K1 runs at three shapes on the main paths and K2 at two; their times and
-bounds are means weighted by the launches at each, listed under
-``shapes``.
+K1 runs at four shapes on the main paths, K2 at two sweep shapes and at
+each (palette, cap) of the two frontiers; their times and bounds are
+means weighted by the launches at each, listed under ``shapes``.
 """
 
 from __future__ import annotations
@@ -79,6 +93,18 @@ TIMED_RUNS = 10
 # config 4 (:196-240)
 CONFIG3_N, CONFIG3_P, CONFIG3_SEED, CONFIG3_RATIOS = 1_000_000, 0.001, 3, (1.0, 2.0, 4.0)
 CONFIG4_N, CONFIG4_M, CONFIG4_SEED = 50_000, 8, 4
+# the frontier chains' palettes: ratio 1, and a tighter one whose chain
+# leaves the frontier more work
+CONFIG3_FRONTIER_RATIOS = (1.0, 4.0)
+# The resident chain tests its switch only between budgets of 4 sweeps,
+# and its conflicts fall 10-20x a sweep near the end (on the H100 at ε =
+# 1e-8 it reached the tailcut's 50 within the budget, at ratio 1, and 0
+# conflicts at ratio 2 without the tailcut), so at the reference's ε it
+# may run no frontier iteration.  At ε = 1e-5 ~1,150 vertices a sweep
+# take a random colour, which holds the full chain at some hundreds of
+# conflicts; the frontier, at most one such flip an iteration, removes
+# them: the regime it is built for
+RESIDENT_FRONTIER_EPS = (1e-8, 1e-5)
 # K2's sampled colour may differ from the plain version's only where the
 # uniform lies within BOUNDARY_RTOL (relative) of the plain cdf at the
 # plain colour or the one before it, at no more than this share of rows
@@ -451,30 +477,32 @@ def _k2_inputs(ell, params, gen, device, taboo_max: int, rows: int | None = None
             0, unif, p_eff)
 
 
-def _k2_bytes_ops(args, n_colors: int) -> tuple[int, int]:
+def _k2_bytes_ops(args, n_colors: int, self_ids=None) -> tuple[int, int]:
     """What one K2 launch on ``args`` must move (the ids, the colour
-    vector, the row vectors and p_eff read once; star, qstar, new_taboo
-    and the conflict count written once) and its operations (a compare a
-    slot, a CDF step a colour)."""
+    vector, the row vectors, the own ids if given and p_eff read once;
+    star, qstar, new_taboo and the conflict count written once) and its
+    operations (a compare a slot, a CDF step a colour)."""
     neigh, colors, cur, taboo, _, unif, p_eff = args
     rows, d_pad = neigh.shape
     n_bytes = _nbytes(neigh, colors, cur, taboo, unif) + 4 * n_colors + rows * 12 + 8
+    if self_ids is not None:
+        n_bytes += _nbytes(self_ids)
     return n_bytes, rows * (d_pad + n_colors)
 
 
-def _k2_check(k2, args, params, label, l2=False, phase=8):
+def _k2_check(k2, args, params, label, l2=False, phase=8, self_ids=None):
     """K2 against its plain version: exact conflicts, samples equal but at
     CDF-boundary rows, new_taboo equal and qstar within rtol 1e-5 where
-    the samples agree.  ``l2`` forces the L2 regime.  Returns (boundary
-    fraction, max |qstar error|)."""
+    the samples agree.  ``l2`` forces the L2 regime; ``self_ids`` gives
+    the rows' own ids.  Returns (boundary fraction, max |qstar error|)."""
     import torch
 
     from mcmc_colorer_tpu_torch.models.mcmc import _proposal_q
     from mcmc_colorer_tpu_torch.ops.neighbor import occupancy_matrix
 
     neigh, colors, cur, taboo, row0, unif, p_eff = args
-    got = k2.resample_sweep_cuda(*args, params.epsilon, params, _l2=l2)
-    want = k2.resample_sweep_plain(*args, params.epsilon, params)
+    got = k2.resample_sweep_cuda(*args, params.epsilon, params, self_ids, _l2=l2)
+    want = k2.resample_sweep_plain(*args, params.epsilon, params, self_ids)
     regime = "staged" if k2.sweep_shape(colors.shape[0], params.n_colors, l2).staged else "L2"
     label = f"{label} ({regime})"
     _require(int(got[3]) == int(want[3]),
@@ -506,25 +534,25 @@ def _k2_check(k2, args, params, label, l2=False, phase=8):
     return frac, float(qerr.max())
 
 
-def _k2_both(k2, args, params, label, phase=8):
+def _k2_both(k2, args, params, label, phase=8, self_ids=None):
     """``_k2_check`` in the regime the shape takes and in L2."""
-    f1, e1 = _k2_check(k2, args, params, label, phase=phase)
-    f2, e2 = _k2_check(k2, args, params, label, l2=True, phase=phase)
+    f1, e1 = _k2_check(k2, args, params, label, phase=phase, self_ids=self_ids)
+    f2, e2 = _k2_check(k2, args, params, label, l2=True, phase=phase, self_ids=self_ids)
     return max(f1, f2), max(e1, e2)
 
 
-def _k2_timed(k2, args, params, label, plain_runs=TIMED_RUNS, phase=8):
+def _k2_timed(k2, args, params, label, plain_runs=TIMED_RUNS, phase=8, self_ids=None):
     """K2 (the shape's regime, and forced to L2 where that differs) and its
     plain version, timed; a row of the kernels line's K2 ``shapes``."""
     colors = args[1]
     shape = k2.sweep_shape(colors.shape[0], params.n_colors)
-    k_ms = _median_ms(lambda: k2.resample_sweep_cuda(*args, params.epsilon, params))
+    k_ms = _median_ms(lambda: k2.resample_sweep_cuda(*args, params.epsilon, params, self_ids))
     l2_ms = (_median_ms(lambda: k2.resample_sweep_cuda(*args, params.epsilon, params,
-                                                       _l2=True))
+                                                       self_ids, _l2=True))
              if shape.staged else k_ms)
-    p_ms = _median_ms(lambda: k2.resample_sweep_plain(*args, params.epsilon, params),
+    p_ms = _median_ms(lambda: k2.resample_sweep_plain(*args, params.epsilon, params, self_ids),
                       runs=plain_runs)
-    n_bytes, ops = _k2_bytes_ops(args, params.n_colors)
+    n_bytes, ops = _k2_bytes_ops(args, params.n_colors, self_ids)
     rows, d_pad = args[0].shape
     regime = "staged" if shape.staged else "L2"
     print(f"phase {phase} K2 {label} [{rows}, {d_pad}] n_ids={colors.shape[0]} "
@@ -606,7 +634,8 @@ def _chain_peak(colorer, seed: int) -> int:
 def phase_config3(device, g):
     """The slice-2 main path at BASELINE config 3: MCMCColorer (K2 sweep,
     K3 tailcut) at numColRatio 1, 2, 4, then GreedyFF (K3).  Returns the
-    K2 and K3 launches of these runs."""
+    K2 and K3 launches of these runs, GreedyFF's run with its K3
+    launches, and the MCMC runs by ratio."""
     from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
     from mcmc_colorer_tpu_torch.models.base import check_coloring
     from mcmc_colorer_tpu_torch.models.greedy_ff import GreedyFFColorer
@@ -617,6 +646,7 @@ def phase_config3(device, g):
     import torch
 
     k2_total = k3_total = 0
+    fulls = {}
     for ratio in CONFIG3_RATIOS:
         n_col = max(4, int(g.max_degree / ratio))
         params = MCMCParams(n_colors=n_col, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
@@ -648,6 +678,7 @@ def phase_config3(device, g):
         _require(l2 > 0 and l3 > 0, f"ratio {ratio}: K2 launched {l2}, K3 {l3} times")
         _require(l2 == x["sweeps"], f"ratio {ratio}: {l2} K2 launches in {x['sweeps']} sweeps")
         _require(valid and x["final_conflicts"] == 0, f"ratio {ratio}: invalid colouring")
+        fulls[ratio] = r
         del c
     k3.launches = 0
     t0 = time.perf_counter()
@@ -662,7 +693,7 @@ def phase_config3(device, g):
           f"{r.duration_ms / 1e3:.3f} s; K3 launches {l3}; valid {valid}")
     _require(l3 > 0, "GreedyFF launched K3 no time")
     _require(valid, "GreedyFF: invalid colouring")
-    return k2_total, k3_total, (r, l3)
+    return k2_total, k3_total, (r, l3), fulls
 
 
 def phase_config4(device):
@@ -722,7 +753,8 @@ def phase_k2_vs_k1(device, c, g, seed=5):
     0.01), its params and seed), both warm; K2 there in the staged regime,
     held against its plain version in both regimes on the chain's ELL and
     timed.  Returns (K2 launches of the timed chain run, its
-    ``_k2_timed`` row, boundary fraction, max |qstar error|)."""
+    ``_k2_timed`` row, boundary fraction, max |qstar error|, the K1 and
+    the K2 chain's runs)."""
     import torch
 
     from mcmc_colorer_tpu_torch.config import MCMCParams
@@ -767,7 +799,7 @@ def phase_k2_vs_k1(device, c, g, seed=5):
              "phase 11: K2 does not stage the colour vector")
     frac, qerr = _k2_both(k2, args, p, f"ER({BENCH_N}, {BENCH_P}) sweep", phase=11)
     row = _k2_timed(k2, args, p, f"ER({BENCH_N}, {BENCH_P}) sweep", phase=11)
-    return launches, row, frac, qerr
+    return launches, row, frac, qerr, r1, r2
 
 
 def _vff_k3_checks(k3, c, gff):
@@ -961,6 +993,401 @@ def phase_luby(device, g, seed=5):
     return launches, rounds, _k1_luby_shapes(k1, c, seed)
 
 
+def _frontier_k2_args(graph, params, cap, gen, device):
+    """K2's inputs at a frontier of ``cap`` rows of ``graph`` (an ELL or
+    ``PackedRows``): three quarters of the cap real vertices drawn at
+    random, the padding id after them, their rows taken as the frontier
+    iteration takes them (``_rows_of``), random colours, taboo 0.
+    Returns (args, self_ids)."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.models.mcmc import _needs_histogram, _variant_distribution
+    from mcmc_colorer_tpu_torch.models.mcmc_active import _rows_of
+    from mcmc_colorer_tpu_torch.ops.neighbor import color_histogram
+
+    n, n_pad = graph.n_nodes, graph.n_pad
+    colors = _real_colors(n, n_pad, params.n_colors, gen, device)
+    n_valid = min(n, cap * 3 // 4)
+    ids = torch.full((cap,), n_pad, dtype=torch.int32, device=device)
+    ids[:n_valid] = torch.randperm(n, generator=gen, device=device)[:n_valid].sort().values
+    valid = ids < n_pad
+    rows = _rows_of(graph, ids, valid)
+    cur = torch.where(valid, colors[ids.clamp(max=n_pad - 1).to(torch.int64)], params.n_colors)
+    unif = torch.rand((cap,), generator=gen, device=device)
+    hist = (color_histogram(colors, params.n_colors, graph.node_mask)
+            if _needs_histogram(params) else None)
+    p_eff = _variant_distribution(params, hist, n, device)
+    taboo = torch.zeros((cap,), dtype=torch.int32, device=device)
+    return (rows, colors[:n], cur, taboo, 0, unif, p_eff), ids
+
+
+def _frontier_k2(k2, graph, params, by_cap, seed, label, phase):
+    """K2 with ``self_ids`` against its plain version in the regime of the
+    shape and forced to L2, then timed, at each cap a run's frontier took
+    (``by_cap``: cap -> iterations), with the run's own graph and
+    parameters.  Returns (K2 ``shapes`` rows, each with its launches,
+    boundary fraction, max |qstar error|)."""
+    import torch
+
+    rows, frac, qerr = [], 0.0, 0.0
+    for cap, n in sorted(by_cap.items()):
+        gen = torch.Generator(device=graph.node_mask.device)
+        gen.manual_seed(seed + cap)
+        args, ids = _frontier_k2_args(graph, params, cap, gen, graph.node_mask.device)
+        lab = f"{label} frontier cap {cap}"
+        f, e = _k2_both(k2, args, params, lab, phase=phase, self_ids=ids)
+        row = _k2_timed(k2, args, params, lab, plain_runs=3, phase=phase, self_ids=ids)
+        rows.append({**row, "launches": n})
+        frac, qerr = max(frac, f), max(qerr, e)
+    return rows, frac, qerr
+
+
+def _host_syncs(fn):
+    """Run ``fn`` under torch's CUDA sync debug mode: (its result, for each
+    operation that waited for the device, the innermost file:line of the
+    package on the stack and the line that warned)."""
+    import traceback
+    import warnings
+
+    import torch
+
+    pkg = str(ROOT / "mcmc_colorer_tpu_torch")
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack() if f.filename.startswith(pkg)]
+        where = f"{Path(ours[-1].filename).name}:{ours[-1].lineno}" if ours else "?"
+        sites.append(f"{where} ({Path(filename).name}:{lineno})")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sites
+
+
+def _frontier_syncs(graph, colors, taboo, cnt, params, cap, label, phase, iters=3):
+    """Frontier iterations, and a tailcut round, from a chain's end state
+    under the sync debug mode, after one iteration that warms up: an
+    iteration must read the host once (its statistics), a tailcut round
+    never (its loop reads once a round)."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.models.mcmc_active import _active_iteration, _tailcut_round
+    from mcmc_colorer_tpu_torch.ops.neighbor import color_histogram
+    from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource
+
+    src = TorchUniformSource(phase, 0, colors.device)
+    it_sites = []
+    for _ in range(iters + 1):
+        (colors, taboo, cnt, _), sites = _host_syncs(
+            lambda: _active_iteration(graph, colors, taboo, cnt, src, cap=cap, params=params,
+                                      backend="pallas"))
+        it_sites.append(sites)
+    ordered = torch.argsort(color_histogram(colors, params.n_colors, graph.node_mask),
+                            stable=True).to(torch.int32)
+    _, tc_sites = _host_syncs(lambda: _tailcut_round(graph, colors, cnt, ordered, src, cap=cap,
+                                                     params=params))
+    warm, it_sites = it_sites[0], it_sites[1:]
+    print(f"phase {phase} {label} host reads at cap {cap}: warm-up iteration {warm}; "
+          f"frontier iterations {[len(x) for x in it_sites]} "
+          f"({sorted({y for x in it_sites for y in x})}), a tailcut round {len(tc_sites)} "
+          f"{tc_sites}")
+    _require(all(len(x) == 1 for x in it_sites) and not tc_sites,
+             f"{label}: a frontier iteration must read the host once and a tailcut round "
+             f"never: {it_sites}, {tc_sites}")
+
+
+def phase_frontier_mcmc_config3(device, g, fulls):
+    """Slice 6 at BASELINE config 3: the frontier MCMC chain
+    (``ActiveMCMCColorer``, chain seed 31) on phase 9's graph at
+    ``CONFIG3_FRONTIER_RATIOS`` (the second runs long enough to leave
+    conflicts for the frontier), beside phase 9's full chains ``fulls`` (by ratio).  K2
+    launches once a full sweep and once a frontier iteration; the kept
+    cnt at the end of each chain equals a fresh banded count; each run's
+    frontier K2 is held and timed at each (ratio, cap) the run took, and
+    a frontier iteration reads the host once.  Returns (K2 launches at the
+    sweep shape, the frontier's K2 rows, boundary fraction, max |qstar
+    error|)."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.models.base import check_coloring
+    from mcmc_colorer_tpu_torch.models.mcmc_active import ActiveMCMCColorer, _cnt_of
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+    from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource
+
+    full_sweeps = frontier = 0
+    k2_rows, frac, qerr = [], 0.0, 0.0
+    for ratio in CONFIG3_FRONTIER_RATIOS:
+        params = MCMCParams(n_colors=max(4, int(g.max_degree / ratio)),
+                            proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
+        c = ActiveMCMCColorer(g, params, device=device)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        k2.launches = 0
+        r = c.run(seed=31)
+        l2 = k2.launches
+        peak = torch.cuda.max_memory_allocated() - base
+        x = r.extra
+        n_front = sum(x["frontier_iterations"].values())
+        t0 = time.perf_counter()
+        valid = check_coloring(g, r.colors)
+        check_s = time.perf_counter() - t0
+        full = fulls[ratio]
+        fx = full.extra
+        print(
+            f"phase 16 config3 frontier MCMC ratio={ratio} n_colors={params.n_colors}: setup "
+            f"(ELL) {c.setup_seconds:.3f} s; {x['full_sweeps']} full sweeps, switch after "
+            f"iteration {x['switch_iteration']}, frontier iterations by cap "
+            f"{x['frontier_iterations']}, iterations {r.iterations}, tailcut rounds "
+            f"{x['tailcut_rounds']}; chain {x['chain_seconds']:.3f} s, tailcut "
+            f"{x['tailcut_seconds']:.3f} s, run {r.duration_ms / 1e3:.3f} s (phase 9's full "
+            f"chain: {fx['sweeps']} sweeps, chain {fx['chain_seconds']:.3f} s, run "
+            f"{full.duration_ms / 1e3:.3f} s); used colours {r.used_colors}, balance index "
+            f"{r.balance_index(CONFIG3_P):.4f}; K2 launches {l2}; peak device memory of the "
+            f"run {peak} bytes above the {base} allocated before it; valid {valid} (check "
+            f"{check_s:.3f} s), final conflicts {x['final_conflicts']}"
+        )
+        _require(l2 == x["full_sweeps"] + n_front,
+                 f"config 3 frontier: {l2} K2 launches for {x['full_sweeps']} full sweeps and "
+                 f"{n_front} frontier iterations")
+        _require(valid and x["final_conflicts"] == 0, "config 3 frontier: invalid colouring")
+        ch = c._chain(TorchUniformSource(31, 0, device))
+        fresh = _cnt_of(c.ell, ch.colors)
+        _require(ch.cnt is None or torch.equal(ch.cnt, fresh),
+                 "config 3 frontier: the kept cnt is not a re-count")
+        print(f"phase 16 cnt invariant ratio={ratio}: "
+              + ("no cnt kept (the chain ended in full mode)" if ch.cnt is None else
+                 f"the kept cnt at the chain's end ({ch.conflicts} conflict edges, "
+                 f"{int((fresh > 0).sum())} conflicting vertices) equals a fresh banded count"))
+        full_sweeps, frontier = full_sweeps + x["full_sweeps"], frontier + n_front
+        if n_front:
+            _frontier_syncs(c.ell, ch.colors, ch.taboo, ch.cnt, params,
+                            max(x["frontier_iterations"]), f"config-3 ratio {ratio}", 16)
+        rows, f, e = _frontier_k2(k2, c.ell, params, x["frontier_iterations"], 16,
+                                  f"config-3 ratio {ratio}", 16)
+        k2_rows, frac, qerr = k2_rows + rows, max(frac, f), max(qerr, e)
+        del c, ch, fresh
+    _require(frontier > 0, "config 3: the frontier chains ran no frontier iteration")
+    return full_sweeps, k2_rows, frac, qerr
+
+
+def phase_resident_frontier(device, g, r_main, r_warm):
+    """Slice 6's resident frontier at ER(100k, 0.01), graph seed 0, chain
+    seed 5, nCol = max degree, tailcut: the README's command, and the
+    same at ε = 1e-5 (``RESIDENT_FRONTIER_EPS``), where the frontier has
+    work; K1 for the full sweeps, the cnt at the switch and the NC
+    tailcut (the resident chain's shape: exactly one launch each), K2
+    with ``self_ids`` on rows unpacked from A, held and timed at each
+    (ε, cap) a run took.  Also ``packed_rows_to_ids`` against the host
+    ELL's sorted rows, exactly, and one host read a frontier iteration.
+    Returns a dict of launches and K2 rows."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.models.base import check_coloring
+    from mcmc_colorer_tpu_torch.models.mcmc_active import PackedRows, _cnt_of_packed
+    from mcmc_colorer_tpu_torch.models.mcmc_resident import ResidentMCMCColorer
+    from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+    from mcmc_colorer_tpu_torch.ops.dense_adj import packed_rows_to_ids
+
+    out = {"k2": 0, "k1": 0, "k2_rows": [], "frac": 0.0, "qerr": 0.0}
+    for eps in RESIDENT_FRONTIER_EPS:
+        params = MCMCParams(n_colors=0, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True,
+                            epsilon=eps)
+        c = ResidentMCMCColorer(BENCH_N, BENCH_P, graph_seed=0, params=params, active=True,
+                                device=device)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = k2.launches = 0
+        r = c.run(seed=5)
+        l1, l2 = k1.launches, k2.launches
+        peak = torch.cuda.max_memory_allocated() - base
+        x = r.extra
+        n_front = sum(x["frontier_iterations"].values())
+        tc = x["tailcut_rounds"]
+        # a full sweep's NC, the cnt, a tailcut round's exit NC, the first's entry
+        want_k1 = x["sweeps"] + 1 + tc + (1 if tc else 0)
+        valid = check_coloring(g, r.colors)
+        print(
+            f"phase 17 resident frontier ER({BENCH_N}, {BENCH_P}) eps={eps:g} "
+            f"n_colors={c.params.n_colors}: gen (or the cached hash graph) "
+            f"{c.gen_seconds:.3f} s; {x['sweeps']} full sweeps, switch after iteration "
+            f"{x['switch_iteration']}, frontier iterations by cap {x['frontier_iterations']}, "
+            f"iterations {r.iterations}, tailcut rounds {tc}; chain {x['chain_seconds']:.3f} s, "
+            f"run {r.duration_ms / 1e3:.3f} s (phase 4's full resident chain, cold: "
+            f"{r_main.extra['sweeps']} sweeps, chain {r_main.extra['chain_seconds']:.3f} s, "
+            f"run {r_main.duration_ms / 1e3:.3f} s; phase 11's, warm: chain "
+            f"{r_warm.extra['chain_seconds']:.3f} s, run {r_warm.duration_ms / 1e3:.3f} s); "
+            f"K1 launches {l1}, K2 launches {l2}; peak device "
+            f"memory of the run {peak} bytes above the {base} allocated before it; valid "
+            f"{valid}, final conflicts {x['final_conflicts']}"
+        )
+        _require(l2 == n_front, f"resident frontier: {l2} K2 launches in {n_front} iterations")
+        _require(l1 == want_k1, f"resident frontier: {l1} K1 launches, not {want_k1}")
+        _require(valid and x["final_conflicts"] == 0, "resident frontier: invalid colouring")
+        out["k2"] += l2
+        out["k1"] += l1
+        graph = PackedRows(c.adj, c.d_row, c.n, c.node_mask)
+        if n_front:  # from random colours: a frontier that fills the cap
+            gen = torch.Generator(device=device)
+            gen.manual_seed(17)
+            colors = _real_colors(c.n, c.n_pad, c.params.n_colors, gen, device)
+            cnt = _cnt_of_packed(c.adj, colors, params=c.params, node_mask=c.node_mask)
+            _frontier_syncs(graph, colors, torch.zeros_like(cnt), cnt, c.params,
+                            max(x["frontier_iterations"]), f"resident eps={eps:g}", 17)
+        rows, f, e = _frontier_k2(k2, graph, c.params, x["frontier_iterations"], 17,
+                                  f"resident ER({BENCH_N}, {BENCH_P}) eps={eps:g}", 17)
+        _require(all(row["regime"] == "staged" for row in rows),
+                 "the resident frontier's K2 does not stage")
+        out["k2_rows"] += rows
+        out["frac"], out["qerr"] = max(out["frac"], f), max(out["qerr"], e)
+    _require(out["k2"] > 0, "the resident frontier ran no frontier iteration")
+    c1 = c
+    # the frontier's rows unpacked from A against the host ELL's, sorted
+    ell = g.to_ell(pad_nodes_to=2048, device=device)
+    _require(ell.n_pad == c1.n_pad and ell.d_pad >= c1.d_row, "host ELL shape")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    ids = torch.randperm(BENCH_N - 1, generator=gen, device=device)[:299].to(torch.int32)
+    ids = torch.cat([ids, ids.new_tensor([BENCH_N - 1])]).sort().values
+    rows = packed_rows_to_ids(c1.adj.index_select(0, ids), c1.d_row, c1.n_pad)
+    host = ell.neighbors.index_select(0, ids).sort(dim=1).values[:, : c1.d_row]
+    _require(torch.equal(rows, host), "packed_rows_to_ids differs from the host ELL's rows")
+    print(f"phase 17 packed_rows_to_ids: {ids.numel()} rows (the last real vertex among "
+          f"them) equal the host ELL's sorted rows, d_row {c1.d_row}")
+    del ell, rows, host, c, c1
+    return out
+
+
+def _k1_timed(k1, adj, n, n_colors, gen, label, phase):
+    """K1 on ``adj`` with random colours of the ``n`` real vertices against
+    its plain version, exactly, then timed.  Returns (n_col_pad,
+    max_abs_err, kernel_ms, plain_ms, bytes moved, adds)."""
+    from mcmc_colorer_tpu_torch.ops.dense_adj import n_col_pad_of
+    from mcmc_colorer_tpu_torch.ops.hashgen import degrees_from_packed
+
+    ncp = n_col_pad_of(n_colors)
+    colors = _random_colors(n, adj.shape[0], n_colors, gen, adj.device)
+    e = int((k1.packed_nc_cuda(adj, colors, ncp)
+             - k1.packed_nc_reference(adj, colors, ncp)).abs().max())
+    _require(e == 0, f"K1 differs from its plain version at {label}: {e}")
+    k_ms = _median_ms(lambda: k1.packed_nc_cuda(adj, colors, ncp))
+    p_ms = _median_ms(lambda: k1.packed_nc_reference(adj, colors, ncp), runs=3)
+    n_bytes = _nbytes(adj, colors) + adj.shape[0] * ncp * 4
+    adds = int(degrees_from_packed(adj)[colors >= 0].sum())  # an add a set bit of a coloured column
+    print(f"phase {phase} K1 {label} n_pad={adj.shape[0]} words={adj.shape[1]} "
+          f"n_col_pad={ncp}: exact; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (CUDA events); "
+          f"moves {n_bytes} bytes, {adds} adds")
+    return ncp, e, k_ms, p_ms, n_bytes, adds
+
+
+def phase_packed_host(device, g, c_res, r1, r2):
+    """Slice 6's packed backend over a host graph: ``MCMCColorer(g,
+    backend="packed")`` on phase 11's ER(100k, 0.01) host graph.  Its A,
+    built on the card from the ELL (n_pad 131,072), must equal the
+    resident A word for word on the real rows (a column's word and bit do
+    not depend on n_pad) and be 0 elsewhere.  Beside phase 11's K2 and K1
+    chains (``r2``, ``r1``).  Returns (K1 launches, the shape's K1 row)."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.models.base import check_coloring
+    from mcmc_colorer_tpu_torch.models.mcmc import MCMCColorer
+    from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+
+    def per_sweep(r):
+        return r.extra["chain_seconds"] / max(r.extra["sweeps"], 1) * 1e3
+
+    params = MCMCParams(n_colors=c_res.params.n_colors, proposal=ProposalKind.BALANCE_DYNAMIC,
+                        tailcut=True)
+    colorer = MCMCColorer(g, params, backend="packed", device=device)
+    a, ra = colorer._adj, c_res.adj
+    nr, nw = ra.shape
+    _require(torch.equal(a[:nr, :nw], ra) and not a[nr:].any() and not a[:, nw:].any(),
+             "the packed A built from the ELL differs from the resident A")
+    colorer.run(seed=5)  # warm-up
+    k1.launches = 0
+    r = colorer.run(seed=5)
+    launches = k1.launches
+    valid = check_coloring(g, r.colors)
+    st = colorer.adj_stats
+    print(
+        f"phase 18 packed backend ER({BENCH_N}, {BENCH_P}) host graph: ELL "
+        f"[{colorer.ell.n_pad}, {colorer.ell.d_pad}], A [{a.shape[0]}, {a.shape[1]}] built "
+        f"on the card from it in {st['build_s']:.3f} s (check {st['check_s']:.3f} s), "
+        f"setup {colorer.setup_seconds:.3f} s; equals the resident A [{nr}, {nw}] on the "
+        f"real rows, 0 elsewhere; warm: {r.iterations} iterations, {r.extra['sweeps']} "
+        f"sweeps, {per_sweep(r):.3f} ms/sweep (phase 11: K2 chain {per_sweep(r2):.3f}, "
+        f"resident K1 chain {per_sweep(r1):.3f}), tailcut rounds "
+        f"{r.extra['tailcut_rounds']}, run {r.duration_ms / 1e3:.3f} s; K1 launches "
+        f"{launches}; valid {valid}, final conflicts {r.extra['final_conflicts']}"
+    )
+    _require(launches == r.extra["sweeps"] > 0,
+             f"packed backend: {launches} K1 launches in {r.extra['sweeps']} sweeps")
+    _require(valid and r.extra["final_conflicts"] == 0, "packed backend: invalid colouring")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(18)
+    shape = _k1_timed(k1, a, g.n, params.n_colors, gen, "host-graph packed chain", 18)
+    del colorer, a
+    return launches, shape
+
+
+def phase_hastings_xla(device, g):
+    """The chains the card had not run: ``MCMCColorer`` with Hastings (the
+    generic loop, K2 a sweep, the reverse proposal over the ELL),
+    ``ResidentMCMCColorer`` with Hastings (K1 for the sweep and for the
+    star colouring's NC) and ``MCMCColorer(backend="xla")`` (the plain
+    versions), each 30 iterations at most on ER(100k, 0.01), tailcut on,
+    each valid.  Returns (K2 launches, K1 launches)."""
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.models.base import check_coloring
+    from mcmc_colorer_tpu_torch.models.mcmc import MCMCColorer
+    from mcmc_colorer_tpu_torch.models.mcmc_resident import ResidentMCMCColorer
+    from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+
+    hastings = dict(hastings=True, lambda_=25.0)
+    runs = {}
+    for name, make, kw in (
+        ("MCMCColorer Hastings (K2)", lambda p: MCMCColorer(g, p, device=device), hastings),
+        ("ResidentMCMCColorer Hastings (K1)",
+         lambda p: ResidentMCMCColorer(BENCH_N, BENCH_P, 0, params=p, device=device),
+         hastings),
+        ("MCMCColorer backend xla", lambda p: MCMCColorer(g, p, backend="xla", device=device),
+         {}),
+    ):
+        p = MCMCParams(n_colors=g.max_degree, proposal=ProposalKind.BALANCE_DYNAMIC,
+                       tailcut=True, max_iterations=30, **kw)
+        k1.launches = k2.launches = 0
+        t0 = time.perf_counter()
+        r = make(p).run(seed=7)
+        wall = time.perf_counter() - t0
+        runs[name] = (k2.launches, k1.launches)
+        x = r.extra
+        valid = check_coloring(g, r.colors)
+        print(f"phase 19 {name}: iterations {r.iterations}, conflict trace "
+              f"{list(map(int, r.conflict_trace[:4]))}...{int(r.conflict_trace[-1])}, tailcut "
+              f"rounds {x['tailcut_rounds']}, run {r.duration_ms / 1e3:.3f} s (wall "
+              f"{wall:.3f} s); K2 launches {k2.launches}, K1 launches {k1.launches}; valid "
+              f"{valid}, final conflicts {x['final_conflicts']}")
+        _require(valid and x["final_conflicts"] == 0, f"{name}: invalid colouring")
+    l2, _ = runs["MCMCColorer Hastings (K2)"]
+    _, l1 = runs["ResidentMCMCColorer Hastings (K1)"]
+    _require(l2 > 0 and l1 > 0, "the Hastings chains launched no kernel")
+    _require(runs["MCMCColorer backend xla"][0] == 0, "the xla backend launched K2")
+    return l2, l1
+
+
+
 LOG_FIELDS = ("Nodes:", "Edges:", "Max deg:", "Edge probability", "Seed:", "Repetition:",
               "Execution time:", "Iteration performed:", "Max iteration reached:",
               "Color histogram:", "Number of colors:", "Used colors:", "Color ratio:",
@@ -997,7 +1424,9 @@ def _cli_run(args, n, tags):
 
 def phase_cli():
     """The port's CLI as a user runs it: the four device colorers on a
-    simulated ER(100k, 0.01), the resident path, and --mcmccpu."""
+    simulated ER(100k, 0.01), the resident path, --mcmccpu, and at
+    ER(20k, 0.01) the frontier chain (--active, also --resident) and
+    --backend packed."""
     _cli_run(["--simulate", "0.01", "-n", "100000", "--mcmcgpu", "--lubygpu", "--grdffgpu",
               "--vffgpu", "--tailcut", "--check", "--seed", "5"], 100_000,
              ("MCMC_GPU", "LUBY", "GFF", "VFF"))
@@ -1005,6 +1434,14 @@ def phase_cli():
               "--tailcut", "--check", "--seed", "5"], 100_000, ("MCMC_GPU", "LUBY"))
     _cli_run(["--simulate", "0.01", "-n", "2000", "--mcmccpu", "--tailcut", "--check",
               "--seed", "5"], 2_000, ("MCMC_CPU",))
+    # slice 6: the frontier chain, with and without --resident, and the
+    # packed backend over a host graph (Luby ignores --backend)
+    _cli_run(["--simulate", "0.01", "-n", "20000", "--mcmcgpu", "--active", "--tailcut",
+              "--check", "--seed", "5"], 20_000, ("MCMC_GPU",))
+    _cli_run(["--resident", "--simulate", "0.01", "-n", "20000", "--mcmcgpu", "--active",
+              "--tailcut", "--check", "--seed", "5"], 20_000, ("MCMC_GPU",))
+    _cli_run(["--simulate", "0.01", "-n", "20000", "--mcmcgpu", "--lubygpu", "--backend",
+              "packed", "--tailcut", "--check", "--seed", "5"], 20_000, ("MCMC_GPU", "LUBY"))
 
 
 def main() -> int:
@@ -1037,7 +1474,7 @@ def main() -> int:
         device, K1_SHAPES, bench_n_pad=_round_up(BENCH_N, 2048))
     torch.cuda.empty_cache()
     phase_hash(device)
-    _, c, launches, g_bench = phase_main(device)
+    r_main, c, launches, g_bench = phase_main(device)
     chain_ncp = n_col_pad_of(c.params.n_colors)
     _require(chain_ncp == n_col_pad_of(K1_BENCH_COLORS),
              f"the chain ran K1 at {chain_ncp} padded colours, timed at {K1_BENCH_COLORS}")
@@ -1050,20 +1487,34 @@ def main() -> int:
     err3, k3_ms, p3_ms, k3_bytes, k3_slots = phase_k3(device, ell3, sb)
     frac2, err2, k2_config3 = phase_k2(device, ell3, sb)
     torch.cuda.empty_cache()
-    launches2, launches3, full_gff = phase_config3(device, g3)
+    launches2, launches3, full_gff, full_mcmc = phase_config3(device, g3)
     del ell3
     torch.cuda.empty_cache()
     l3, e3 = phase_frontier_config3(device, g3, full_gff)
     launches3, err3 = launches3 + l3, max(err3, e3)
+    torch.cuda.empty_cache()
+    t_slice6 = time.perf_counter()
+    fr3_full, k2_fr3, f2, e2 = phase_frontier_mcmc_config3(device, g3, full_mcmc)
+    frac2, err2 = max(frac2, f2), max(err2, e2)
+    slice6_s = time.perf_counter() - t_slice6
     del g3
     torch.cuda.empty_cache()
     phase_config4(device)
-    l2_bench, k2_bench, f2, e2 = phase_k2_vs_k1(device, c, g_bench)
+    l2_bench, k2_bench, f2, e2, r1, r2 = phase_k2_vs_k1(device, c, g_bench)
     frac2, err2 = max(frac2, f2), max(err2, e2)
     luby_launches, luby_rounds, luby_k1 = phase_luby(device, g_bench)
+    t_slice6 = time.perf_counter()
+    res = phase_resident_frontier(device, g_bench, r_main, r1)
+    frac2, err2 = max(frac2, res["frac"]), max(err2, res["qerr"])
+    host_k1, k1_host_shape = phase_packed_host(device, g_bench, c, r1, r2)
+    hast_k2, hast_k1 = phase_hastings_xla(device, g_bench)
+    slice6_s += time.perf_counter() - t_slice6
     del c
     torch.cuda.empty_cache()
+    t_slice6 = time.perf_counter()
     phase_cli()
+    print(f"phase 15 CLI: {time.perf_counter() - t_slice6:.3f} s; phases 16-19 (slice 6) "
+          f"{slice6_s:.3f} s")
 
     def bound_keys(ms, n_bytes, ops, ops_per_s):
         bound_ms, bound_by = _bound(n_bytes, ops, ops_per_s)
@@ -1072,30 +1523,41 @@ def main() -> int:
         return {"bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
                 "library_ms": None}
 
-    # K1 ran at three shapes on the main paths: the chain's palette
-    # (phase 4) and resident Luby's two, one launch each a round (phase
-    # 14); its times are their means weighted by those launches
-    k1_shapes = [(chain_ncp, launches, err, k_ms, p_ms, k1_bytes, k1_bits)]
-    k1_shapes += [(ncp, luby_rounds, *rest) for ncp, *rest in luby_k1]
+    # K1 ran at four shapes on the main paths: the resident chain's
+    # palette (phase 4; also the resident frontier's full sweeps, cnt and
+    # NC tailcut, phase 17, and the resident Hastings chain, phase 19),
+    # resident Luby's two, one launch each a round (phase 14), and the
+    # host graph's packed chain (phase 18, n_pad 131,072); its times are
+    # their means weighted by those launches
+    k1_shapes = [("resident chain", chain_ncp, launches + res["k1"] + hast_k1, err, k_ms,
+                  p_ms, k1_bytes, k1_bits)]
+    k1_shapes += [(f"resident Luby {ncp}", ncp, luby_rounds, *rest) for ncp, *rest in luby_k1]
+    k1_shapes += [("host-graph packed chain", k1_host_shape[0], host_k1, *k1_host_shape[1:])]
     k1_rows = []
-    for ncp, n, e, ms, pms, n_bytes, ops in k1_shapes:
+    for label, ncp, n, e, ms, pms, n_bytes, ops in k1_shapes:
         b_ms, b_by = _bound(n_bytes, ops, INT32_OPS_PER_S)
-        k1_rows.append({"n_col_pad": ncp, "launches": n, "max_abs_err": e, "ms": ms,
-                        "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by})
+        k1_rows.append({"shape": label, "n_col_pad": ncp, "launches": n, "max_abs_err": e,
+                        "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by})
     k1_n = sum(x["launches"] for x in k1_rows)
 
     def weighted(rows, key):
         return sum(x[key] * x["launches"] for x in rows) / sum(x["launches"] for x in rows)
 
     k1_ms, k1_bound = weighted(k1_rows, "ms"), weighted(k1_rows, "bound_ms")
-    _require(k1_n == launches + luby_launches, "K1 launches by shape do not add up")
-    # K2 ran at two shapes on the main paths, one launch a sweep: the
-    # config-3 sweep in the L2 regime (phase 9) and the ER(100k, 0.01)
-    # sweep staged (phase 11); weighted the same way
+    _require(k1_n == launches + luby_launches + res["k1"] + host_k1 + hast_k1,
+             "K1 launches by shape do not add up")
+    # K2 ran on the main paths one launch a sweep at the config-3 sweep in
+    # the L2 regime (phases 9 and 16) and the ER(100k, 0.01) sweep staged
+    # (phases 11 and 19), and one a frontier iteration at each (palette,
+    # cap) of the config-3 frontier (L2, phase 16) and the resident
+    # frontier (staged, phase 17); weighted the same way
+    _require(sum(x["launches"] for x in res["k2_rows"]) == res["k2"],
+             "resident frontier K2 launches by cap do not add up")
     k2_rows = []
-    for row, n in ((k2_config3, launches2), (k2_bench, l2_bench)):
+    for row in ([{**k2_config3, "launches": launches2 + fr3_full},
+                 {**k2_bench, "launches": l2_bench + hast_k2}] + k2_fr3 + res["k2_rows"]):
         b_ms, b_by = _bound(row["bytes"], row["ops"], FP32_OPS_PER_S)
-        k2_rows.append({**row, "launches": n, "bound_ms": b_ms, "bound_by": b_by,
+        k2_rows.append({**row, "bound_ms": b_ms, "bound_by": b_by,
                         "bound_share": b_ms / row["ms"]})
     k2_ms, k2_bound = weighted(k2_rows, "ms"), weighted(k2_rows, "bound_ms")
 
@@ -1121,7 +1583,7 @@ def main() -> int:
             "route": "cuda",
             "source": "mcmc_colorer_tpu_torch/csrc/resample.cu",
             "replaces": "mcmc_colorer_tpu/ops/pallas_resample.py:451",
-            "launches": launches2 + l2_bench,
+            "launches": sum(x["launches"] for x in k2_rows),
             "max_abs_err": err2,  # of qstar, where the sampled colours agree
             "boundary_fraction": frac2,
             "ms": k2_ms,

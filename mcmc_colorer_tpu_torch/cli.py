@@ -11,13 +11,18 @@ refuses (exit 2).
 ``--mcmcgpu``/``--lubygpu``/``--grdffgpu``/``--vffgpu`` run the device
 colorers; the device MCMC's log tag is ``MCMC_GPU``, the reference's own.
 ``--mcmccpu`` and ``--greedycpu`` run the sequential host colorers.
+``--mcmcgpu --active`` runs the frontier chain (``ActiveMCMCColorer``, or
+the resident one with ``--resident``); ``--backend matmul|packed`` runs
+``MCMCColorer``'s packed chain over a host graph, and the other device
+colorers take ``auto`` instead, as the JAX CLI does.
 
 Paths the port does not have yet print a message naming their
 ROADMAP.md Queue 1 item and exit 2: ``--layout bucketed`` (item 7),
-``--backend matmul|packed`` over a host graph (item 8), ``--mcmcgpu
---active`` (item 9), ``--chains > 1`` and ``--dbg`` (item 11),
-``--mesh-chains``, ``--mesh-shards`` and ``--anneal`` (item 12),
-``--ckpt``, ``--resume`` and the device MCMC's TRACE output (item 5).
+``--chains > 1`` and ``--dbg`` (item 11), ``--mesh-chains``,
+``--mesh-shards`` and ``--anneal`` (item 12), ``--ckpt``, ``--resume``
+and the device MCMC's TRACE output (item 5).  The JAX CLI's refusals of
+``--active --hastings`` and of ``--resident --active`` with checkpoints
+or ``--chains`` exit 2 with its messages.
 
 Run ``python -m mcmc_colorer_tpu_torch.cli --help``.
 """
@@ -179,8 +184,8 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["auto", "pallas", "xla", "matmul", "packed"],
         default="auto",
         help="device backend: 'pallas' = the hand-written kernels (auto), "
-        "'xla' = their plain PyTorch versions; 'matmul'/'packed' serve "
-        "--resident only here (over a host graph: item 8)",
+        "'xla' = their plain PyTorch versions; 'matmul'/'packed' = the "
+        "full-sweep MCMC over a bit-packed adjacency (K1)",
     )
     dev.add_argument(
         "--layout",
@@ -204,8 +209,8 @@ def build_parser() -> argparse.ArgumentParser:
     dev.add_argument(
         "--active",
         action="store_true",
-        help="frontier mode: Luby/GFF/VFF gather only candidate/uncolored "
-        "rows (the frontier MCMC is item 9)",
+        help="frontier mode: the MCMC chain resamples only the conflict "
+        "frontier; Luby/GFF/VFF gather only candidate/uncolored rows",
     )
     p.add_argument("--check", action="store_true", help="validate colorings")
     p.add_argument("--quiet", action="store_true")
@@ -226,11 +231,17 @@ def _check_unported(args) -> None:
     item = "is not ported yet (ROADMAP.md Queue 1 item"
     if args.layout == "bucketed":
         _refuse(f"--layout bucketed: the degree-bucketed ELL layout {item} 7).")
-    if args.backend in ("matmul", "packed") and not args.resident:
-        _refuse(f"--backend {args.backend} over a host graph (get_adjacency) {item} 8); "
-                "--resident runs the packed backend.")
-    if args.mcmcgpu and args.active:
-        _refuse(f"--mcmcgpu --active: the frontier MCMC chain {item} 9).")
+    if args.mcmcgpu and args.active and args.hastings:
+        # the frontier sweep never forms the passive set's proposal
+        # probability, so the Hastings ratio is undefined there
+        _refuse("--active is incompatible with --hastings: frontier sweeps run the "
+                "shipped always-accept dynamics (use full sweeps for acceptance).")
+    if args.resident and args.active and (args.ckpt or args.resume):
+        _refuse("--resident --active does not checkpoint (the frontier loop's cnt "
+                "re-derives from colors); drop --ckpt/--resume or use full sweeps.")
+    if args.resident and args.active and args.chains > 1:
+        _refuse("--resident --active is single-chain (or mesh): drop --chains or add "
+                "--mesh-shards.")
     if args.chains > 1:
         _refuse(f"--chains {args.chains}: MCMC ensembles {item} 11).")
     if args.dbg:
@@ -330,11 +341,29 @@ def _check_resident_args(args) -> None:
         )
 
 
+def _device_backend(args) -> str:
+    """Backend of the colorers without a full-sweep NC (GreedyFF, VFF,
+    the frontier chain): matmul/packed feed only the full-sweep chain."""
+    if args.backend in ("matmul", "packed"):
+        print(
+            f"--backend {args.backend} applies to full-sweep MCMC colorers only; "
+            "using 'auto' here.",
+            file=sys.stderr,
+        )
+        return "auto"
+    return args.backend
+
+
 def _make_colorer(kind: ColorerKind, g: Graph, args, params: MCMCParams, device):
     if kind == ColorerKind.MCMC_SEQ:
         from mcmc_colorer_tpu_torch.models.mcmc_sequential import SequentialMCMCColorer
 
         return SequentialMCMCColorer(g, params)
+    if kind == ColorerKind.MCMC and args.active:
+        from mcmc_colorer_tpu_torch.models.mcmc_active import ActiveMCMCColorer
+
+        return ActiveMCMCColorer(g, params, backend=_device_backend(args), layout=args.layout,
+                                 device=device)
     if kind == ColorerKind.MCMC:
         from mcmc_colorer_tpu_torch.models.mcmc import MCMCColorer
 
@@ -347,13 +376,15 @@ def _make_colorer(kind: ColorerKind, g: Graph, args, params: MCMCParams, device)
         from mcmc_colorer_tpu_torch.models.greedy_ff import GreedyFFColorer
 
         return GreedyFFColorer(
-            g, backend=args.backend, active=args.active, layout=args.layout, device=device
+            g, backend=_device_backend(args), active=args.active, layout=args.layout,
+            device=device,
         )
     if kind == ColorerKind.VFF:
         from mcmc_colorer_tpu_torch.models.vff import VFFColorer
 
         return VFFColorer(
-            g, backend=args.backend, active=args.active, layout=args.layout, device=device
+            g, backend=_device_backend(args), active=args.active, layout=args.layout,
+            device=device,
         )
     if kind == ColorerKind.GREEDY_SEQ:
         from mcmc_colorer_tpu_torch.models.greedy_seq import SequentialGreedyColorer
@@ -430,6 +461,7 @@ def main(argv=None) -> int:
                 graph_seed=seed,
                 params=template,
                 num_col_ratio=ratio,
+                active=args.active,
                 device=device,
             )
             if not args.quiet:

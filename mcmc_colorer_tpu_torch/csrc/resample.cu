@@ -4,12 +4,14 @@
 // (pallas_sweep / _kernel / _kernel_chunked / _proposal_sample_chunked /
 // _occ_chunk), with the neighbour gather that the JAX package leaves to
 // XLA in front of it (ops/neighbor.py:neighbor_colors).  Per row r of a
-// band of ELL rows, whose own vertex id is row0 + r:
+// band of ELL rows, whose own vertex id sid(r) is row0 + r, or self_ids[r]
+// when the rows are a frontier's (models/mcmc_active.py; JAX passes
+// self_ids=active_ids, mcmc_active.py:430-441):
 //
 //   col(id)   = colors[id] for id in [0, n_ids), else -1: the ELL's
 //               padding id n_pad counts nowhere
 //   conf[r]   = #{k : col(neighbors[r, k]) == cur[r] and
-//                     neighbors[r, k] > row0 + r}
+//                     neighbors[r, k] > sid(r)}
 //   occ       = the set of colours col(neighbors[r, k]) in [0, n_colors)
 //   q[c]      = the proposal of models/mcmc.py:_proposal_q for `kind`
 //   chosen    = the first c whose prefix sum of q reaches unif[r]
@@ -211,9 +213,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32) resample_kernel(
     const float* __restrict__ unif, const float* __restrict__ p_eff,
     const float* __restrict__ eps_ptr, int* __restrict__ star,
     float* __restrict__ qstar, int* __restrict__ new_taboo,
-    int* __restrict__ conf, int n_rows, int d_pad, int row0, int n_colors,
-    int n_words, int copies, int kind, float lam, int lam_zero,
-    int taboo_iterations, int mode) {
+    int* __restrict__ conf, int n_rows, int d_pad, int row0,
+    const int* __restrict__ self_ids, int n_colors, int n_words, int copies,
+    int kind, float lam, int lam_zero, int taboo_iterations, int mode) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -245,7 +247,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) resample_kernel(
     __syncwarp();
 
     const int own = __ldg(cur + row);
-    const int sid = row0 + row;
+    const int sid = self_ids != nullptr ? __ldg(self_ids + row) : row0 + row;
     const int* src = neighbors + static_cast<size_t>(row) * d_pad;
     int n_conf = mode == 1
         ? stream_row<VEC, UNROLL, 1>(src, d_pad, lane, col, occ_lane, copies, n_colors, own, sid)
@@ -362,8 +364,8 @@ template <bool STAGED, bool VEC, int UNROLL>
 int launch(const void* neighbors, const void* colors, int n_ids, const void* cur,
            const void* taboo, const void* unif, const void* p_eff, const void* eps,
            void* star, void* qstar, void* new_taboo, void* conf, int n_rows,
-           int d_pad, int row0, int n_colors, int n_words, int copies, int kind,
-           float lam, int lam_zero, int taboo_iterations, int warps, int grid,
+           int d_pad, int row0, const void* self_ids, int n_colors, int n_words,
+           int copies, int kind, float lam, int lam_zero, int taboo_iterations, int warps, int grid,
            size_t smem, int mode, cudaStream_t stream) {
   auto kernel = resample_kernel<STAGED, VEC, UNROLL>;
   if (smem > 48 * 1024) {
@@ -377,8 +379,8 @@ int launch(const void* neighbors, const void* colors, int n_ids, const void* cur
       static_cast<const float*>(unif), static_cast<const float*>(p_eff),
       static_cast<const float*>(eps), static_cast<int*>(star),
       static_cast<float*>(qstar), static_cast<int*>(new_taboo),
-      static_cast<int*>(conf), n_rows, d_pad, row0, n_colors, n_words, copies,
-      kind, lam, lam_zero, taboo_iterations, mode);
+      static_cast<int*>(conf), n_rows, d_pad, row0, static_cast<const int*>(self_ids),
+      n_colors, n_words, copies, kind, lam, lam_zero, taboo_iterations, mode);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -392,12 +394,13 @@ extern "C" {
 // regime with fewer than 65535 colours, and shared memory within a block's
 // 232,448 bytes.  Pointers are device pointers; outputs are [n_rows].
 // neighbors is [n_rows, d_pad], 16-byte aligned when d_pad % 4 == 0 (its
-// rows are then read as 16-byte vectors); colors is [n_ids].
+// rows are then read as 16-byte vectors); colors is [n_ids]; self_ids is
+// [n_rows] or null (the own ids are then row0 on).
 int resample_launch(const void* neighbors, const void* colors, int n_ids,
                     const void* cur, const void* taboo, const void* unif,
                     const void* p_eff, const void* eps, void* star, void* qstar,
                     void* new_taboo, void* conf, int n_rows, int d_pad, int row0,
-                    int n_colors, int kind, float lam, int lam_zero,
+                    const void* self_ids, int n_colors, int kind, float lam, int lam_zero,
                     int taboo_iterations, int staged, int warps, int copies,
                     int grid, int mode, void* stream) {
   const int n_words = (n_colors + 31) / 32;
@@ -414,8 +417,8 @@ int resample_launch(const void* neighbors, const void* colors, int n_ids,
   const bool vec = (d_pad & 3) == 0;
 #define K2_ARGS                                                                   \
   neighbors, colors, n_ids, cur, taboo, unif, p_eff, eps, star, qstar, new_taboo, \
-      conf, n_rows, d_pad, row0, n_colors, n_words, copies, kind, lam, lam_zero,  \
-      taboo_iterations, warps, grid, smem, mode, s
+      conf, n_rows, d_pad, row0, self_ids, n_colors, n_words, copies, kind, lam,  \
+      lam_zero, taboo_iterations, warps, grid, smem, mode, s
   if (staged) {
     return vec ? launch<true, true, 2>(K2_ARGS) : launch<true, false, 8>(K2_ARGS);
   }

@@ -15,16 +15,17 @@ Three loops, all with the same rule and the same draws:
   a round;
 - the frontier loop (``active=True``, ``_luby_active_round``): gathers
   only the candidates' rows, one ``next(cap)`` a round;
-- resident Luby on a hash-defined G(n, p) (``resident_spec``,
-  ``_run_luby_matmul``): both neighbour inspections are neighbour
-  colour counts over the bit-packed adjacency, kernel K1 on the card.
-  On the same adjacency and draws its colouring equals the gather
-  loop's.
+- the matmul loop (``_run_luby_matmul``), on a hash-defined G(n, p)
+  built on the device (``resident_spec``) or on a host graph with
+  ``backend="matmul"`` (A built on the device from its ELL,
+  ``ops/dense_adj.get_adjacency``): both neighbour inspections are
+  neighbour colour counts over the bit-packed adjacency, kernel K1 on
+  the card.  On the same adjacency and draws its colouring equals the
+  gather loop's.
 
 All decisions are integer or ``u < 0.5`` comparisons, so fed JAX's
 uniforms (``utils/rng.py``) the colourings equal JAX's bit for bit.
-``backend="matmul"`` over a host graph (ROADMAP.md Queue 1 item 8) and
-the bucketed layout (item 7) are not ported yet.
+The bucketed layout (ROADMAP.md Queue 1 item 7) is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from mcmc_colorer_tpu_torch.models.mcmc_active import (
 from mcmc_colorer_tpu_torch.models.mcmc_resident import _round_up, _StatsShim
 from mcmc_colorer_tpu_torch.ops.dense_adj import (
     PACKED_ADJ_MAX_N,
+    get_adjacency,
     neighbor_color_counts,
     packed_adj_bytes,
 )
@@ -61,8 +63,9 @@ from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource
 class LubyColorer:
     """``graph``: a host ``Graph``, or None with ``resident_spec = (n, p,
     graph_seed)`` for the hash-defined G(n, p) built on the device.
-    ``backend``: ``auto``; a host graph runs the gather loop, a resident
-    spec the matmul loop (``matmul`` may be named for it).
+    ``backend``: ``auto`` runs the gather loop on a host graph and the
+    matmul loop on a resident spec; ``matmul`` (or ``packed``, the same
+    adjacency here) runs the matmul loop on either.
     ``device``: the current CUDA device by default (``colorer_device``);
     the CPU only when asked for."""
 
@@ -100,24 +103,33 @@ class LubyColorer:
             self.device = colorer_device(device)
             self._init_resident(*resident_spec)
             return
-        # a host graph has one backend, the gather loop over its ELL
-        if backend in ("matmul", "packed"):
-            raise NotImplementedError(
-                f"backend={backend!r} over a host graph needs get_adjacency, which is "
-                "not ported yet (ROADMAP.md Queue 1 item 8); resident Luby "
-                "(resident_spec) runs the matmul loop"
-            )
-        if backend != "auto":
+        if backend not in ("auto", "matmul", "packed"):
             raise ValueError(
-                f"backend={backend!r}: Luby over a host graph has one backend, "
-                "the gather loop ('auto')"
+                f"backend={backend!r}: Luby over a host graph has two backends, "
+                "the gather loop ('auto') and the matmul loop ('matmul')"
             )
-        self.backend = "gather"
+        matmul = backend != "auto"
+        if matmul and active:
+            raise ValueError("backend='matmul' serves the flat full loop only")
+        self.backend = "matmul" if matmul else "gather"
         self.device = colorer_device(device)
         self.graph = graph
         # the full loop draws n_pad uniforms a round: JAX's padding, so
         # both packages consume the same stream
-        self.ell = graph.to_ell(pad_nodes_to=128 if active else 8, device=self.device)
+        self.ell = graph.to_ell(pad_nodes_to=128 if active or matmul else 8,
+                                device=self.device)
+        if matmul:
+            self.node_mask = self.ell.node_mask
+            self._set_rank_classes(graph.degrees, self.ell.degrees)
+            self.adj = get_adjacency(graph, self.ell)
+
+    def _set_rank_classes(self, degrees: np.ndarray, padded: torch.Tensor) -> None:
+        """Each vertex's index into the ascending table of the real
+        vertices' distinct degrees (the matmul loop's survival test)."""
+        uniq = np.unique(degrees)
+        rank = np.searchsorted(uniq, padded.cpu().numpy()).astype(np.int32)
+        self.rank_class = torch.from_numpy(rank).to(self.device)
+        self.n_classes = int(uniq.size)
 
     def _init_resident(self, n: int, p: float, graph_seed: int) -> None:
         self.backend = "matmul"
@@ -139,11 +151,7 @@ class LubyColorer:
         n_edges = int(host_degrees.astype(np.int64).sum() // 2)
         self.graph = _StatsShim(n, n_edges, host_degrees, max_degree, f"er_hash_{n}_{p}")
         self.node_mask = torch.arange(n_pad, device=self.device) < n
-        # each vertex's index into the ascending table of distinct degrees
-        uniq = np.unique(host_degrees)
-        rank = np.searchsorted(uniq, degrees.cpu().numpy()).astype(np.int32)
-        self.rank_class = torch.from_numpy(rank).to(self.device)
-        self.n_classes = int(uniq.size)
+        self._set_rank_classes(host_degrees, degrees)
 
     def host_graph(self):
         """Resident specs only: host CSR of the same hash graph (threaded

@@ -12,7 +12,9 @@ the Hastings reverse probability, the chain loops, the flat tailcut and
   the colour vector to kernel K2, which gathers the colours itself
   (``_sweep_pallas_fused``, backend ``pallas``, one launch a sweep), or
   to its plain version in row bands (``_sweep``, backend ``xla``); the
-  flat tailcut repairs what is left with kernel K3.
+  flat tailcut repairs what is left with kernel K3.  Backend
+  ``matmul``/``packed`` runs the packed chain over a host graph: A is
+  built on the card from the ELL (``ops/dense_adj.get_adjacency``).
 
 The JAX loops are ``lax.while_loop``s with a masked body; here they are
 Python loops that read the body's conflict count to the host once per
@@ -41,8 +43,12 @@ from mcmc_colorer_tpu_torch.config import InitKind, MCMCParams, ProposalKind
 from mcmc_colorer_tpu_torch.graph.container import EllGraph, Graph, degree_pad_for
 from mcmc_colorer_tpu_torch.models.base import Coloring, colorer_device
 from mcmc_colorer_tpu_torch.ops.dense_adj import (
+    RESIDENT_BUDGET_BYTES,
     SWEEP_BLOCK_BYTES,
+    get_adjacency,
+    n_col_pad_of,
     neighbor_color_counts,
+    resident_bytes,
 )
 from mcmc_colorer_tpu_torch.ops.neighbor import (
     color_histogram,
@@ -86,9 +92,12 @@ def dynamic_distribution(hist: torch.Tensor, n_nodes: int) -> torch.Tensor:
     (genDynamicDistribution, coloringMCMC_utils.cu:64-70)."""
     n_colors = hist.shape[0]
     f32 = torch.float32
-    frac = hist.to(f32) / torch.tensor(float(n_nodes), dtype=f32, device=hist.device)
-    return (1.0 - frac) / torch.tensor(
-        float(max(n_colors - 1, 1)), dtype=f32, device=hist.device
+    # torch.full, not torch.tensor: a fill kernel, no copy from the host
+    # (which waits for the stream); a device divisor, not a CPU scalar
+    # (which CUDA's division turns into a product by its reciprocal)
+    frac = hist.to(f32) / torch.full((), float(n_nodes), dtype=f32, device=hist.device)
+    return (1.0 - frac) / torch.full(
+        (), float(max(n_colors - 1, 1)), dtype=f32, device=hist.device
     )
 
 
@@ -382,9 +391,9 @@ def _ell_sweep(ell: EllGraph, params: MCMCParams, colors, taboo, unif, p_eff,
     conflict edges of ``colors``)."""
     n = ell.n_nodes
     dev = colors.device
-    eps_t = torch.as_tensor(
-        params.epsilon if eps is None else eps, dtype=torch.float32, device=dev
-    )
+    eps_t = (eps.to(device=dev, dtype=torch.float32) if isinstance(eps, torch.Tensor)
+             else torch.full((), params.epsilon if eps is None else eps,
+                             dtype=torch.float32, device=dev))
     star = colors.clone()
     qstar = torch.ones((ell.n_pad,), dtype=torch.float32, device=dev)
     new_taboo = torch.zeros_like(taboo)
@@ -717,11 +726,13 @@ class MCMCColorer:
 
     ``backend``: ``pallas`` (kernel K2 per sweep, with the conflict count
     fused in), ``xla`` (K2's plain version and a separate conflict count,
-    JAX's generic loop) or ``auto`` (= ``pallas``).  Hastings always runs
-    the generic loop, with K2 under ``pallas``.  The tailcut's first fit
-    is kernel K3 on CUDA tensors.  ``matmul`` / ``packed`` over a host
-    graph and ``layout="bucketed"`` are not ported yet.  ``device``: the
-    current CUDA device by default (``colorer_device``); the CPU only
+    JAX's generic loop), ``matmul`` or ``packed`` (the same thing here:
+    the packed chain, NC = A·onehot(colors) by kernel K1 a sweep over a
+    bit-packed A built on the device from the ELL, Hastings included) or
+    ``auto`` (= ``pallas``).  Hastings on the ELL runs the generic loop,
+    with K2 under ``pallas``.  The tailcut's first fit is kernel K3 on
+    CUDA tensors.  ``layout="bucketed"`` is not ported yet.  ``device``:
+    the current CUDA device by default (``colorer_device``); the CPU only
     when asked for.
     """
 
@@ -743,13 +754,9 @@ class MCMCColorer:
             raise ValueError(f"unknown layout {layout!r}")
         if backend == "auto":
             backend = "pallas"
-        if backend in ("matmul", "packed"):
-            raise NotImplementedError(
-                f"backend={backend!r} over a host graph is not ported yet "
-                "(ROADMAP.md Queue 1 item 8); the packed chain runs through "
-                "models/mcmc_resident.py"
-            )
-        if backend not in ("pallas", "xla"):
+        if backend == "packed":  # the only adjacency the port builds
+            backend = "matmul"
+        if backend not in ("pallas", "xla", "matmul"):
             raise ValueError(f"unknown backend {backend!r}")
         self.graph = graph
         self.params = params
@@ -757,11 +764,25 @@ class MCMCColorer:
         self.layout = layout
         self.device = colorer_device(device)
         self.block = block_size or choose_block_size(graph.n, params.n_colors)
+        if backend == "matmul" and self.device.type == "cuda":
+            n_pad = -(-max(graph.n, 1) // self.block) * self.block
+            d_pad = -(-max(graph.max_degree, 1) // 8) * 8
+            need = resident_bytes(n_pad, n_col_pad_of(params.n_colors)) + n_pad * d_pad * 4
+            if need > RESIDENT_BUDGET_BYTES:
+                raise ValueError(
+                    f"the packed backend at n_pad={n_pad} needs {need / 1e9:.1f} GB "
+                    f"> {RESIDENT_BUDGET_BYTES / 1e9:.1f} GB; use backend='pallas'"
+                )
         t0 = time.perf_counter()
         self.ell = graph.to_ell(
             pad_nodes_to=self.block,
             pad_degree_to=degree_pad_for(graph, backend),
             device=self.device,
+        )
+        self.adj_stats: dict = {}
+        self._adj = (
+            get_adjacency(graph, self.ell, stats=self.adj_stats)
+            if backend == "matmul" else None
         )
         _sync(self.device)
         self.setup_seconds = time.perf_counter() - t0
@@ -776,7 +797,15 @@ class MCMCColorer:
         source = TorchUniformSource(seed, repetition, dev)
         _sync(dev)
         t0 = time.perf_counter()
-        if self._fused:
+        if self._adj is not None:
+            state = _chain_init(ell.n_pad, ell.n_nodes, params, source, dev)
+            state = _chain_segment_matmul(
+                self._adj, state, params.max_iterations, params=params,
+                block=self.block, n_nodes=ell.n_nodes, source=source,
+            )
+            conflicts = _chain_final_conflicts(ell, state)
+            sweeps = int((state.trace >= 0).sum())
+        elif self._fused:
             state = _chain_init(ell.n_pad, ell.n_nodes, params, source, dev)
             state = _chain_segment_fused(
                 ell, state, params.max_iterations, params=params,

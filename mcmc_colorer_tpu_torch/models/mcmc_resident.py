@@ -7,10 +7,17 @@ builds the bit-packed adjacency of the hash graph itself
 NC-native independent-set tailcut (``_tailcut_nc_round``).  Every
 neighbour interaction is NC = A·onehot(colors), kernel K1 on the card.
 
-Ported: single-chain ``run``.  Ensembles (``n_chains > 1``), the frontier
-mode (``active=True``), checkpoints and the free-colour TRACE raise
-``NotImplementedError``; ROADMAP.md Queue 1 item 11 (ensembles),
-item 9 (frontier) and item 5 (checkpoints, trace) port them.
+With ``active=True`` (``_run_active``) the chain runs full K1 sweeps in
+budgets of 4 until ``2·conflicts < n_pad // 8``, tested between budgets,
+then the frontier iterations of ``models/mcmc_active.py`` (K2 with
+``self_ids``) on rows unpacked from A (``ops/dense_adj.packed_rows_to_ids``)
+and ``cnt`` counted by K1, then the NC tailcut.
+
+Ported: single-chain ``run``, full or frontier.  Ensembles (``n_chains >
+1``), checkpoints and the free-colour TRACE raise ``NotImplementedError``;
+ROADMAP.md Queue 1 item 11 (ensembles) and item 5 (checkpoints, trace)
+port them.  As in JAX the frontier mode refuses ensembles, Hastings and
+checkpoints.
 """
 
 from __future__ import annotations
@@ -29,6 +36,12 @@ from mcmc_colorer_tpu_torch.models.mcmc import (
     _chain_segment_matmul,
     _sync,
     choose_block_size,
+)
+from mcmc_colorer_tpu_torch.models.mcmc_active import (
+    PackedRows,
+    _buckets,
+    _cnt_of_packed,
+    _frontier_loop,
 )
 from mcmc_colorer_tpu_torch.ops.dense_adj import (
     PACKED_ADJ_MAX_N,
@@ -139,15 +152,20 @@ class ResidentMCMCColorer:
         active: bool = False,
         device="cuda",
     ) -> None:
+        if active and n_chains > 1:
+            raise NotImplementedError(
+                "active resident mode is single-chain (the frontier's caps "
+                "differ from chain to chain); use n_chains > 1 with full sweeps"
+            )
+        if active and params is not None and params.hastings:
+            raise NotImplementedError(
+                "active-set mode implements the shipped always-accept dynamics "
+                "(see models/mcmc_active.py)"
+            )
         if n_chains > 1:
             raise NotImplementedError(
                 "resident ensembles (n_chains > 1) are not ported yet "
                 "(ROADMAP.md Queue 1 item 11)"
-            )
-        if active:
-            raise NotImplementedError(
-                "resident frontier mode (active=True) is not ported yet "
-                "(ROADMAP.md Queue 1 item 9)"
             )
         self.device = colorer_device(device)
         self.n, self.p, self.graph_seed = n, p, graph_seed
@@ -188,6 +206,8 @@ class ResidentMCMCColorer:
         self.params = params
         self.block = choose_block_size(n, params.n_colors)
         self.node_mask = torch.arange(n_pad, device=self.device) < n
+        # the frontier's rows: every real row fits d_row ids
+        self.d_row = _round_up(max(self.max_degree, 8), 8)
 
     @property
     def name(self) -> str:
@@ -209,13 +229,64 @@ class ResidentMCMCColorer:
             name=self.name,
         )
 
+    def _tailcut_nc(self, colors, conflicts: int, source):
+        """NC tailcut rounds on a colouring with ``conflicts`` conflict
+        edges, until none is left or 16 + 2·conflicts rounds: (colors,
+        conflicts, rounds).  Each round draws its coins with
+        ``next(n_pad)`` and hands its exit NC to the next."""
+        rounds, max_rounds, nc_carry = 0, 16 + 2 * conflicts, None
+        while conflicts > 0 and rounds < max_rounds:
+            colors, conflicts_t, nc_carry = _tailcut_nc_round(
+                self.adj, colors, source.next(self.n_pad), self.node_mask,
+                nc_carry, n_colors=self.params.n_colors,
+            )
+            conflicts = int(conflicts_t)
+            rounds += 1
+        return colors, conflicts, rounds
+
+    def _run_active(self, source) -> tuple:
+        """The frontier chain (JAX ``_run_active``): phase 1 full K1 sweeps
+        in budgets of 4, the switch tested between budgets on the last
+        body's conflicts; phase 2 frontier iterations over ``PackedRows``.
+        Returns (colors, rip, conflicts, trace, extra)."""
+        params, n_pad = self.params, self.n_pad
+        state = _chain_init(n_pad, self.n, params, source, self.device)
+        while not state.done and state.rip < params.max_iterations:
+            state = _chain_segment_matmul(
+                self.adj, state, min(4, params.max_iterations - state.rip),
+                params=params, block=self.block, n_nodes=self.n, source=source,
+            )
+            if not state.done and 2 * state.conf_last < n_pad // 8:
+                break
+        sweeps = int((state.trace >= 0).sum())
+        switch = None if state.done or state.rip >= params.max_iterations else state.rip
+        # drop unwritten slots (-1): a cap exit can leave one
+        trace = [int(x) for x in state.trace[: state.rip + 1] if x >= 0]
+        graph = PackedRows(self.adj, self.d_row, self.n, self.node_mask)
+        cnt = _cnt_of_packed(self.adj, state.colors, params=params, node_mask=self.node_mask)
+        colors, _, _, rip, conflicts, by_cap = _frontier_loop(
+            graph, state.colors, state.taboo, cnt, None, source, state.rip, trace,
+            params=params, backend="pallas", caps=_buckets(n_pad),
+        )
+        extra = {"active": True, "sweeps": sweeps, "switch_iteration": switch,
+                 "frontier_iterations": by_cap}
+        return colors, rip, conflicts, trace, extra
+
     def run(
         self,
         seed: int,
         repetition: int = 0,
         checkpoint_path: str | None = None,
         resume_from: str | None = None,
+        source=None,
     ) -> Coloring:
+        """Colour the graph.  ``source`` (tests) replaces the run's uniform
+        source (``utils/rng.py``)."""
+        if (checkpoint_path or resume_from) and self.active:
+            raise NotImplementedError(
+                "checkpointing covers the full-sweep resident runs; the "
+                "active loop's cnt re-derives from colors"
+            )
         if checkpoint_path or resume_from:
             raise NotImplementedError(
                 "resident checkpoints are not ported yet (ROADMAP.md Queue 1 item 5)"
@@ -226,53 +297,49 @@ class ResidentMCMCColorer:
             )
         params, dev = self.params, self.device
         z = params.tailcut_threshold(self.n)
-        source = TorchUniformSource(seed, repetition, dev)
+        source = source or TorchUniformSource(seed, repetition, dev)
         _sync(dev)
         t0 = time.perf_counter()
-        state = _chain_init(self.n_pad, self.n, params, source, dev)
-        state = _chain_segment_matmul(
-            self.adj, state, params.max_iterations, params=params,
-            block=self.block, n_nodes=self.n, source=source,
-        )
+        if self.active:
+            colors, rip, conflicts, trace, extra = self._run_active(source)
+        else:
+            state = _chain_init(self.n_pad, self.n, params, source, dev)
+            state = _chain_segment_matmul(
+                self.adj, state, params.max_iterations, params=params,
+                block=self.block, n_nodes=self.n, source=source,
+            )
+            colors, rip = state.colors, state.rip
+            trace = state.trace[: rip + 1]
+            extra = {"sweeps": int((state.trace >= 0).sum())}  # body executions
+            # a converged loop measured the final colouring in its last body;
+            # a cap exit leaves conf_last describing the pre-swap colouring
+            if state.done:
+                conflicts = state.conf_last
+            else:
+                conflicts = int(
+                    conflicts_from_packed(self.adj, colors, params.n_colors, self.node_mask)
+                )
         _sync(dev)
         chain_s = time.perf_counter() - t0
-        sweeps = int((state.trace >= 0).sum())  # body executions
-        colors = state.colors
-        # a converged loop measured the final colouring in its last body;
-        # a cap exit leaves conf_last describing the pre-swap colouring
-        if state.done:
-            conflicts = state.conf_last
-        else:
-            conflicts = int(
-                conflicts_from_packed(self.adj, colors, params.n_colors, self.node_mask)
-            )
         tc_rounds = 0
         if params.tailcut and conflicts > 0:
-            max_rounds = 16 + 2 * conflicts
-            nc_carry = None
-            while conflicts > 0 and tc_rounds < max_rounds:
-                colors, conflicts_t, nc_carry = _tailcut_nc_round(
-                    self.adj, colors, source.next(self.n_pad), self.node_mask,
-                    nc_carry, n_colors=params.n_colors,
-                )
-                conflicts = int(conflicts_t)
-                tc_rounds += 1
+            colors, conflicts, tc_rounds = self._tailcut_nc(colors, conflicts, source)
         out = colors[: self.n].cpu().numpy()
         total_s = time.perf_counter() - t0
         return Coloring(
             colors=out,
             n_colors=params.n_colors,
-            iterations=state.rip,
+            iterations=rip,
             converged=conflicts == 0 or conflicts <= z,
             duration_ms=total_s * 1e3,
-            conflict_trace=state.trace[: state.rip + 1].astype(np.int64),
+            conflict_trace=np.asarray(trace, dtype=np.int64),
             extra={
                 "final_conflicts": conflicts,
-                "max_iter_reached": state.rip >= params.max_iterations,
+                "max_iter_reached": rip >= params.max_iterations,
                 "tailcut_rounds": tc_rounds,
                 "resident": True,
                 "gen_seconds": self.gen_seconds,
-                "sweeps": sweeps,
+                **extra,
                 "chain_seconds": chain_s,
                 # final conflict count, tailcut rounds and the colours' readback
                 "tailcut_seconds": total_s - chain_s,

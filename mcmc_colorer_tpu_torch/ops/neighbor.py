@@ -60,9 +60,14 @@ def frontier_ids(mask: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tens
     ``jnp.nonzero(mask, size=cap, fill_value=n_pad)``; entries past
     ``cap`` are cut, as there)."""
     n_pad = mask.shape[0]
-    nz = torch.nonzero(mask)[:cap, 0].to(torch.int32)
-    ids = torch.full((cap,), n_pad, dtype=torch.int32, device=mask.device)
-    ids[: nz.shape[0]] = nz
+    dev = mask.device
+    # without a host read (torch.nonzero waits for its count): a set
+    # entry's rank is its slot; the rest write to slots past cap, cut off
+    rank = torch.cumsum(mask, 0, dtype=torch.int32) - 1
+    pos = torch.arange(n_pad, dtype=torch.int32, device=dev)
+    slot = torch.where(mask & (rank < cap), rank, cap + pos).to(torch.int64)
+    ids = torch.full((cap + n_pad,), n_pad, dtype=torch.int32, device=dev)
+    ids = ids.scatter_(0, slot, pos)[:cap]
     return ids, ids < n_pad
 
 
@@ -88,8 +93,13 @@ def color_histogram(
     colors: torch.Tensor, n_colors: int, node_mask: torch.Tensor | None = None
 ) -> torch.Tensor:
     """[n_colors] int32 class sizes.  Colours outside the palette and
-    vertices outside ``node_mask`` (phantom padding) are dropped."""
+    vertices outside ``node_mask`` (phantom padding) are dropped: they
+    add into one extra bin that is cut off (a masked index and CUDA's
+    ``bincount`` would each wait for a host read)."""
     keep = (colors >= 0) & (colors < n_colors)
     if node_mask is not None:
         keep &= node_mask
-    return torch.bincount(colors[keep], minlength=n_colors).to(torch.int32)
+    idx = torch.where(keep, colors, n_colors)
+    hist = torch.zeros((n_colors + 1,), dtype=torch.int32, device=colors.device)
+    hist.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    return hist[:n_colors]

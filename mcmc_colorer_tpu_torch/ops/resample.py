@@ -3,7 +3,8 @@ version.
 
 Replaces ``mcmc_colorer_tpu/ops/pallas_resample.py:pallas_sweep``
 together with the neighbour gather in front of it.  Per row of neighbour
-ids ``neighbors`` (own vertex id ``row0`` + the row) it looks up the
+ids ``neighbors`` (own vertex id ``row0`` + the row, or ``self_ids[row]``
+when the rows are a frontier's: ``models/mcmc_active.py``) it looks up the
 neighbours' colours in ``colors`` (an id outside ``[0, len(colors))``,
 such as the ELL padding id ``n_pad``, counts nowhere), counts the
 conflicts of the current colour (neighbours with a larger id only),
@@ -79,8 +80,8 @@ def load_kernel():
         fn = built.lib.resample_launch
         fn.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 9
-            + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 7
-            + [ctypes.c_void_p]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+            + [ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         err = built.lib.resample_error_string
@@ -127,7 +128,9 @@ def sweep_shape(n_ids: int, n_colors: int, l2: bool = False) -> SweepShape:
 
 
 def _eps_tensor(eps, device) -> torch.Tensor:
-    return torch.as_tensor(eps, dtype=torch.float32, device=device).reshape(())
+    if isinstance(eps, torch.Tensor):
+        return eps.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), eps, dtype=torch.float32, device=device)  # no host copy
 
 
 def _p_eff_or_zeros(p_eff, n_colors: int, device) -> torch.Tensor:
@@ -154,7 +157,7 @@ def _vectors(cur, taboo, unif):
             ("unif", unif, torch.float32)]
 
 
-def _check(neighbors, colors, cur, taboo, row0, unif, p_eff, params):
+def _check(neighbors, colors, cur, taboo, row0, unif, p_eff, params, self_ids=None):
     if neighbors.dtype != torch.int32 or neighbors.dim() != 2:
         raise TypeError(f"neighbors must be 2-D int32, got {neighbors.dtype} "
                         f"{tuple(neighbors.shape)}")
@@ -165,27 +168,32 @@ def _check(neighbors, colors, cur, taboo, row0, unif, p_eff, params):
     rows = neighbors.shape[0]
     if not 0 <= row0 <= 2**31 - 1 - rows:
         raise ValueError(f"row0={row0}: own ids must be int32")
-    _check_rows(rows, neighbors.device, _vectors(cur, taboo, unif), p_eff, params)
+    vectors = _vectors(cur, taboo, unif)
+    if self_ids is not None:
+        vectors.append(("self_ids", self_ids, torch.int32))
+    _check_rows(rows, neighbors.device, vectors, p_eff, params)
 
 
 def resample_sweep(neighbors, colors, cur, taboo, row0: int, unif, p_eff, eps,
-                   params: MCMCParams):
+                   params: MCMCParams, self_ids=None):
     """One sweep over the rows of ``neighbors``, whose own ids are ``row0``
-    on: (star, qstar, new_taboo, conflicts).  ``p_eff`` is [n_colors]
-    float32 (None for STANDARD)."""
+    on, or ``self_ids`` ([rows] int32) where given: (star, qstar,
+    new_taboo, conflicts).  ``p_eff`` is [n_colors] float32 (None for
+    STANDARD)."""
     if neighbors.device.type == "cpu":
         return resample_sweep_plain(
-            neighbors, colors, cur, taboo, row0, unif, p_eff, eps, params
+            neighbors, colors, cur, taboo, row0, unif, p_eff, eps, params, self_ids
         )
     if neighbors.device.type != "cuda":
         raise ValueError(f"no K2 for device {neighbors.device}")
     return resample_sweep_cuda(
-        neighbors, colors, cur, taboo, row0, unif, p_eff, eps, params
+        neighbors, colors, cur, taboo, row0, unif, p_eff, eps, params, self_ids
     )
 
 
 def resample_sweep_cuda(neighbors, colors, cur, taboo, row0: int, unif, p_eff, eps,
-                        params: MCMCParams, *, _l2: bool = False, mode: int = 0):
+                        params: MCMCParams, self_ids=None, *, _l2: bool = False,
+                        mode: int = 0):
     """Launch K2 on the current stream of the tensors' card.  ``_l2``
     forces the L2 regime, so that a check can hold both regimes on the
     same inputs.  ``mode`` 1 or 2 launches one of the measurement
@@ -193,10 +201,12 @@ def resample_sweep_cuda(neighbors, colors, cur, taboo, row0: int, unif, p_eff, e
     global launches
     n_colors = params.n_colors
     p_eff = _p_eff_or_zeros(p_eff, n_colors, neighbors.device)
-    _check(neighbors, colors, cur, taboo, row0, unif, p_eff, params)
+    _check(neighbors, colors, cur, taboo, row0, unif, p_eff, params, self_ids)
     if neighbors.device.type != "cuda":
         raise ValueError(f"K2 needs CUDA tensors, got {neighbors.device}")
     args = (neighbors, colors, cur, taboo, unif, p_eff)
+    if self_ids is not None:
+        args += (self_ids,)
     if not all(t.is_contiguous() for t in args):
         raise ValueError("K2 needs contiguous inputs")
     if not palette_ok(n_colors):
@@ -225,7 +235,9 @@ def resample_sweep_cuda(neighbors, colors, cur, taboo, row0: int, unif, p_eff, e
             neighbors.data_ptr(), colors.data_ptr(), colors.shape[0],
             cur.data_ptr(), taboo.data_ptr(), unif.data_ptr(), p_eff.data_ptr(),
             eps_t.data_ptr(), star.data_ptr(), qstar.data_ptr(), new_taboo.data_ptr(),
-            conf.data_ptr(), rows, d_pad, row0, n_colors, _KIND_CODE[params.proposal],
+            conf.data_ptr(), rows, d_pad, row0,
+            None if self_ids is None else self_ids.data_ptr(), n_colors,
+            _KIND_CODE[params.proposal],
             float(params.lambda_), int(params.lambda_ == 0.0), params.taboo_iterations,
             int(shape.staged), shape.warps, shape.copies, blocks, mode,
             torch.cuda.current_stream().cuda_stream,
@@ -239,14 +251,15 @@ def resample_sweep_cuda(neighbors, colors, cur, taboo, row0: int, unif, p_eff, e
 
 
 def resample_sweep_plain(neighbors, colors, cur, taboo, row0: int, unif, p_eff, eps,
-                         params: MCMCParams):
+                         params: MCMCParams, self_ids=None):
     """Plain version of K2: the gather ``gathered_colors``, then
     ``resample_sweep_reference`` on the gathered band with own ids
-    ``row0`` on."""
+    ``self_ids``, or ``row0`` on."""
     _check(neighbors, colors, cur, taboo, row0, unif,
-           _p_eff_or_zeros(p_eff, params.n_colors, neighbors.device), params)
-    self_ids = torch.arange(row0, row0 + neighbors.shape[0], dtype=torch.int32,
-                            device=neighbors.device)
+           _p_eff_or_zeros(p_eff, params.n_colors, neighbors.device), params, self_ids)
+    if self_ids is None:
+        self_ids = torch.arange(row0, row0 + neighbors.shape[0], dtype=torch.int32,
+                                device=neighbors.device)
     return resample_sweep_reference(gathered_colors(neighbors, colors), neighbors, cur,
                                     taboo, self_ids, unif, p_eff, eps, params)
 

@@ -2,9 +2,10 @@
 
 Ports of the JAX CLI's tests (``tests/test_cli_analysis.py``), run with
 ``--device cpu``; the refusals of the paths the port lacks (exit 2,
-naming their ROADMAP.md item); the refusal to run without a card unless
-asked for the CPU; and the JAX package's ``log_parser`` reading the
-port's logs with the same fields as the JAX CLI's.
+naming their ROADMAP.md item) and the JAX CLI's own refusals; the
+refusal to run without a card unless asked for the CPU; and the JAX
+package's ``log_parser`` reading the port's logs with the same fields
+as the JAX CLI's.
 """
 
 import os
@@ -160,10 +161,6 @@ def test_cli_resident_errors():
 
 UNPORTED = {
     "layout_bucketed": (["--grdffgpu", "--layout", "bucketed"], 7),
-    "backend_matmul": (["--mcmcgpu", "--backend", "matmul"], 8),
-    "backend_packed_luby": (["--lubygpu", "--backend", "packed"], 8),
-    "mcmc_active": (["--mcmcgpu", "--active"], 9),
-    "resident_mcmc_active": (["--mcmcgpu", "--active", "--resident"], 9),
     "chains": (["--mcmcgpu", "--chains", "2"], 11),
     "dbg": (["--mcmcgpu", "--dbg"], 11),
     "mesh_chains": (["--mcmcgpu", "--mesh-chains", "2"], 12),
@@ -185,6 +182,55 @@ def test_unported_flags_exit_2(tmp_path, capsys, case):
                   *flags, *CPU])
     assert e.value.code == 2
     assert f"ROADMAP.md Queue 1 item {item})" in capsys.readouterr().err
+    assert not out.exists()
+
+
+# the four flag sets that exited 2 until the frontier chain and the packed
+# backend over a host graph were ported; Luby ignores --backend, as in JAX
+PORTED = {
+    "backend_matmul": (["--mcmcgpu", "--backend", "matmul"], {"MCMC_GPU"}),
+    "backend_packed_luby": (["--lubygpu", "--backend", "packed"], {"LUBY"}),
+    "mcmc_active": (["--mcmcgpu", "--active"], {"MCMC_GPU"}),
+    "resident_mcmc_active": (["--mcmcgpu", "--active", "--resident"], {"MCMC_GPU"}),
+}
+
+
+@pytest.mark.parametrize("case", list(PORTED))
+def test_ported_flags_run(tmp_path, case):
+    """Each runs with --check --tailcut to a valid colouring, and JAX's
+    log_parser reads its log with the reference's fields."""
+    flags, tags = PORTED[case]
+    out = tmp_path / "out"
+    rc = cli_main(["--simulate", "0.1", "-n", "60", "--quiet", "--outDir", str(out),
+                   "--seed", "3", "--check", "--tailcut", *flags, *CPU])
+    assert rc == 0
+    got = parse_results_dir(str(out))
+    assert set(got) == tags
+    for runs in got.values():
+        assert len(runs) == 1
+        assert {"execution_time_s", "histogram", "balancing_index"} <= set(runs[0])
+        assert runs[0]["used_colors"] > 0
+
+
+REFUSED = {
+    "active_hastings": (["--mcmcgpu", "--active", "--hastings"], "--hastings"),
+    "resident_active_ckpt": (["--mcmcgpu", "--active", "--resident", "--ckpt", "x.npz"],
+                             "does not checkpoint"),
+    "resident_active_chains": (["--mcmcgpu", "--active", "--resident", "--chains", "2"],
+                               "single-chain"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_frontier_refusals_exit_2(tmp_path, capsys, case):
+    """The JAX CLI's refusals around --active (cli.py:305-315, 344-350)."""
+    flags, msg = REFUSED[case]
+    out = tmp_path / "out"
+    with pytest.raises(SystemExit) as e:
+        cli_main(["--simulate", "0.1", "-n", "60", "--quiet", "--outDir", str(out),
+                  *flags, *CPU])
+    assert e.value.code == 2
+    assert msg in capsys.readouterr().err
     assert not out.exists()
 
 

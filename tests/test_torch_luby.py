@@ -162,12 +162,19 @@ def test_resident_luby_equals_gather_luby(resident_runs):
 
 def test_luby_unported_and_device(small_er, monkeypatch):
     g = interop.graph_from_jax(small_er)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        LubyColorer(g, backend="matmul", device="cpu")
-    # a host graph has one backend: values that would change nothing raise
+    # the matmul loop over a host graph equals the gather loop at its
+    # padding (128) on the same draws
+    a = LubyColorer(g, backend="matmul", device="cpu")
+    b = tl._run_luby(a.ell, TorchUniformSource(4, 0, "cpu"))
+    r = a.run(seed=4)
+    assert np.array_equal(r.colors, b[0][: g.n].numpy()) and r.n_colors == b[1]
+    assert_mis_classes(g, r.colors)
+    # a host graph has two backends: values that would change nothing raise
     for backend in ("xla", "pallas"):
-        with pytest.raises(ValueError, match="one backend"):
+        with pytest.raises(ValueError, match="two backends"):
             LubyColorer(g, backend=backend, device="cpu")
+    with pytest.raises(ValueError, match="full loop only"):
+        LubyColorer(g, backend="matmul", active=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         LubyColorer(g, layout="bucketed", device="cpu")
     with pytest.raises(ValueError, match="full matmul loop"):

@@ -297,8 +297,9 @@ def test_hastings_run_and_unported_paths(medium_er, monkeypatch):
     assert r.extra["final_conflicts"] == 0 and tbase.check_coloring(g, r.colors)
     with pytest.raises(NotImplementedError, match="item 7"):
         tm.MCMCColorer(g, p, layout="bucketed", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tm.MCMCColorer(g, p, backend="matmul", device="cpu")
+    # the packed chain over a host graph (K1's plain version here) with Hastings
+    r = tm.MCMCColorer(g, p, backend="matmul", device="cpu").run(seed=2)
+    assert r.extra["final_conflicts"] == 0 and tbase.check_coloring(g, r.colors)
     with pytest.raises(ValueError, match="backend"):
         tm.MCMCColorer(g, p, backend="nope", device="cpu")
     # the frontier GreedyFF is ported: it runs and equals the full loop

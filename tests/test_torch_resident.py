@@ -193,8 +193,11 @@ def test_interop_round_trip(jax_colorer):
 def test_unported_paths_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         ResidentMCMCColorer(300, 0.05, 1, n_chains=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ResidentMCMCColorer(300, 0.05, 1, active=True, device="cpu")
+    # the frontier mode is ported: it runs to a valid colouring
+    a = ResidentMCMCColorer(300, 0.05, 1, active=True, device="cpu")
+    r = a.run(seed=1)
+    assert r.extra["active"] and r.extra["final_conflicts"] == 0
+    assert check_coloring(a.host_graph(), r.colors)
     c = ResidentMCMCColorer(300, 0.05, 1, device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoints"):
         c.run(seed=1, checkpoint_path="x")

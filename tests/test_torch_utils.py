@@ -56,3 +56,41 @@ def test_frontier_rounds_in_profiler_ranges(loop):
     assert counts and all(int(k.split("=")[1]) % 128 == 0 for k in counts)
     rounds = {"gff": r.iterations, "vff": r.iterations, "luby": r.extra.get("rounds")}[loop]
     assert sum(counts.values()) == rounds
+
+
+def test_frontier_mcmc_iterations_in_profiler_ranges():
+    """The frontier chain's iterations run in ranges named by their cap,
+    one an iteration, apart from its tailcut rounds'."""
+    from mcmc_colorer_tpu_torch.config import MCMCParams
+    from mcmc_colorer_tpu_torch.models.mcmc_active import ActiveMCMCColorer
+
+    g = erdos_renyi(500, 0.05, seed=3)
+    # 11 colours without the tailcut: frontier iterations; with it, the
+    # chain stops at <= 50 conflicts and the tailcut takes them
+    for tailcut in (False, True):
+        c = ActiveMCMCColorer(g, MCMCParams(n_colors=11, max_iterations=30, tailcut=tailcut),
+                              device="cpu")
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            r = c.run(seed=3)
+        counts = {e.key: e.count for e in prof.key_averages()}
+        by_cap = {int(k.split("=")[1]): v for k, v in counts.items()
+                  if k.startswith("mcmc round cap=")}
+        assert by_cap == r.extra["frontier_iterations"] and bool(by_cap) != tailcut
+        rounds = sum(v for k, v in counts.items() if k.startswith("mcmc tailcut round cap="))
+        assert rounds == r.extra["tailcut_rounds"] and (rounds > 0) == tailcut
+
+
+def test_sources_differ_by_seed_and_repetition():
+    """Distinct (seed, repetition) pairs draw distinct streams on the CPU,
+    whose generator keeps only the low 32 bits of its seed; repetition 0
+    seeds with the seed itself."""
+    from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource, generator_seed
+
+    draws = {(s, r): TorchUniformSource(s, r, "cpu").next(4)
+             for s in (0, 3, 5, 2**32 - 1) for r in (0, 1, 2)}
+    keys = list(draws)
+    for i, a in enumerate(keys):
+        for b in keys[i + 1:]:
+            assert not torch.equal(draws[a], draws[b]), (a, b)
+    assert generator_seed(5, 0) == 5
+    assert len({generator_seed(s, r) for s in range(64) for r in range(64)}) == 64 * 64
