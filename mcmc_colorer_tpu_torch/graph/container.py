@@ -8,9 +8,11 @@ torch device, with the sentinel ``n_pad`` in every padding slot, so a
 gather through a colour vector extended by one slot lands on an
 always-invalid colour.
 
-The degree-bucketed layout (``to_ell_bucketed``, ``BucketedEll``) is not
-ported yet (ROADMAP.md Queue 1 item 7): the colorers refuse
-``layout="bucketed"``.
+The degree-bucketed layout (``to_ell_bucketed``, ``BucketedEll``) groups
+the vertices of a degree-monotonic graph (``degree_relabel``) into a few
+contiguous degree classes, each one rectangle padded to its own width,
+built on the host as JAX builds it and moved to the device one
+contiguous int32 tensor a class.
 """
 
 from __future__ import annotations
@@ -231,6 +233,90 @@ class Graph:
             cache[key] = ell
         return ell
 
+    def to_ell_bucketed(
+        self,
+        *,
+        block: int = 128,
+        min_lane: int = 8,
+        lane_factor: int = 4,
+        device="cpu",
+    ) -> "BucketedEll":
+        """Pack the CSR into degree-bucketed ELL rectangles on ``device``.
+
+        The graph must be degree-monotonic, ascending or descending (call
+        ``degree_relabel`` first).  Vertices are grouped into contiguous
+        classes of widths ``min_lane · lane_factor^k`` (the last one the
+        max degree rounded up to ``min_lane``); each class becomes one
+        rectangle padded to its width and to a ``block``-multiple height.
+        Classes under ``block`` vertices are folded into the next wider
+        class (ascending ids) or into the previous, wider, one (descending
+        ids; a class under ``block`` also takes the one after it), as JAX
+        folds them."""
+        degs = self.degrees.astype(np.int64)
+        if self.n <= 0:
+            raise ValueError("to_ell_bucketed needs a graph with vertices")
+        asc = bool(np.all(np.diff(degs) >= 0))
+        if not (asc or np.all(np.diff(degs) <= 0)):
+            raise ValueError(
+                "to_ell_bucketed requires degree-monotonic ids: call degree_relabel() first"
+            )
+        maxd = max(int(degs.max()), 1)
+        cap_w = _round_up(maxd, min_lane)
+        widths = [min_lane]
+        while widths[-1] < maxd:
+            widths.append(min(widths[-1] * lane_factor, cap_w))
+        segs: list[list[int]] = []  # [v0, v1, width]
+        if asc:
+            v0 = 0
+            for w, v1 in zip(widths, np.searchsorted(degs, widths, side="right").tolist()):
+                if v1 > v0:
+                    segs.append([v0, v1, w])
+                    v0 = v1
+            folded: list[list[int]] = []
+            for seg in segs:
+                if folded and folded[-1][1] - folded[-1][0] < block:
+                    folded[-1][1:] = seg[1:]
+                else:
+                    folded.append(seg)
+        else:
+            # widest class first; bounds[k] = first id of degree <= widths_d[k]
+            widths_d = widths[::-1]
+            bounds = [int(np.searchsorted(-degs, -w, side="left")) for w in widths_d]
+            bounds.append(self.n)
+            segs = [[bounds[k], bounds[k + 1], w] for k, w in enumerate(widths_d)
+                    if bounds[k + 1] > bounds[k]]
+            folded = []
+            for seg in segs:
+                if folded and (seg[1] - seg[0] < block or folded[-1][1] - folded[-1][0] < block):
+                    folded[-1][1] = seg[1]
+                else:
+                    folded.append(seg)
+        heights = [_round_up(b - a, block) for a, b, _ in folded]
+        starts = np.concatenate([[0], np.cumsum(heights)])[:-1].tolist()
+        n_pad = int(sum(heights))
+        # padded-global position of every vertex id
+        pos = np.empty(self.n, dtype=np.int64)
+        for (a, b, _), s in zip(folded, starts):
+            pos[a:b] = s + np.arange(b - a, dtype=np.int64)
+        degrees = np.zeros(n_pad, dtype=np.int32)
+        degrees[pos] = degs
+        device = torch.device(device)
+        slices = []
+        for (a, b, w), s, h_pad in zip(folded, starts, heights):
+            seg_degs = degs[a:b]
+            host = np.full((h_pad, w), n_pad, dtype=np.int32)
+            row = np.repeat(np.arange(b - a, dtype=np.int64), seg_degs)
+            base = self.row_ptr[a]
+            col = np.arange(int(seg_degs.sum()), dtype=np.int64) - np.repeat(
+                self.row_ptr[a:b] - base, seg_degs
+            )
+            host[row, col] = pos[self.cols[base: self.row_ptr[b]]]
+            slices.append(EllSlice(torch.from_numpy(host).to(device), int(s), b - a))
+        return BucketedEll(
+            slices=tuple(slices), degrees=torch.from_numpy(degrees).to(device),
+            n_nodes=self.n, n_edges=self.n_edges, max_degree=self.max_degree,
+        )
+
 
 @dataclass
 class EllGraph:
@@ -258,3 +344,64 @@ class EllGraph:
     @property
     def d_pad(self) -> int:
         return self.neighbors.shape[1]
+
+
+@dataclass
+class EllSlice:
+    """One degree-class rectangle of a ``BucketedEll``: ``neighbors[r, k]``
+    is the padded-global position of the k-th neighbour of the vertex at
+    position ``start + r``, or the sentinel (the layout's ``n_pad``) in a
+    padding slot.  Rows from ``n_real`` on are phantom."""
+
+    neighbors: torch.Tensor      # (h_pad, d_b) int32, a tensor of its own
+    start: int
+    n_real: int
+
+    @property
+    def h_pad(self) -> int:
+        return self.neighbors.shape[0]
+
+    @property
+    def d_pad(self) -> int:
+        return self.neighbors.shape[1]
+
+
+@dataclass
+class BucketedEll:
+    """Degree-bucketed device adjacency.  A flat ELL pads every row to the
+    max degree, so a sweep gathers n·d_max neighbour ids; on a skewed graph
+    (Barabási–Albert, most real networks) that is 10-100x the 2m real ones.
+    Here each degree class is its own rectangle at its own width, so a
+    sweep gathers Σ h_b·d_b ≈ 2m ids.  Vertex-indexed vectors (colours,
+    taboo, uniforms) span the concatenated padded classes; each class has
+    its own phantom tail, outside ``node_mask``."""
+
+    slices: tuple[EllSlice, ...]
+    degrees: torch.Tensor        # (n_pad,) int32, 0 on phantom rows
+    n_nodes: int
+    n_edges: int
+    max_degree: int
+    node_mask: torch.Tensor = field(init=False)  # (n_pad,) bool, real vertices
+
+    def __post_init__(self) -> None:
+        self.node_mask = torch.cat([
+            torch.arange(s.h_pad, device=self.degrees.device) < s.n_real for s in self.slices
+        ])
+
+    @property
+    def n_pad(self) -> int:
+        last = self.slices[-1]
+        return last.start + last.h_pad
+
+    @property
+    def gather_elements(self) -> int:
+        """Neighbour ids one full sweep reads (a flat ELL reads n_pad ·
+        d_pad)."""
+        return sum(s.h_pad * s.d_pad for s in self.slices)
+
+    def real_positions(self) -> np.ndarray:
+        """(n_nodes,) padded-global position of each vertex id, to read
+        per-vertex results out of padded vectors."""
+        return np.concatenate(
+            [s.start + np.arange(s.n_real, dtype=np.int64) for s in self.slices]
+        )

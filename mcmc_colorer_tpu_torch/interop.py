@@ -8,7 +8,10 @@
   and back.  The key is left out: the port draws from its own source.
 - Host graphs and ELL layouts: a JAX ``Graph`` becomes the port's
   (``graph_from_jax``, a copy of the CSR); an ``EllGraph`` of either
-  package reads back as numpy (``ell_to_numpy``).
+  package reads back as numpy (``ell_to_numpy``); a degree-bucketed
+  layout of either package reads back as numpy (``bucketed_to_numpy``),
+  and a JAX one becomes the port's (``bucketed_from_jax``), so both sides
+  can run on one layout.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mcmc_colorer_tpu_torch.graph.container import Graph
+from mcmc_colorer_tpu_torch.graph.container import BucketedEll, EllSlice, Graph
 from mcmc_colorer_tpu_torch.models.mcmc import ChainState
 
 
@@ -75,10 +78,41 @@ def graph_from_jax(jax_graph) -> Graph:
     )
 
 
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def ell_to_numpy(ell) -> tuple[np.ndarray, np.ndarray]:
     """(neighbors [n_pad, d_pad] int32, degrees [n_pad] int32) of an ELL
     layout of either package, as numpy arrays."""
-    def host(x):
-        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return _host(ell.neighbors), _host(ell.degrees)
 
-    return host(ell.neighbors), host(ell.degrees)
+
+def bucketed_to_numpy(bell) -> dict:
+    """A degree-bucketed layout of either package as numpy arrays and ints:
+    ``neighbors`` (one [h_pad, d_b] int32 array a slice), ``starts``,
+    ``n_real``, ``degrees`` [n_pad] and the graph's ``n_nodes``,
+    ``n_edges`` and ``max_degree``."""
+    return {
+        "neighbors": [_host(s.neighbors) for s in bell.slices],
+        "starts": [int(s.start) for s in bell.slices],
+        "n_real": [int(s.n_real) for s in bell.slices],
+        "degrees": _host(bell.degrees),
+        "n_nodes": int(bell.n_nodes),
+        "n_edges": int(bell.n_edges),
+        "max_degree": int(bell.max_degree),
+    }
+
+
+def bucketed_from_jax(jax_bell, device="cpu") -> BucketedEll:
+    """The port's ``BucketedEll`` with a copy of a JAX ``BucketedEll``'s
+    slices (each a contiguous tensor of its own) and degrees."""
+    d = bucketed_to_numpy(jax_bell)
+    slices = tuple(
+        EllSlice(torch.from_numpy(np.array(nb, dtype=np.int32)).to(device), s, r)
+        for nb, s, r in zip(d["neighbors"], d["starts"], d["n_real"])
+    )
+    return BucketedEll(
+        slices=slices, degrees=torch.from_numpy(np.array(d["degrees"], np.int32)).to(device),
+        n_nodes=d["n_nodes"], n_edges=d["n_edges"], max_degree=d["max_degree"],
+    )

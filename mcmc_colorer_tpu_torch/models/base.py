@@ -2,7 +2,9 @@
 
 Counterpart of ``mcmc_colorer_tpu/models/base.py``: ``Coloring`` with its
 class statistics, ``check_coloring`` (host CSR), ``build_coloring`` and
-the ELL-side ``count_conflict_edges`` / ``violating_nodes``.
+the ELL-side ``count_conflict_edges`` / ``violating_nodes``; and what the
+colorers share for ``layout="bucketed"`` (``bucketed_layout``,
+``colors_in_input_order``).
 """
 
 from __future__ import annotations
@@ -133,6 +135,28 @@ def check_coloring(g: Graph, colors: np.ndarray, allow_uncolored: bool = False) 
             return False
         r0 = r1
     return True
+
+
+def bucketed_layout(graph: Graph, *, descending: bool, min_lane: int, device):
+    """(layout, perm, pos) of ``layout="bucketed"``: the graph relabelled by
+    degree (``descending``: hubs first, the Welsh-Powell order the lower-id
+    rules of GreedyFF, VFF and Luby favour), its ``BucketedEll`` with
+    128-row classes on ``device``, ``perm[new id] = old id`` and each new
+    id's padded position."""
+    g2, perm = graph.degree_relabel(descending=descending)
+    bell = g2.to_ell_bucketed(block=128, min_lane=min_lane, device=device)
+    return bell, perm, bell.real_positions()
+
+
+def colors_in_input_order(colors: torch.Tensor, n: int, perm=None, pos=None) -> np.ndarray:
+    """A padded colour vector as the input graph's [n] colours: its first n
+    entries on a flat layout, or read at the bucketed layout's positions
+    ``pos`` and put back through the relabelling ``perm``."""
+    if perm is None:
+        return colors[:n].cpu().numpy()
+    out = np.empty(n, dtype=np.int32)
+    out[perm] = colors.cpu().numpy()[pos]
+    return out
 
 
 def build_coloring(g: Graph, colors: np.ndarray, n_colors: int, **meta) -> Coloring:

@@ -1,18 +1,22 @@
-"""Greedy First-Fit (speculative) colorer on the flat ELL.
+"""Greedy First-Fit (speculative) colorer.
 
-Counterpart of ``mcmc_colorer_tpu/models/greedy_ff.py`` (flat layout,
-full rounds): repeat { every uncoloured vertex takes its smallest colour
-no neighbour uses (kernel K3 on the card); of two same-coloured
-neighbours the higher id loses and is uncoloured again } until every
-vertex holds a colour.  Colours are 0-based, -1 = uncoloured; the
-palette bound is max degree + 1, which always leaves a free colour.
-Deterministic, so its colours equal JAX's exactly.
+Counterpart of ``mcmc_colorer_tpu/models/greedy_ff.py``: repeat { every
+uncoloured vertex takes its smallest colour no neighbour uses (kernel K3
+on the card); of two same-coloured neighbours the higher id loses and is
+uncoloured again } until every vertex holds a colour.  Colours are
+0-based, -1 = uncoloured; the palette bound is max degree + 1, which
+always leaves a free colour.  Deterministic, so its colours equal JAX's
+exactly.
 
 ``active=True`` runs the frontier variant: each round first-fits only
 the rows of the still-uncoloured vertices (``take_rows``), with K3's
 palette cut to the row width + 1.  Same rules, so the same colours and
-rounds as the full loop.  The bucketed layout is not ported yet
-(ROADMAP.md Queue 1 item 7).
+rounds as the full loop.  ``layout="bucketed"`` relabels the graph by
+descending degree (the Welsh-Powell order: hubs win the lower-id rule)
+and first-fits each degree-class rectangle with K3 at the palette
+``min(max degree + 1, d_b + 1)``: a vertex's first free colour is at
+most its degree, and K3 ignores a neighbour's colour outside the
+palette, as JAX's occupancy drops it.
 """
 
 from __future__ import annotations
@@ -22,9 +26,14 @@ import time
 import numpy as np
 import torch
 
-from mcmc_colorer_tpu_torch.graph.container import EllGraph, Graph, degree_pad_for
-from mcmc_colorer_tpu_torch.models.base import Coloring, colorer_device
-from mcmc_colorer_tpu_torch.models.mcmc import _bands, _sync, choose_block_size
+from mcmc_colorer_tpu_torch.graph.container import Graph, degree_pad_for
+from mcmc_colorer_tpu_torch.models.base import (
+    Coloring,
+    bucketed_layout,
+    colorer_device,
+    colors_in_input_order,
+)
+from mcmc_colorer_tpu_torch.models.mcmc import _row_blocks, _sync, choose_block_size
 from mcmc_colorer_tpu_torch.models.mcmc_active import (
     DEFAULT_BUCKET_FACTOR,
     _buckets,
@@ -44,8 +53,7 @@ class GreedyFFColorer:
     """``backend``: ``pallas`` (K3 on CUDA tensors), ``xla`` (K3's plain
     version everywhere) or ``auto`` (= ``pallas``).  ``device``: the
     current CUDA device by default (``colorer_device``); the CPU only
-    when asked for.  ``ell``: a prebuilt flat ELL on that device to
-    reuse (VFF's phase 1 passes its own)."""
+    when asked for."""
 
     def __init__(
         self,
@@ -55,16 +63,10 @@ class GreedyFFColorer:
         active: bool = False,
         min_bucket: int = 128,
         bucket_factor: int | None = None,
-        ell: EllGraph | None = None,
         layout: str = "flat",
         device="cuda",
     ) -> None:
-        if layout == "bucketed":
-            raise NotImplementedError(
-                "the degree-bucketed ELL layout is not ported yet "
-                "(ROADMAP.md Queue 1 item 7)"
-            )
-        if layout != "flat":
+        if layout not in ("flat", "bucketed"):
             raise ValueError(f"unknown layout {layout!r}")
         if backend == "auto":
             backend = "pallas"
@@ -76,11 +78,21 @@ class GreedyFFColorer:
         self.max_colors = graph.max_degree + 1
         self.block = block_size or choose_block_size(graph.n, self.max_colors)
         self.active = active
-        self.ell = ell if ell is not None else graph.to_ell(
-            pad_nodes_to=max(self.block, 128),
-            pad_degree_to=degree_pad_for(graph, backend),
-            device=self.device,
-        )
+        self.layout = layout
+        self._perm = self._pos = None
+        if layout == "bucketed":
+            if block_size is None:
+                self.block = min(self.block, 2048)
+            self.ell, self._perm, self._pos = bucketed_layout(
+                graph, descending=True, min_lane=128 if backend == "pallas" else 8,
+                device=self.device,
+            )
+        else:
+            self.ell = graph.to_ell(
+                pad_nodes_to=max(self.block, 128),
+                pad_degree_to=degree_pad_for(graph, backend),
+                device=self.device,
+            )
         self._min_bucket = min_bucket
         self._bucket_factor = bucket_factor or DEFAULT_BUCKET_FACTOR
 
@@ -113,7 +125,7 @@ class GreedyFFColorer:
                 self.ell, _gff_init(self.ell), 2**30,
                 max_colors=self.max_colors, block=self.block, backend=self.backend,
             )
-        colors = colors[: self.graph.n].cpu().numpy()
+        colors = colors_in_input_order(colors, self.graph.n, self._perm, self._pos)
         dur = (time.perf_counter() - t0) * 1e3
         return Coloring(
             colors=colors,
@@ -125,35 +137,40 @@ class GreedyFFColorer:
         )
 
 
-def _first_fit_pass(ell: EllGraph, colors, max_colors: int, block: int,
+def _first_fit_pass(ell, colors, max_colors: int, block: int,
                     backend: str = "pallas"):
     """tentative_coloring: uncoloured vertices take their smallest colour
-    no neighbour uses, in row bands (one K3 launch a band, which gathers
-    the neighbours' colours itself)."""
+    no neighbour uses, a row block at a time (one K3 launch a band of the
+    flat ELL or a degree-class rectangle, which gathers the neighbours'
+    colours itself).  A vertex's first free colour is at most its degree,
+    so a block of width d_b needs the palette d_b + 1 only (on the flat
+    ELL that is max_colors: d_pad >= the max degree)."""
     ff_fn = first_fit if backend == "pallas" else first_fit_plain
-    allow = torch.ones((max_colors,), dtype=torch.int32, device=colors.device)
     out = torch.empty_like(colors)
-    for s, e in _bands(ell.n_pad, ell.d_pad):
-        ff = ff_fn(ell.neighbors[s:e], colors, allow, max_colors)
-        # max_colors = maxDeg + 1 leaves a free colour for every real vertex
+    for s, neigh in _row_blocks(ell):
+        e = s + neigh.shape[0]
+        pal = min(max_colors, neigh.shape[1] + 1)
+        allow = torch.ones((pal,), dtype=torch.int32, device=colors.device)
+        ff = ff_fn(neigh, colors, allow, pal)
+        # a palette of degree + 1 leaves a free colour for every real vertex
         out[s:e] = torch.where(colors[s:e] < 0, ff, colors[s:e])
     return out
 
 
-def _conflict_losers(ell: EllGraph, colors):
+def _conflict_losers(ell, colors):
     """conflict_detection: a coloured vertex with the colour of a lower-id
     neighbour loses."""
     ids = torch.arange(ell.n_pad, dtype=torch.int32, device=colors.device)
     out = torch.empty((ell.n_pad,), dtype=torch.bool, device=colors.device)
-    for s, e in _bands(ell.n_pad, ell.d_pad):
-        neigh = ell.neighbors[s:e]
+    for s, neigh in _row_blocks(ell):
+        e = s + neigh.shape[0]
         own = colors[s:e, None]
         nc = neighbor_colors(neigh, colors, fill=-2)
         out[s:e] = ((nc == own) & (own >= 0) & (neigh < ids[s:e, None])).any(1)
     return out
 
 
-def _gff_active_round(ell: EllGraph, colors, *, cap: int, max_colors: int,
+def _gff_active_round(ell, colors, *, cap: int, max_colors: int,
                       backend: str = "pallas"):
     """One frontier round over the <= ``cap`` uncoloured vertices: first
     fit on their gathered rows (K3 on the card), then the conflicts among
@@ -174,14 +191,14 @@ def _gff_active_round(ell: EllGraph, colors, *, cap: int, max_colors: int,
     return scatter_drop(colors, ids, final), losers.sum()
 
 
-def _gff_init(ell: EllGraph):
+def _gff_init(ell):
     """Initial carry (colors, rounds, done): real vertices uncoloured,
     phantoms colour 0."""
     colors0 = torch.where(ell.node_mask, -1, 0).to(torch.int32)
     return colors0, 0, ell.n_nodes == 0
 
 
-def _gff_segment(ell: EllGraph, carry, budget: int, *, max_colors: int,
+def _gff_segment(ell, carry, budget: int, *, max_colors: int,
                  block: int, backend: str = "pallas"):
     """At most ``budget`` speculative rounds."""
     colors, rounds, done = carry

@@ -1,6 +1,6 @@
 """Luby-inspired greedy MIS colorer.
 
-Counterpart of ``mcmc_colorer_tpu/models/luby.py`` (flat layout): peel
+Counterpart of ``mcmc_colorer_tpu/models/luby.py``: peel
 off maximal independent sets, one per colour.  A round flips a coin for
 every candidate (``u < 0.5``); a selected vertex survives iff its degree
 exceeds that of every selected neighbour (ties eliminate both,
@@ -11,8 +11,8 @@ the uncoloured vertices.
 
 Three loops, all with the same rule and the same draws:
 
-- the gather loop over the flat ELL (``_run_luby``): one ``next(n_pad)``
-  a round;
+- the gather loop over the ELL, flat or degree-bucketed (``_run_luby``):
+  one ``next(n_pad)`` a round;
 - the frontier loop (``active=True``, ``_luby_active_round``): gathers
   only the candidates' rows, one ``next(cap)`` a round;
 - the matmul loop (``_run_luby_matmul``), on a hash-defined G(n, p)
@@ -25,7 +25,10 @@ Three loops, all with the same rule and the same draws:
 
 All decisions are integer or ``u < 0.5`` comparisons, so fed JAX's
 uniforms (``utils/rng.py``) the colourings equal JAX's bit for bit.
-The bucketed layout (ROADMAP.md Queue 1 item 7) is not ported yet.
+``layout="bucketed"`` relabels the graph by descending degree and lays it
+out in classes of widths ``8 · 4^k`` (JAX's ``min_lane=8``); the gather
+and frontier loops then inspect a degree class at a time.  The matmul
+loop and resident graphs are flat only, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,9 +38,14 @@ import time
 import numpy as np
 import torch
 
-from mcmc_colorer_tpu_torch.graph.container import EllGraph, Graph
-from mcmc_colorer_tpu_torch.models.base import Coloring, colorer_device
-from mcmc_colorer_tpu_torch.models.mcmc import _bands, _sync
+from mcmc_colorer_tpu_torch.graph.container import Graph
+from mcmc_colorer_tpu_torch.models.base import (
+    Coloring,
+    bucketed_layout,
+    colorer_device,
+    colors_in_input_order,
+)
+from mcmc_colorer_tpu_torch.models.mcmc import _row_blocks, _sync
 from mcmc_colorer_tpu_torch.models.mcmc_active import (
     DEFAULT_BUCKET_FACTOR,
     _buckets,
@@ -80,23 +88,20 @@ class LubyColorer:
         resident_spec: tuple | None = None,
         device="cuda",
     ) -> None:
-        if layout == "bucketed":
-            raise NotImplementedError(
-                "the degree-bucketed ELL layout is not ported yet "
-                "(ROADMAP.md Queue 1 item 7)"
-            )
-        if layout != "flat":
+        if layout not in ("flat", "bucketed"):
             raise ValueError(f"unknown layout {layout!r}")
         self.active = active
+        self._perm = self._pos = None
         self._min_bucket = min_bucket
         self._bucket_factor = bucket_factor or DEFAULT_BUCKET_FACTOR
         if resident_spec is not None:
             if graph is not None:
                 raise ValueError("pass graph=None with resident_spec")
-            if active:
+            if active or layout != "flat":
                 raise ValueError(
-                    "resident Luby runs the full matmul loop only (the frontier "
-                    "variant gathers neighbour rows the resident graph never has)"
+                    "resident Luby runs the flat full matmul loop only (the frontier "
+                    "and bucketed variants gather neighbour rows the resident graph "
+                    "never has)"
                 )
             if backend not in ("auto", "matmul"):
                 raise ValueError(f"resident_spec implies backend='matmul'; got {backend!r}")
@@ -109,15 +114,19 @@ class LubyColorer:
                 "the gather loop ('auto') and the matmul loop ('matmul')"
             )
         matmul = backend != "auto"
-        if matmul and active:
+        if matmul and (active or layout != "flat"):
             raise ValueError("backend='matmul' serves the flat full loop only")
         self.backend = "matmul" if matmul else "gather"
         self.device = colorer_device(device)
         self.graph = graph
         # the full loop draws n_pad uniforms a round: JAX's padding, so
         # both packages consume the same stream
-        self.ell = graph.to_ell(pad_nodes_to=128 if active or matmul else 8,
-                                device=self.device)
+        if layout == "bucketed":
+            self.ell, self._perm, self._pos = bucketed_layout(
+                graph, descending=True, min_lane=8, device=self.device)
+        else:
+            self.ell = graph.to_ell(pad_nodes_to=128 if active or matmul else 8,
+                                    device=self.device)
         if matmul:
             self.node_mask = self.ell.node_mask
             self._set_rank_classes(graph.degrees, self.ell.degrees)
@@ -198,7 +207,7 @@ class LubyColorer:
                 self.adj, self.rank_class, self.node_mask, source, n_classes=self.n_classes)
         else:
             colors, n_colors, rounds = _run_luby(self.ell, source)
-        colors = colors[: self.graph.n].cpu().numpy()
+        colors = colors_in_input_order(colors, self.graph.n, self._perm, self._pos)
         dur = (time.perf_counter() - t0) * 1e3
         return Coloring(
             colors=colors,
@@ -210,7 +219,7 @@ class LubyColorer:
         )
 
 
-def _luby_active_round(ell: EllGraph, cands, is_set, u):
+def _luby_active_round(ell, cands, is_set, u):
     """One coin-flip / survival / prune round over the <= ``cap =
     len(u)`` candidates, gathering only their rows.  A neighbour's
     selection flag and degree travel in one int32 (deg * 2 | selected).
@@ -264,16 +273,18 @@ def _luby_loop(node_mask, source, survivors, near):
     return colors, n_colors, rounds
 
 
-def _run_luby(ell: EllGraph, source):
-    """The gather loop over the flat ELL, in row bands; a neighbour's
-    selection flag and degree travel in one int32 gather."""
+def _run_luby(ell, source):
+    """The gather loop over either ELL layout, a row block at a time (a
+    band of the flat ELL, or a degree-class rectangle: JAX's
+    ``_luby_segment_bucketed``); a neighbour's selection flag and degree
+    travel in one int32 gather."""
     degs = ell.degrees
 
     def survivors(sel):
         packed = torch.cat([(degs << 1) | sel.to(torch.int32), degs.new_zeros((1,))])
         beaten = torch.empty_like(sel)
-        for s, e in _bands(ell.n_pad, ell.d_pad):
-            neigh = ell.neighbors[s:e]
+        for s, neigh in _row_blocks(ell):
+            e = s + neigh.shape[0]
             nb = packed.index_select(0, neigh.reshape(-1)).reshape(neigh.shape)
             # survive iff deg_i > deg_j for every selected neighbour j
             beaten[s:e] = (((nb & 1) == 1) & ((nb >> 1) >= degs[s:e, None])).any(1)
@@ -282,8 +293,8 @@ def _run_luby(ell: EllGraph, source):
     def near(surv):
         ext = torch.cat([surv, surv.new_zeros((1,))])
         out = torch.empty_like(surv)
-        for s, e in _bands(ell.n_pad, ell.d_pad):
-            neigh = ell.neighbors[s:e]
+        for s, neigh in _row_blocks(ell):
+            e = s + neigh.shape[0]
             out[s:e] = ext.index_select(0, neigh.reshape(-1)).reshape(neigh.shape).any(1)
         return out
 

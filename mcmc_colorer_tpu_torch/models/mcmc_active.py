@@ -36,8 +36,10 @@ gathered by a prefix count (``ops/neighbor.frontier_ids``), the class
 histogram by ``index_add_``, and no scalar is copied from the host.
 
 The ladder serves the port's other frontier colourers too (``greedy_ff``,
-``vff``, ``luby`` with ``active=True``).  ``layout="bucketed"`` is
-ROADMAP.md Queue 1 item 7.
+``vff``, ``luby`` with ``active=True``).  ``layout="bucketed"`` runs the
+full sweeps once a degree-class rectangle and gathers the frontier's rows
+from the classes (``ops/neighbor.take_rows``), at the widest class's
+width; K2 then looks the neighbours up in the whole padded colour vector.
 """
 
 from __future__ import annotations
@@ -51,14 +53,20 @@ import torch
 from torch.profiler import record_function
 
 from mcmc_colorer_tpu_torch.config import MCMCParams
-from mcmc_colorer_tpu_torch.graph.container import EllGraph, Graph, degree_pad_for
-from mcmc_colorer_tpu_torch.models.base import Coloring, colorer_device
+from mcmc_colorer_tpu_torch.graph.container import Graph, degree_pad_for
+from mcmc_colorer_tpu_torch.models.base import (
+    Coloring,
+    bucketed_layout,
+    colorer_device,
+    colors_in_input_order,
+)
 from mcmc_colorer_tpu_torch.models.mcmc import (
     _at_color,
-    _bands,
     _conflict_edges,
     _init_colors,
+    _lookup_colors,
     _p_eff_of,
+    _row_blocks,
     _sweep,
     _sweep_pallas_fused,
     _sync,
@@ -142,12 +150,14 @@ def _stats(cnt: torch.Tensor, taboo: torch.Tensor) -> torch.Tensor:
     return torch.stack([((cnt > 0) & (taboo == 0)).sum(), cnt.sum() // 2])
 
 
-def _cnt_of(ell: EllGraph, colors: torch.Tensor) -> torch.Tensor:
-    """[n_pad] int32 same-colour neighbours a vertex, over the ELL in row
-    bands (at config 3 the whole [1M, 1280] gather would be 5.2 GB)."""
+def _cnt_of(ell, colors: torch.Tensor) -> torch.Tensor:
+    """[n_pad] int32 same-colour neighbours a vertex, over either ELL
+    layout a row block at a time (at config 3 the whole [1M, 1280] gather
+    would be 5.2 GB)."""
     out = torch.empty((ell.n_pad,), dtype=torch.int32, device=colors.device)
-    for s, e in _bands(ell.n_pad, ell.d_pad):
-        nc = neighbor_colors(ell.neighbors[s:e], colors)
+    for s, neigh in _row_blocks(ell):
+        e = s + neigh.shape[0]
+        nc = neighbor_colors(neigh, colors)
         out[s:e] = (nc == colors[s:e, None]).sum(1, dtype=torch.int32)
     return out
 
@@ -177,7 +187,7 @@ def _frontier_update(graph, colors_next, cnt, ids, valid, rows, cur):
 # ------------------------------ iterations ------------------------------
 
 
-def _full_iteration(ell: EllGraph, colors, taboo, source, *, params: MCMCParams, block: int,
+def _full_iteration(ell, colors, taboo, source, *, params: MCMCParams, block: int,
                     backend: str):
     """One synchronous full sweep: (star, taboo', conflict edges of the
     CURRENT colouring as a 0-dim tensor).  ``pallas``: K2 with the count
@@ -198,8 +208,8 @@ def _full_iteration(ell: EllGraph, colors, taboo, source, *, params: MCMCParams,
 def _active_iteration(graph, colors, taboo, cnt, source, *, cap: int, params: MCMCParams,
                       backend: str):
     """Resample the <= ``cap`` frontier vertices, apply the passive
-    dynamics to the rest and keep ``cnt``.  ``graph``: an ``EllGraph`` or
-    ``PackedRows``.  Returns (colors, taboo, cnt, (frontier size,
+    dynamics to the rest and keep ``cnt``.  ``graph``: an ``EllGraph``, a
+    ``BucketedEll`` or ``PackedRows``.  Returns (colors, taboo, cnt, (frontier size,
     conflict edges) of the new state), the pair read to the host in the
     iteration's one read."""
     n_pad, n_colors, n = graph.n_pad, params.n_colors, graph.n_nodes
@@ -213,11 +223,11 @@ def _active_iteration(graph, colors, taboo, cnt, source, *, cap: int, params: MC
     cur = torch.where(valid, colors[ids_l], n_colors)
     p_eff = _p_eff_of(colors, params, n, node_mask)
     unif = source.next(cap)
-    # a row's neighbours are real vertices or the padding id, so K2 gets
-    # the real vertices' colours (staged in shared memory where they fit)
+    # K2 looks the rows up in _lookup_colors: on a flat layout the real
+    # vertices' colours (staged in shared memory where they fit)
     sweep = resample_sweep if backend == "pallas" else resample_sweep_plain
     chosen, _, new_taboo_a, _ = sweep(
-        rows, colors[:n], cur, torch.zeros((cap,), dtype=torch.int32, device=dev), 0,
+        rows, _lookup_colors(graph, colors), cur, torch.zeros((cap,), dtype=torch.int32, device=dev), 0,
         unif, p_eff, params.epsilon, params, self_ids=ids,
     )
     chosen = torch.where(valid, chosen, cur)
@@ -352,8 +362,9 @@ class FrontierChain:
 
 
 class ActiveMCMCColorer:
-    """The frontier MCMC chain over a host ``Graph`` laid out as a flat ELL
-    on ``device`` (counterpart of JAX's ``ActiveMCMCColorer``).
+    """The frontier MCMC chain over a host ``Graph`` laid out as an ELL on
+    ``device`` (counterpart of JAX's ``ActiveMCMCColorer``), flat or, with
+    ``layout="bucketed"``, MCMCColorer's bucketed layout.
 
     ``backend``: ``pallas`` (K2 for the full sweeps and the frontier rows;
     on CPU tensors its plain version), ``xla`` (the plain versions, JAX's
@@ -376,12 +387,7 @@ class ActiveMCMCColorer:
                 "active-set mode implements the shipped always-accept dynamics; "
                 "use MCMCColorer (full sweeps) for Hastings"
             )
-        if layout == "bucketed":
-            raise NotImplementedError(
-                "the frontier chain over the degree-bucketed ELL layout is not ported "
-                "yet (ROADMAP.md Queue 1 item 7)"
-            )
-        if layout != "flat":
+        if layout not in ("flat", "bucketed"):
             raise ValueError(f"unknown layout {layout!r}")
         if backend == "auto":
             backend = "pallas"
@@ -391,11 +397,19 @@ class ActiveMCMCColorer:
         self.device = colorer_device(device)
         self.block = choose_block_size(graph.n, params.n_colors)
         t0 = time.perf_counter()
-        self.ell = graph.to_ell(
-            pad_nodes_to=max(self.block, 128),
-            pad_degree_to=degree_pad_for(graph, backend),
-            device=self.device,
-        )
+        self._perm = self._pos = None
+        if layout == "bucketed":
+            self.block = min(self.block, 2048)
+            self.ell, self._perm, self._pos = bucketed_layout(
+                graph, descending=False, min_lane=128 if backend == "pallas" else 8,
+                device=self.device,
+            )
+        else:
+            self.ell = graph.to_ell(
+                pad_nodes_to=max(self.block, 128),
+                pad_degree_to=degree_pad_for(graph, backend),
+                device=self.device,
+            )
         _sync(self.device)
         self.setup_seconds = time.perf_counter() - t0
         self._caps = _buckets(self.ell.n_pad)
@@ -405,7 +419,8 @@ class ActiveMCMCColorer:
         the colouring each sweep starts from), then frontier iterations."""
         ell, params = self.ell, self.params
         z = params.tailcut_threshold(ell.n_nodes)
-        colors = _init_colors(ell.n_pad, ell.n_nodes, params, source, self.device)
+        colors = _init_colors(ell.n_pad, ell.n_nodes, params, source, self.device,
+                              ell.node_mask)
         taboo = torch.zeros((ell.n_pad,), dtype=torch.int32, device=self.device)
         trace, rip, full_sweeps, conflicts, switch = [], 0, 0, None, None
         # full mode: each sweep measures the conflicts of the colouring it
@@ -456,7 +471,7 @@ class ActiveMCMCColorer:
             colors, _, conflicts, tc_rounds = _tailcut_active(
                 ell, colors, cnt, source, params=params, caps=self._caps
             )
-        out = colors[: self.graph.n].cpu().numpy()
+        out = colors_in_input_order(colors, self.graph.n, self._perm, self._pos)
         total_s = time.perf_counter() - t0
         return Coloring(
             colors=out,

@@ -2,7 +2,7 @@
 
 Counterpart of ``mcmc_colorer_tpu/ops/neighbor.py``: ``extend_colors``,
 ``neighbor_colors``, ``occupancy_matrix``, ``take_rows`` (the frontier
-gather, flat ELL only) and ``color_histogram``.
+gather, flat or degree-bucketed) and ``color_histogram``.
 """
 
 from __future__ import annotations
@@ -41,17 +41,29 @@ def occupancy_matrix(neigh_cols: torch.Tensor, n_colors: int) -> torch.Tensor:
 
 
 def take_rows(ell, ids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """[cap, d_pad] int32 adjacency rows of the padded vertex ids ``ids``
-    (one ``index_select``, a fresh contiguous tensor); every slot of an
-    invalid row holds the sentinel ``ell.n_pad``.  Flat ELL only."""
-    if getattr(ell, "slices", None) is not None:
-        raise NotImplementedError(
-            "take_rows over the degree-bucketed layout is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)"
-        )
+    """[cap, d_out] int32 adjacency rows of the padded vertex ids ``ids``,
+    a fresh contiguous tensor; every slot of an invalid row holds the
+    sentinel ``ell.n_pad``.  On the flat ELL one ``index_select``
+    (d_out = d_pad).  On the degree-bucketed layout each rectangle's rows
+    are gathered at its own width d_b and written into the first d_b
+    columns of the rows whose id lies in it; the rest stays the sentinel
+    (d_out = the widest class).  This one helper composes every frontier
+    colorer with the bucketed layout."""
     n_pad = ell.n_pad
-    rows = ell.neighbors.index_select(0, ids.clamp(max=n_pad - 1))
-    return torch.where(valid[:, None], rows, n_pad)
+    ids_c = ids.clamp(max=n_pad - 1)
+    slices = getattr(ell, "slices", None)
+    if slices is None:
+        rows = ell.neighbors.index_select(0, ids_c)
+        return torch.where(valid[:, None], rows, n_pad)
+    d_out = max(s.d_pad for s in slices)
+    out = torch.full((ids.shape[0], d_out), n_pad, dtype=torch.int32, device=ids.device)
+    for s in slices:
+        local = ids_c - s.start
+        in_s = valid & (local >= 0) & (local < s.h_pad)
+        rows = s.neighbors.index_select(0, local.clamp(0, s.h_pad - 1))
+        head = out[:, : s.d_pad]
+        head.copy_(torch.where(in_s[:, None], rows, head))
+    return out
 
 
 def frontier_ids(mask: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -496,8 +496,12 @@ def test_active_rejects_hastings_and_bucketed(small_er):
     g = interop.graph_from_jax(small_er)
     with pytest.raises(NotImplementedError, match="always-accept"):
         ta.ActiveMCMCColorer(g, _params(g, hastings=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ta.ActiveMCMCColorer(g, _params(g), layout="bucketed", device="cpu")
+    # the bucketed layout is ported: it runs to a valid colouring
+    r = ta.ActiveMCMCColorer(g, _params(g, tailcut=True), layout="bucketed",
+                             device="cpu").run(seed=3)
+    assert r.extra["final_conflicts"] == 0 and check_coloring(g, r.colors)
+    with pytest.raises(ValueError, match="layout"):
+        ta.ActiveMCMCColorer(g, _params(g), layout="ragged", device="cpu")
     with pytest.raises(ValueError, match="backend"):
         ta.ActiveMCMCColorer(g, _params(g), backend="matmul", device="cpu")
 

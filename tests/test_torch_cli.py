@@ -160,7 +160,6 @@ def test_cli_resident_errors():
 
 
 UNPORTED = {
-    "layout_bucketed": (["--grdffgpu", "--layout", "bucketed"], 7),
     "chains": (["--mcmcgpu", "--chains", "2"], 11),
     "dbg": (["--mcmcgpu", "--dbg"], 11),
     "mesh_chains": (["--mcmcgpu", "--mesh-chains", "2"], 12),
@@ -185,9 +184,11 @@ def test_unported_flags_exit_2(tmp_path, capsys, case):
     assert not out.exists()
 
 
-# the four flag sets that exited 2 until the frontier chain and the packed
-# backend over a host graph were ported; Luby ignores --backend, as in JAX
+# the flag sets that exited 2 until the frontier chain, the packed backend
+# over a host graph and the bucketed layout were ported; Luby ignores
+# --backend, as in JAX
 PORTED = {
+    "layout_bucketed": (["--grdffgpu", "--layout", "bucketed"], {"GFF"}),
     "backend_matmul": (["--mcmcgpu", "--backend", "matmul"], {"MCMC_GPU"}),
     "backend_packed_luby": (["--lubygpu", "--backend", "packed"], {"LUBY"}),
     "mcmc_active": (["--mcmcgpu", "--active"], {"MCMC_GPU"}),

@@ -25,6 +25,7 @@ from mcmc_colorer_tpu.models.vff import VFFColorer as JVFF
 from mcmc_colorer_tpu.ops.neighbor import take_rows as j_take_rows
 from mcmc_colorer_tpu.ops.pallas_firstfit import pallas_first_fit
 
+from mcmc_colorer_tpu_torch import interop
 from mcmc_colorer_tpu_torch.interop import graph_from_jax
 from mcmc_colorer_tpu_torch.models import mcmc_active as tact
 from mcmc_colorer_tpu_torch.models import vff as tvff
@@ -174,16 +175,21 @@ def test_k3_plain_at_frontier_call(medium_er, kind):
 
 
 def test_unported_layouts_raise(small_er, monkeypatch):
+    """The bucketed layout, once refused, runs: bucketed VFF equals JAX's,
+    and the frontier's rows gathered from its classes equal JAX's
+    ``take_rows``; an unknown layout raises."""
     g = graph_from_jax(small_er)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        VFFColorer(g, layout="bucketed", device="cpu")
-
-    class Bucketed:
-        slices = ()
-        n_pad = 128
-
-    with pytest.raises(NotImplementedError, match="item 7"):
-        take_rows(Bucketed(), torch.zeros(1, dtype=torch.int32), torch.ones(1, dtype=torch.bool))
+    want = JVFF(small_er, layout="bucketed", backend="xla").run()
+    got = VFFColorer(g, layout="bucketed", backend="xla", device="cpu").run()
+    assert np.array_equal(got.colors, want.colors) and check_coloring(g, got.colors)
+    with pytest.raises(ValueError, match="layout"):
+        VFFColorer(g, layout="ragged", device="cpu")
+    jc = JVFF(small_er, layout="bucketed", backend="xla")
+    ids = jnp.asarray(np.r_[np.arange(0, jc.ell.n_pad, 3), [jc.ell.n_pad] * 5].astype(np.int32))
+    valid = ids < jc.ell.n_pad
+    rows = take_rows(interop.bucketed_from_jax(jc.ell), torch.from_numpy(np.array(ids)),
+                     torch.from_numpy(np.array(valid)))
+    assert np.array_equal(rows.numpy(), np.asarray(j_take_rows(jc.ell, ids, valid)))
     # without a card the colorers refuse unless asked for the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (VFFColorer, lambda g: GreedyFFColorer(g, active=True)):

@@ -175,8 +175,14 @@ def test_luby_unported_and_device(small_er, monkeypatch):
             LubyColorer(g, backend=backend, device="cpu")
     with pytest.raises(ValueError, match="full loop only"):
         LubyColorer(g, backend="matmul", active=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        LubyColorer(g, layout="bucketed", device="cpu")
+    # the bucketed layout runs the gather loop; the matmul loop and
+    # resident graphs are flat only, as in JAX
+    r = LubyColorer(g, layout="bucketed", device="cpu").run(seed=4)
+    assert_mis_classes(g, r.colors)
+    with pytest.raises(ValueError, match="full loop only"):
+        LubyColorer(g, backend="matmul", layout="bucketed", device="cpu")
+    with pytest.raises(ValueError, match="flat full matmul loop"):
+        LubyColorer(None, layout="bucketed", resident_spec=(100, 0.1, 1), device="cpu")
     with pytest.raises(ValueError, match="full matmul loop"):
         LubyColorer(None, active=True, resident_spec=(100, 0.1, 1), device="cpu")
     with pytest.raises(ValueError, match="graph=None"):

@@ -208,7 +208,7 @@ def test_tailcut_rounds_match_jax(medium_er, n_colors):
     for _ in range(3):
         rnd = np.array(jax.random.randint(jax.random.fold_in(key, cj[2]), (je.n_pad,), 0,
                                           n_colors, dtype=jnp.int32))
-        ct = tm._tailcut_body_flat(te, ct, Replay([rnd]), params=pt, block=128)
+        ct = tm._tailcut_body(te, ct, Replay([rnd]), params=pt, block=128)
         cj = body(cj)
         assert np.array_equal(ct[0].numpy(), np.asarray(cj[0]))
         assert (ct[1], ct[2], ct[3]) == (int(cj[1]), int(cj[2]), bool(cj[3]))
@@ -295,8 +295,11 @@ def test_hastings_run_and_unported_paths(medium_er, monkeypatch):
                    max_iterations=5)
     r = tm.MCMCColorer(g, p, backend="pallas", device="cpu").run(seed=2)
     assert r.extra["final_conflicts"] == 0 and tbase.check_coloring(g, r.colors)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tm.MCMCColorer(g, p, layout="bucketed", device="cpu")
+    # the bucketed layout runs Hastings too; matmul refuses it, as in JAX
+    r = tm.MCMCColorer(g, p, layout="bucketed", device="cpu").run(seed=2)
+    assert r.extra["final_conflicts"] == 0 and tbase.check_coloring(g, r.colors)
+    with pytest.raises(ValueError, match="flat-layout only"):
+        tm.MCMCColorer(g, p, backend="matmul", layout="bucketed", device="cpu")
     # the packed chain over a host graph (K1's plain version here) with Hastings
     r = tm.MCMCColorer(g, p, backend="matmul", device="cpu").run(seed=2)
     assert r.extra["final_conflicts"] == 0 and tbase.check_coloring(g, r.colors)
@@ -305,8 +308,11 @@ def test_hastings_run_and_unported_paths(medium_er, monkeypatch):
     # the frontier GreedyFF is ported: it runs and equals the full loop
     assert np.array_equal(GreedyFFColorer(g, active=True, device="cpu").run().colors,
                           GreedyFFColorer(g, device="cpu").run().colors)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        GreedyFFColorer(g, layout="bucketed", device="cpu")
+    # and so is the bucketed one, full and frontier
+    buck = GreedyFFColorer(g, layout="bucketed", device="cpu").run()
+    assert tbase.check_coloring(g, buck.colors)
+    assert np.array_equal(GreedyFFColorer(g, layout="bucketed", active=True,
+                                          device="cpu").run().colors, buck.colors)
     monkeypatch.setenv("MCMC_COLORER_TRACE", "1")
     with pytest.raises(NotImplementedError, match="TRACE"):
         tm.MCMCColorer(g, p, device="cpu").run(seed=1)
