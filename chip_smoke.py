@@ -60,7 +60,24 @@ the card by default:
   full and frontier; BA(1M, 8) from the native sampler through the
   bucketed MCMCColorer and GreedyFF; every K2 and K3 shape these runs
   launched held against the plain version on the inputs the run gave it,
-  and timed; and the CLI's ``--layout bucketed`` (also ``--active``).
+  and timed; and the CLI's ``--layout bucketed`` (also ``--active``);
+- slice 8, stepped chains, ensembles, checkpoints and the free-colour
+  TRACE, with K1, K2 and K3 taking a chain axis: phase 22 the stepped
+  chain (``SteppedMCMC``) on the ER(100k, 0.01) host graph at numColRatio
+  4, checkpointed in segments of 4, a half-way checkpoint resumed by a
+  fresh instance (equal to the uninterrupted run), ``inspect`` on the
+  card equal to a CPU copy, the debugger's ε edit reaching the next
+  segment, and ``MCMCColorer`` under ``MCMC_COLORER_TRACE=1`` (the
+  untraced colouring, one TRACE line a segment); phase 23
+  ``EnsembleMCMCColorer`` with 8 chains on that graph and 4 bucketed at
+  config 4, each chain equal to a one-chain run fed its source; phase 24
+  the resident ensemble (4 chains, checkpoint at 2 iterations resumed
+  equal) and the ``matmul`` ensemble, and the resident TRACE; every
+  batched K1, K2 and K3 launch of these runs held against its plain
+  version and against one launch a chain, exactly (samples under the
+  CDF-boundary rule), and timed beside them by CUDA events and device
+  time; phase 25 the CLI's ``--chains``, ``--resident --chains --ckpt``
+  then ``--resume``, ``--dbg`` and ``-v 1``.
 
 Every colouring is checked with ``check_coloring``.  Any failed check
 raises, so the exit code is non-zero.  Without CUDA, or outside a
@@ -517,16 +534,23 @@ def _k2_check(k2, args, params, label, l2=False, phase=8, self_ids=None):
     CDF-boundary rows, new_taboo equal and qstar within rtol 1e-5 where
     the samples agree.  ``l2`` forces the L2 regime; ``self_ids`` gives
     the rows' own ids.  Returns (boundary fraction, max |qstar error|)."""
+    colors = args[1]
+    got = k2.resample_sweep_cuda(*args, params.epsilon, params, self_ids, _l2=l2)
+    want = k2.resample_sweep_plain(*args, params.epsilon, params, self_ids)
+    regime = "staged" if k2.sweep_shape(colors.shape[-1], params.n_colors, l2).staged else "L2"
+    return _k2_compare(k2, got, want, args, params, f"{label} ({regime})", phase)
+
+
+def _k2_compare(k2, got, want, args, params, label, phase):
+    """K2's outputs ``got`` against its plain version's ``want`` on one
+    chain's ``args``: the rule of ``_k2_check``.  Returns (boundary
+    fraction, max |qstar error|)."""
     import torch
 
     from mcmc_colorer_tpu_torch.models.mcmc import _proposal_q
     from mcmc_colorer_tpu_torch.ops.neighbor import occupancy_matrix
 
     neigh, colors, cur, taboo, row0, unif, p_eff = args
-    got = k2.resample_sweep_cuda(*args, params.epsilon, params, self_ids, _l2=l2)
-    want = k2.resample_sweep_plain(*args, params.epsilon, params, self_ids)
-    regime = "staged" if k2.sweep_shape(colors.shape[0], params.n_colors, l2).staged else "L2"
-    label = f"{label} ({regime})"
     _require(int(got[3]) == int(want[3]),
              f"K2 conflicts {int(got[3])} vs plain {int(want[3])} at {label}")
     rows = neigh.shape[0]
@@ -640,17 +664,22 @@ def _chain_peak(colorer, seed: int) -> int:
     tailcut that follows it."""
     import torch
 
+    from functools import partial
+
     from mcmc_colorer_tpu_torch.models import mcmc as tm
-    from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource
+    from mcmc_colorer_tpu_torch.utils.rng import ChainSources, TorchUniformSource
 
     ell, p = colorer.ell, colorer.params
-    source = TorchUniformSource(seed, 0, colorer.device)
-    state = tm._chain_init(ell.n_pad, ell.n_nodes, p, source, colorer.device)
+    sources = ChainSources([TorchUniformSource(seed, 0, colorer.device)], colorer.device)
+    state = tm._chain_init(ell.n_pad, ell.n_nodes, p, sources, colorer.device,
+                           node_mask=ell.node_mask)
+    body = partial(tm._chain_body, params=p, block=colorer.block, n_nodes=ell.n_nodes,
+                   sources=sources, sweep=tm._sweep_pallas_fused)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    tm._chain_segment_fused(ell, state, p.max_iterations, params=p, block=colorer.block,
-                            source=source)
+    tm._chain_segment(ell, state, p.max_iterations, params=p, n_nodes=ell.n_nodes, fused=True,
+                      body=body)
     torch.cuda.synchronize()
     return torch.cuda.max_memory_allocated() - base
 
@@ -1083,10 +1112,20 @@ def _host_syncs(fn):
     def record(message, category, filename, lineno, file=None, line=None):
         if "synchroniz" not in str(message):
             return
-        ours = [f for f in traceback.extract_stack() if f.filename.startswith(pkg)]
+        stack = traceback.extract_stack()[:-1]
+        ours = [f for f in stack if f.filename.startswith(pkg)]
+        if not ours:  # the innermost frame outside torch and warnings
+            ours = [f for f in stack if "torch" not in f.filename
+                    and "warnings" not in f.filename]
         where = f"{Path(ours[-1].filename).name}:{ours[-1].lineno}" if ours else "?"
         sites.append(f"{where} ({Path(filename).name}:{lineno})")
 
+    with warnings.catch_warnings():
+        # the mode's first use in a process warns once that it is a
+        # prototype, a message that names no sync: let it pass unrecorded
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = record
@@ -1450,12 +1489,19 @@ class _LaunchShapes:
                 rec[1] = tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in inputs)
             rec[0] += launched
 
+        def one(x):
+            # the chain core hands one chain's runs over as [1, ...]: the
+            # same launch as the chainless call, which the checks make
+            return x[0] if isinstance(x, torch.Tensor) and x.dim() and x.shape[0] == 1 else x
+
         def k2_launch(neighbors, colors, cur, taboo, row0, unif, p_eff, eps, params,
                       self_ids=None, **kw):
             before = k2_mod.launches
             out = k2_orig(neighbors, colors, cur, taboo, row0, unif, p_eff, eps, params,
                           self_ids, **kw)
-            record("K2", (tuple(neighbors.shape), colors.shape[0], params.n_colors,
+            if colors.dim() == 2:
+                colors, cur, taboo, unif, p_eff = map(one, (colors, cur, taboo, unif, p_eff))
+            record("K2", (tuple(neighbors.shape), colors.shape[-1], params.n_colors,
                           self_ids is not None),
                    (neighbors, colors, cur, taboo, row0, unif, p_eff, params, self_ids),
                    k2_mod.launches - before)
@@ -1464,7 +1510,9 @@ class _LaunchShapes:
         def k3_launch(neighbors, colors, allow, n_colors, cur=None):
             before = k3_mod.launches
             out = k3_orig(neighbors, colors, allow, n_colors, cur)
-            record("K3", (tuple(neighbors.shape), colors.shape[0], n_colors, cur is not None),
+            if colors.dim() == 2:
+                colors, cur = one(colors), one(cur)
+            record("K3", (tuple(neighbors.shape), colors.shape[-1], n_colors, cur is not None),
                    (neighbors, colors, allow, n_colors, cur), k3_mod.launches - before)
             return out
 
@@ -1576,9 +1624,10 @@ def _sweep_times(ell, params, device, seed):
     taboo = torch.zeros_like(colors)
     unif = torch.rand((ell.n_pad,), generator=gen, device=device)
     p_eff = tm._p_eff_of(colors, params, ell.n_nodes, ell.node_mask)
+    args = (colors[None], taboo[None], unif[None], p_eff[None])  # the core's one chain
 
     def sweep():
-        return tm._sweep_pallas_fused(ell, params, 0, colors, taboo, unif, p_eff)
+        return tm._sweep_pallas_fused(ell, params, 0, *args)
 
     return _median_ms(sweep), _device_ms(sweep, TIMED_RUNS)
 
@@ -1734,6 +1783,557 @@ def phase_ba1m_bucketed(device):
     return out
 
 
+# ------------------------------- slice 8 -------------------------------
+
+# phase 22's palette: numColRatio 4 (287 colours at max degree 1150), where
+# the stepped chain needs tens of sweeps (33 on the H100), so the halfway
+# checkpoint falls well inside the run (at the max degree it ends in 4)
+STEPPED_RATIO = 4.0
+ENSEMBLE_CHAINS, BUCKETED_CHAINS, RESIDENT_CHAINS = 8, 4, 4
+
+
+class _ChainShapes:
+    """Counts the launches of K1, K2 and K3 with a chain axis ([C, n]
+    colours) by (kernel, tag, shape) while runs go, and keeps each shape's
+    first inputs (the colour-dependent ones cloned; the adjacency or ELL
+    is shared and never changes), so that each batched launch a run made
+    can be held against the plain version and against C single launches
+    on that run's own data, and timed (``check``).  A call's launches are
+    the rise of the wrapper's own count over it."""
+
+    def __init__(self):
+        from mcmc_colorer_tpu_torch.ops import firstfit as k3
+        from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+        from mcmc_colorer_tpu_torch.ops import resample as k2
+
+        self.mods = {"K1": (k1, "packed_nc_cuda"), "K2": (k2, "resample_sweep_cuda"),
+                     "K3": (k3, "first_fit_cuda")}
+        self.seen = {k: {} for k in self.mods}
+        self.tag = ""
+
+    def __enter__(self):
+        import torch
+
+        self.orig = {k: getattr(m, f) for k, (m, f) in self.mods.items()}
+
+        def wrap(kernel, mod, orig):
+            def call(*a, **kw):
+                before = mod.launches
+                out = orig(*a, **kw)
+                # an ensemble's launches: C > 1 chains (one chain's runs
+                # pass [1, n], the chainless launch, held by _LaunchShapes)
+                if a[1].dim() == 2 and a[1].shape[0] > 1 and mod.launches > before:
+                    rec = self.seen[kernel].setdefault(
+                        (self.tag, tuple(a[0].shape), tuple(a[1].shape)), [0, None])
+                    if rec[1] is None:
+                        rec[1] = (a[0],) + tuple(
+                            x.clone() if isinstance(x, torch.Tensor) else x for x in a[1:])
+                    rec[0] += mod.launches - before
+                return out
+            return call
+
+        for k, (m, f) in self.mods.items():
+            setattr(m, f, wrap(k, m, self.orig[k]))
+        return self
+
+    def __exit__(self, *exc):
+        for k, (m, f) in self.mods.items():
+            setattr(m, f, self.orig[k])
+
+    def launches(self, kernel: str) -> int:
+        return sum(n for n, _ in self.seen[kernel].values())
+
+    def check(self, phase: int) -> dict:
+        """Every recorded shape held and timed: {kernel: rows}, and the K2
+        boundary fraction and qstar error."""
+        out = {"K1": [], "K2": [], "K3": [], "frac": 0.0, "qerr": 0.0}
+        for kernel, fn in (("K1", _k1_batched), ("K2", _k2_batched), ("K3", _k3_batched)):
+            for (tag, nshape, cshape), (n, args) in self.seen[kernel].items():
+                label = f"{tag} {list(cshape)} x {list(nshape)}"
+                row = fn(self.mods[kernel][0], args, label, phase)
+                out["frac"] = max(out["frac"], row.pop("frac", 0.0))
+                out["qerr"] = max(out["qerr"], row.pop("qerr", 0.0))
+                out[kernel].append({**row, "launches": n})
+        return out
+
+
+def _once_ms(fn):
+    """(result, CUDA-event ms) of one call of ``fn``: the plain versions
+    are timed on the call their check makes (hundreds of ms to seconds at
+    these shapes, so one call is far above the timer's resolution)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _pair_times(batched, singles, label, phase, plain_ms):
+    """CUDA-event and device times of one batched launch and of its C
+    single launches, beside the plain version's ``plain_ms``."""
+    from mcmc_colorer_tpu_torch.measure_kernels import _device_ms
+
+    t = {"ms": _median_ms(batched), "singles_ms": _median_ms(singles),
+         "device_ms": _device_ms(batched, TIMED_RUNS),
+         "singles_device_ms": _device_ms(singles, TIMED_RUNS), "plain_ms": plain_ms}
+    print(f"phase {phase} {label}: batched {t['ms']:.3f} ms, {t['device_ms']:.3f} device; "
+          f"the chains' single launches {t['singles_ms']:.3f} ms, "
+          f"{t['singles_device_ms']:.3f} device; plain {plain_ms:.3f} ms (medians of "
+          f"{TIMED_RUNS}, plain of 1, CUDA events; device time under the profiler)")
+    return t
+
+
+def _k2_batched(k2, args, label, phase):
+    """K2 with a chain axis on a run's inputs: against its plain version
+    chain by chain under ``_k2_compare``'s rule, against one launch a chain
+    exactly (all four outputs), then timed."""
+    import torch
+
+    neigh, colors, cur, taboo, row0, unif, p_eff, eps, params = args[:9]
+    chains = colors.shape[0]
+    got = k2.resample_sweep_cuda(neigh, colors, cur, taboo, row0, unif, p_eff, eps, params)
+    want, plain_ms = _once_ms(lambda: k2.resample_sweep_plain(
+        neigh, colors, cur, taboo, row0, unif, p_eff, eps, params))
+    per_chain = [(neigh, colors[c].contiguous(), cur[c].contiguous(), taboo[c].contiguous(),
+                  row0, unif[c].contiguous(), None if p_eff is None else p_eff[c].contiguous())
+                 for c in range(chains)]
+    frac = qerr = 0.0
+    for c, args_c in enumerate(per_chain):
+        f, e = _k2_compare(k2, tuple(x[c] for x in got), tuple(x[c] for x in want), args_c,
+                           params, f"{label} chain {c}", phase)
+        frac, qerr = max(frac, f), max(qerr, e)
+        one = k2.resample_sweep_cuda(*args_c, eps, params)
+        _require(all(torch.equal(a[c], b) for a, b in zip(got[:3], one[:3]))
+                 and int(got[3][c]) == int(one[3]),
+                 f"K2 with a chain axis differs from chain {c}'s single launch at {label}")
+    del got, want
+    print(f"phase {phase} K2 {label}: every chain equal to its single launch")
+    t = _pair_times(
+        lambda: k2.resample_sweep_cuda(neigh, colors, cur, taboo, row0, unif, p_eff, eps,
+                                       params),
+        lambda: [k2.resample_sweep_cuda(*a, eps, params) for a in per_chain],
+        f"K2 {label}", phase, plain_ms)
+    # the ids are read once for all chains; each chain's vectors, colours
+    # and outputs once
+    n_bytes = sum(_k2_bytes_ops(a, params.n_colors)[0] for a in per_chain)
+    n_bytes -= (chains - 1) * _nbytes(neigh)
+    rows, d_pad = neigh.shape
+    shape = k2.sweep_shape(colors.shape[-1], params.n_colors)
+    return {"shape": label, "regime": "staged" if shape.staged else "L2", "rows": rows,
+            "d_pad": d_pad, "chains": chains, "n_colors": params.n_colors, **t,
+            "bytes": n_bytes, "ops": chains * rows * (d_pad + params.n_colors),
+            "frac": frac, "qerr": qerr}
+
+
+def _k3_batched(k3, args, label, phase):
+    """K3 with a chain axis on a run's inputs: against its plain version
+    and against one launch a chain, exactly; then timed."""
+    import torch
+
+    neigh, colors, allow, n_colors = args[:4]
+    cur = args[4] if len(args) > 4 else None
+    chains = colors.shape[0]
+    got = k3.first_fit_cuda(neigh, colors, allow, n_colors, cur)
+    want, plain_ms = _once_ms(lambda: k3.first_fit_plain(neigh, colors, allow, n_colors, cur))
+    err = int((got - want).abs().max())
+    _require(err == 0, f"K3 with a chain axis differs from its plain version at {label}: {err}")
+    per_chain = [(colors[c].contiguous(), None if cur is None else cur[c].contiguous())
+                 for c in range(chains)]
+    for c, (col_c, cur_c) in enumerate(per_chain):
+        _require(torch.equal(got[c], k3.first_fit_cuda(neigh, col_c, allow, n_colors, cur_c)),
+                 f"K3 with a chain axis differs from chain {c}'s single launch at {label}")
+    print(f"phase {phase} K3 {label}: exact against the plain version and the single launches")
+    t = _pair_times(lambda: k3.first_fit_cuda(neigh, colors, allow, n_colors, cur),
+                    lambda: [k3.first_fit_cuda(neigh, a, allow, n_colors, b) for a, b in per_chain],
+                    f"K3 {label}", phase, plain_ms)
+    slots = int((neigh < colors.shape[1]).sum())
+    n_bytes = (_nbytes(neigh, allow) + chains * neigh.shape[0] * 4
+               + sum(_gathered_bytes(neigh, a) + (_nbytes(b) if b is not None else 0)
+                     for a, b in per_chain))
+    return {"shape": label, "rows": neigh.shape[0], "d_pad": neigh.shape[1], "chains": chains,
+            "n_colors": n_colors, "max_abs_err": err, **t, "bytes": n_bytes,
+            "ops": chains * slots}
+
+
+def _k1_batched(k1, args, label, phase):
+    """K1 with a chain axis on a run's inputs (one shared A): against its
+    plain version and against one launch a chain, exactly; then timed."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.ops.hashgen import degrees_from_packed
+
+    adj, colors, ncp = args[:3]
+    chains = colors.shape[0]
+    got = k1.packed_nc_cuda(adj, colors, ncp)
+    want, plain_ms = _once_ms(lambda: k1.packed_nc_reference(adj, colors, ncp))
+    err = int((got - want).abs().max())
+    del want
+    _require(err == 0, f"K1 with a chain axis differs from its plain version at {label}: {err}")
+    per_chain = [colors[c].contiguous() for c in range(chains)]
+    for c, col_c in enumerate(per_chain):
+        _require(torch.equal(got[c], k1.packed_nc_cuda(adj, col_c, ncp)),
+                 f"K1 with a chain axis differs from chain {c}'s single launch at {label}")
+    del got
+    print(f"phase {phase} K1 {label}: exact against the plain version and the single launches")
+    t = _pair_times(lambda: k1.packed_nc_cuda(adj, colors, ncp),
+                    lambda: [k1.packed_nc_cuda(adj, a, ncp) for a in per_chain],
+                    f"K1 {label}", phase, plain_ms)
+    deg = degrees_from_packed(adj)
+    pad = torch.zeros((adj.shape[0],), dtype=torch.int64, device=adj.device)
+    adds = 0
+    for a in per_chain:  # an add a set bit of a coloured column
+        col_ok = pad.clone()
+        col_ok[: a.shape[0]] = (a >= 0) & (a < ncp)
+        adds += int((deg * col_ok).sum())
+    n_bytes = _nbytes(adj, colors) + chains * adj.shape[0] * ncp * 4
+    return {"shape": label, "n_col_pad": ncp, "chains": chains, "max_abs_err": err, **t,
+            "bytes": n_bytes, "ops": adds}
+
+
+def _one_chain_syncs(graph, n_pad, n_nodes, params, block, sweep, label, phase, seed=5,
+                     ell=None, node_mask=None, bodies=3):
+    """The chain core at one chain (C = 1) reads the host once a body: do-
+    while bodies over ``graph`` with ``sweep`` (after one that warms up)
+    under the sync debug mode, and with ``ell`` a tailcut round (K3).  A
+    copy of a host mask to the card would show here as a second sync."""
+    from functools import partial
+
+    import numpy as np
+
+    from mcmc_colorer_tpu_torch.models import mcmc as tm
+    from mcmc_colorer_tpu_torch.utils.rng import ChainSources, TorchUniformSource
+
+    dev = node_mask.device if node_mask is not None else ell.node_mask.device
+    sources = ChainSources([TorchUniformSource(seed, 0, dev)], dev)
+    st = tm._chain_init(n_pad, n_nodes, params, sources, dev, node_mask=node_mask)
+    body = partial(tm._chain_body, params=params, block=block, n_nodes=n_nodes,
+                   sources=sources, sweep=sweep)
+    run1 = np.ones(1, bool)
+    sites = []
+    for _ in range(bodies + 1):
+        st, got = _host_syncs(lambda: body(graph, st, run1))
+        sites.append(got)
+    tc_sites = []
+    if ell is not None:
+        tc = tm.TailcutState(tm._tailcut_init(ell, st.colors[0], params=params)[0][None],
+                             st.conf_last.copy(), np.zeros(1, np.int64), np.zeros(1, bool))
+        _, tc_sites = _host_syncs(lambda: tm._tailcut_body(ell, tc, run1, sources,
+                                                           params=params))
+    warm, sites = sites[0], sites[1:]
+    print(f"phase {phase} {label} host reads at one chain: warm-up body {warm}; bodies "
+          f"{[len(x) for x in sites]} ({sorted({y for x in sites for y in x})})"
+          + (f", a tailcut round {len(tc_sites)} {tc_sites}" if ell is not None else ""))
+    _require(all(len(x) == 1 for x in sites) and (ell is None or len(tc_sites) == 1),
+             f"{label}: a body and a tailcut round of one chain must read the host once: "
+             f"{sites}, {tc_sites}")
+
+
+def phase_stepped(device, g, seed=5):
+    """Slice 8, phase 22: the stepped chain (``SteppedMCMC``, K2 a body
+    and K3 in its tailcut) on phase 11's ER(100k, 0.01) host graph at
+    numColRatio ``STEPPED_RATIO``, balance-dynamic, tailcut, seed 5: a run
+    in segments of 4 with a checkpoint; a second instance steps half of
+    that run's sweeps, saves, and a fresh one resumes and must end equal
+    (colours, iterations, final conflicts); ``inspect`` on the card equals
+    it on a CPU copy of the state; ``DebugAttach`` with scripted streams
+    (``p free``, ``e epsilon 0.05``, ``c``, then ``q``) reaches the next
+    segment with the new ε; ``MCMCColorer`` under ``MCMC_COLORER_TRACE=1``
+    gives the untraced colouring and one TRACE line a segment; a stepped
+    body, a do-while body and a tailcut round of the chain core at one
+    chain read the host once each.  The K2 and K3 launches of the
+    segmented run and of the traced run, each run under its own tag, are
+    held and timed by shape (``_LaunchShapes``).  Returns (K2 rows, K3
+    rows, boundary fraction, max |qstar error|, K3 error)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind, default_n_colors
+    from mcmc_colorer_tpu_torch.models.base import check_coloring
+    from mcmc_colorer_tpu_torch.models import mcmc as tm
+    from mcmc_colorer_tpu_torch.models.chain_api import ChainState, SteppedMCMC
+    from mcmc_colorer_tpu_torch.models.mcmc import MCMCColorer
+    from mcmc_colorer_tpu_torch.ops import firstfit as k3
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+    from mcmc_colorer_tpu_torch.utils.dbg import DebugAttach
+
+    params = MCMCParams(n_colors=default_n_colors(g.max_degree, STEPPED_RATIO),
+                        proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
+    t0 = time.perf_counter()
+    shapes = _LaunchShapes()
+    with tempfile.TemporaryDirectory() as td:
+        shapes.tag = "stepped"
+        a = SteppedMCMC(g, params, backend="pallas", device=device)
+        ck = os.path.join(td, "stepped.npz")
+        k2.launches = k3.launches = 0
+        t1 = time.perf_counter()
+        with shapes:  # the segmented run alone: the kernels line's stepped row
+            ra = a.run(seed=seed, segment=4, checkpoint_path=ck)
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        l2, l3 = k2.launches, k3.launches
+        valid = check_coloring(g, ra.colors)
+        print(f"phase 22 stepped ER({BENCH_N}, {BENCH_P}) n_colors={params.n_colors} (ratio "
+              f"{STEPPED_RATIO}) seed {seed}, segments of 4 with a checkpoint: {ra.iterations} "
+              f"sweeps, tailcut rounds {ra.extra['tailcut_rounds']}, run {run_s:.3f} s "
+              f"({run_s / max(ra.iterations, 1) * 1e3:.3f} ms a sweep with the tailcut); K2 "
+              f"launches {l2}, K3 launches {l3}; valid {valid}, final conflicts "
+              f"{ra.extra['final_conflicts']}")
+        _require(valid and ra.extra["final_conflicts"] == 0, "phase 22: invalid colouring")
+        _require(ra.iterations >= 4, f"phase 22: the run took {ra.iterations} sweeps, not >= 4")
+        _require(l2 == ra.iterations and l3 >= (ra.extra["tailcut_rounds"] > 0),
+                 f"phase 22: {l2} K2 launches in {ra.iterations} sweeps")
+        _require(a.load_checkpoint(ck).iteration == ra.iterations,
+                 "phase 22: the last checkpoint is not the run's last state")
+        half = ra.iterations // 2
+        b = SteppedMCMC(g, params, backend="pallas", device=device)
+        st = b.step(b.init_state(seed), n_steps=half)
+        ck2 = os.path.join(td, "half.npz")
+        b.save_checkpoint(st, ck2)
+        rc = SteppedMCMC(g, params, backend="pallas", device=device).run(seed=seed,
+                                                                          resume_from=ck2)
+        same = (np.array_equal(rc.colors, ra.colors) and rc.iterations == ra.iterations
+                and rc.extra["final_conflicts"] == ra.extra["final_conflicts"])
+        print(f"phase 22 resume: {half} steps, saved, loaded into a fresh instance: "
+              f"{rc.iterations} sweeps, equal to the uninterrupted run {same}")
+        _require(same, "phase 22: the resumed run differs from the uninterrupted one")
+        info = b.inspect(st)
+        cpu_state = ChainState(st.colors.cpu(), st.taboo.cpu(), st.rng, st.iteration,
+                               st.conflicts)
+        info_cpu = SteppedMCMC(g, params, backend="pallas", device="cpu").inspect(cpu_state)
+        ints = [k for k, v in info.items() if isinstance(v, int)]
+        same = (all(info[k] == info_cpu[k] for k in ints)
+                and np.array_equal(info["histogram"], info_cpu["histogram"]))
+        print(f"phase 22 inspect at iteration {info['iteration']}: "
+              + ", ".join(f"{k} {info[k]}" for k in ints)
+              + f", avg free {info['free_colors_avg']:.4f}; card equal to the CPU copy {same}")
+        _require(same, "phase 22: inspect on the card differs from the CPU copy")
+        _, sites = _host_syncs(lambda: b.step(st, n_steps=1))
+        print(f"phase 22 stepped body host reads: {len(sites)} {sites}")
+        _require(len(sites) == 1, f"phase 22: a stepped body read the host {len(sites)} times")
+        d = SteppedMCMC(g, params.replace(tailcut=False), backend="pallas", device=device)
+        seen, step = [], d.step
+
+        def spy(state, n_steps=1, epsilon=None):
+            seen.append(epsilon)
+            return step(state, n_steps, epsilon=epsilon)
+
+        d.step = spy
+        out = io.StringIO()
+        dbg = DebugAttach(input=iter(["p free", "e epsilon 0.05", "c", "q"]), output=out,
+                          break_every=True)
+        rd = d.run(seed=seed, segment=1, dbg=dbg)
+        print(f"phase 22 DebugAttach: segments ran with epsilon {seen}; quit {dbg.quit} at "
+              f"iteration {rd.iterations}; printed {out.getvalue().splitlines()[1]!r}")
+        _require(seen == [None, 0.05] and dbg.quit and rd.iterations == 2
+                 and out.getvalue().splitlines()[1].startswith("min "),
+                 "phase 22: the debugger's epsilon edit did not reach the next segment")
+        m = MCMCColorer(g, params, backend="pallas", device=device)
+        plain = m.run(seed=seed)
+        _one_chain_syncs(m.ell, m.ell.n_pad, m.ell.n_nodes, params, m.block,
+                         tm._sweep_pallas_fused, "MCMCColorer (K2 do-while, K3 tailcut)", 22,
+                         ell=m.ell, node_mask=m.ell.node_mask)
+        shapes.tag = "traced"
+        err = io.StringIO()
+        os.environ["MCMC_COLORER_TRACE"] = "1"
+        try:
+            with shapes, contextlib.redirect_stderr(err):  # the traced run alone
+                traced = m.run(seed=seed)
+        finally:
+            del os.environ["MCMC_COLORER_TRACE"]
+    lines = [ln for ln in err.getvalue().splitlines() if ln.startswith("Max Free Colors: ")]
+    same = np.array_equal(traced.colors, plain.colors)
+    valid = check_coloring(g, traced.colors) and traced.extra["final_conflicts"] == 0
+    segs = traced.extra.get("free_color_trace_segments", [])
+    print(f"phase 22 MCMCColorer under MCMC_COLORER_TRACE=1: {traced.iterations} iterations, "
+          f"{len(lines)} TRACE lines ({lines[-1] if lines else ''}); chain "
+          f"{traced.extra['chain_seconds']:.3f} s traced, {plain.extra['chain_seconds']:.3f} s "
+          f"untraced; colours equal to the untraced run {same}; valid {valid}")
+    _require(same and valid and len(lines) == len(segs) >= 1,
+             "phase 22: the traced run differs, is invalid or printed no TRACE line")
+    print(f"phase 22: {time.perf_counter() - t0:.3f} s before the kernel checks")
+    return shapes.check(22, plain_runs=1)
+
+
+def _chain_c_equals(make_one, summaries, best, seed, device, label):
+    """Each chain c of an ensemble against a one-chain run fed chain c's
+    source: iterations, conflicts and class-size std equal, and the best
+    chain's colours."""
+    import numpy as np
+
+    from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource
+
+    one = make_one()
+    for c, s in enumerate(summaries):
+        r = one.run(seed, source=TorchUniformSource(seed, 0, device, chain=c))
+        same = ((r.iterations, r.extra["final_conflicts"]) == (s["iterations"], s["conflicts"])
+                and float(r.histogram.std()) == s["class_std"])
+        if c == best.extra["best_chain"]:
+            same = same and np.array_equal(r.colors, best.colors)
+        _require(same, f"{label}: chain {c} differs from its one-chain run")
+    print(f"{label}: every chain equal to a one-chain run fed its source "
+          f"(iterations {[s['iterations'] for s in summaries]})")
+
+
+def phase_ensembles(device, g, g4, seed=5):
+    """Slice 8, phase 23: ``EnsembleMCMCColorer(backend="pallas")`` with
+    ``ENSEMBLE_CHAINS`` chains on phase 11's ER(100k, 0.01) host graph (nCol
+    = max degree, seed 5) and with ``BUCKETED_CHAINS`` chains bucketed at
+    config 4 (phase 10's BA(50k, 8), seed 41): the best colouring valid,
+    K2 once a rectangle a batched body, each chain equal to a one-chain
+    run fed its source, and every batched K2 and K3 launch held against
+    its plain version and C single launches and timed
+    (``_ChainShapes``).  Returns ``_ChainShapes.check``'s dict."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.models.base import check_coloring
+    from mcmc_colorer_tpu_torch.models.mcmc import MCMCColorer
+    from mcmc_colorer_tpu_torch.ops import firstfit as k3
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+    from mcmc_colorer_tpu_torch.parallel.chains import EnsembleMCMCColorer
+
+    shapes = _ChainShapes()
+    runs = ((g, ENSEMBLE_CHAINS, "flat", seed, f"ER({BENCH_N}, {BENCH_P})"),
+            (g4, BUCKETED_CHAINS, "bucketed", 41, f"config 4 BA({CONFIG4_N}, {CONFIG4_M})"))
+    for graph, chains, layout, s, name in runs:
+        params = MCMCParams(n_colors=graph.max_degree, proposal=ProposalKind.BALANCE_DYNAMIC,
+                            tailcut=True)
+        ens = EnsembleMCMCColorer(graph, params, chains, backend="pallas", layout=layout,
+                                  device=device)
+        ens.run(seed=s)  # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        k2.launches = k3.launches = 0
+        shapes.tag = f"{name} {layout} ensemble"
+        with shapes:
+            best, summ = ens.run(seed=s)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        l2, l3 = k2.launches, k3.launches
+        x = best.extra
+        valid = check_coloring(graph, best.colors)
+        pieces = len(ens.ell.slices) if layout == "bucketed" else 1
+        print(f"phase 23 {name} {layout}, {chains} chains, n_colors={params.n_colors}, seed {s}"
+              f": sweeps (batched bodies) {x['sweeps']}, chain {x['chain_seconds']:.3f} s "
+              f"({x['chain_seconds'] / max(x['sweeps'], 1) * 1e3:.3f} ms a sweep of all "
+              f"chains), run {best.duration_ms / 1e3:.3f} s; per chain iterations "
+              f"{[c['iterations'] for c in summ]}, conflicts {[c['conflicts'] for c in summ]}; "
+              f"best chain {x['best_chain']}; K2 launches {l2}, K3 launches {l3}; peak device "
+              f"memory {peak} bytes above the {base} allocated before; valid {valid}")
+        _require(valid and x["final_conflicts"] == 0, f"phase 23 {name}: invalid colouring")
+        _require(l2 == x["sweeps"] * pieces > 0 and l3 > 0,
+                 f"phase 23 {name}: {l2} K2 launches in {x['sweeps']} batched bodies")
+        _chain_c_equals(lambda: MCMCColorer(graph, params, backend="pallas", layout=layout,
+                                            device=device), summ, best, s, device,
+                        f"phase 23 {name} {layout}")
+    torch.cuda.empty_cache()
+    return shapes.check(23)
+
+
+def phase_resident_ensemble(device, g, c_res, seed=5):
+    """Slice 8, phase 24: ``ResidentMCMCColorer(100_000, 0.01, 0,
+    n_chains=RESIDENT_CHAINS)`` (phase 4's hash graph and palette, seed 5):
+    valid against phase 4's host graph; a run capped at 2 iterations
+    (without the tailcut, which follows the checkpoint) writes a checkpoint
+    and the resumed run equals the uninterrupted one; the ``matmul``
+    ensemble over the host graph (K1 with a chain axis over A built from
+    the ELL); the batched K1 launches of the uninterrupted run and of the
+    ``matmul`` run, each under its own tag, held against the plain version
+    and C single launches and timed (``_ChainShapes``); a do-while body of
+    the resident chain at one chain reads the host once; then the resident
+    TRACE once.  Returns (``_ChainShapes.check``'s dict, the TRACE run's K1
+    launches)."""
+    import numpy as np
+    import torch
+
+    from mcmc_colorer_tpu_torch.models.base import check_coloring
+    from mcmc_colorer_tpu_torch.models.mcmc import _sweep_matmul
+    from mcmc_colorer_tpu_torch.models.mcmc_resident import ResidentMCMCColorer
+    from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+    from mcmc_colorer_tpu_torch.parallel.chains import EnsembleMCMCColorer
+
+    params = c_res.params
+    shapes = _ChainShapes()
+
+    def resident(**kw):
+        return ResidentMCMCColorer(BENCH_N, BENCH_P, 0, params=kw.pop("params", params),
+                                   n_chains=RESIDENT_CHAINS, device=device, **kw)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = 0
+    shapes.tag = "resident ensemble"
+    with tempfile.TemporaryDirectory() as td:
+        with shapes:  # the uninterrupted run alone: the kernels line's row
+            full, summ = resident().run_ensemble(seed=seed)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        l1 = k1.launches
+        valid = check_coloring(g, full.colors)
+        x = full.extra
+        print(f"phase 24 resident ensemble ER({BENCH_N}, {BENCH_P}), {RESIDENT_CHAINS} chains, "
+              f"n_colors={params.n_colors}, seed {seed}: sweeps (batched bodies) {x['sweeps']}, "
+              f"per chain iterations {[c['iterations'] for c in summ]}, tailcut rounds "
+              f"{x['tailcut_rounds']}, run {full.duration_ms / 1e3:.3f} s; K1 launches {l1}; "
+              f"peak device memory {peak} bytes above the {base} allocated before; valid {valid}")
+        _require(valid and x["final_conflicts"] == 0, "phase 24: invalid colouring")
+        # a sweep one launch, the final count one where a chain stopped at
+        # the cap, a tailcut round two (no NC is threaded between rounds)
+        capped = any(c["iterations"] >= params.max_iterations for c in summ)
+        _require(l1 == x["sweeps"] + capped + 2 * x["tailcut_rounds"],
+                 f"phase 24: {l1} K1 launches for {x['sweeps']} sweeps and "
+                 f"{x['tailcut_rounds']} tailcut rounds")
+        ck = os.path.join(td, "resident.npz")
+        pre, _ = resident(params=params.replace(max_iterations=2, tailcut=False)).run_ensemble(
+            seed=seed, checkpoint_path=ck)
+        res, summ_r = resident().run_ensemble(seed=seed, resume_from=ck)
+        same = np.array_equal(res.colors, full.colors) and summ_r == summ
+        print(f"phase 24 checkpoint at {pre.iterations} iterations, resumed: iterations "
+              f"{[c['iterations'] for c in summ_r]}, equal to the uninterrupted run {same}")
+        _require(same, "phase 24: the resumed ensemble differs from the uninterrupted one")
+        shapes.tag = "matmul ensemble"
+        ens = EnsembleMCMCColorer(g, params, RESIDENT_CHAINS, backend="matmul", device=device)
+        k1.launches = 0
+        with shapes:
+            bm, sm = ens.run(seed=seed)
+        lm = k1.launches
+        valid = check_coloring(g, bm.colors) and bm.extra["final_conflicts"] == 0
+        print(f"phase 24 matmul ensemble on the host graph, {RESIDENT_CHAINS} chains: A "
+              f"{list(ens.colorer._adj.shape)}, sweeps {bm.extra['sweeps']}, chain "
+              f"{bm.extra['chain_seconds']:.3f} s, iterations {[c['iterations'] for c in sm]}; "
+              f"K1 launches {lm}; valid {valid}")
+        _require(valid and lm == bm.extra["sweeps"] > 0,
+                 f"phase 24: matmul ensemble invalid or {lm} K1 launches in "
+                 f"{bm.extra['sweeps']} sweeps")
+        del ens
+    torch.cuda.empty_cache()
+    rows = shapes.check(24)
+    _one_chain_syncs(c_res.adj, c_res.n_pad, c_res.n, params, c_res.block, _sweep_matmul,
+                     "the resident chain (K1 do-while)", 24, node_mask=c_res.node_mask)
+    os.environ["MCMC_COLORER_TRACE"] = "1"
+    k1.launches = 0
+    try:
+        tr = ResidentMCMCColorer(BENCH_N, BENCH_P, 0, params=params, device=device).run(
+            seed=seed)
+    finally:
+        del os.environ["MCMC_COLORER_TRACE"]
+    l1t = k1.launches
+    segs = tr.extra.get("free_color_trace_segments", [])
+    print(f"phase 24 resident TRACE: {len(segs)} segments {segs}, K1 launches {l1t}")
+    _require(segs and tr.extra["final_conflicts"] == 0 and check_coloring(g, tr.colors),
+             "phase 24: the resident TRACE run printed nothing or is invalid")
+    torch.cuda.empty_cache()
+    return rows, l1t
+
+
 LOG_FIELDS = ("Nodes:", "Edges:", "Max deg:", "Edge probability", "Seed:", "Repetition:",
               "Execution time:", "Iteration performed:", "Max iteration reached:",
               "Color histogram:", "Number of colors:", "Used colors:", "Color ratio:",
@@ -1741,14 +2341,16 @@ LOG_FIELDS = ("Nodes:", "Edges:", "Max deg:", "Edge probability", "Seed:", "Repe
               "BalancingIndex")
 
 
-def _cli_run(args, n, tags):
-    """Run the port's CLI in a subprocess into a temporary directory;
-    check its exit code, its logs' field names and its colour files."""
+def _cli_run(args, n, tags, phase=15):
+    """Run the port's CLI in a subprocess into a temporary directory, with
+    its standard input from /dev/null; check its exit code, its logs' field
+    names and its colour files.  Returns (the process, {colour file name:
+    its text})."""
     with tempfile.TemporaryDirectory() as td:
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "mcmc_colorer_tpu_torch.cli", *args, "--outDir", td],
-            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            cwd=ROOT, capture_output=True, text=True, timeout=600, stdin=subprocess.DEVNULL,
         )
         wall = time.perf_counter() - t0
         _require(proc.returncode == 0,
@@ -1762,10 +2364,12 @@ def _cli_run(args, n, tags):
             _require(not missing, f"{f} lacks {missing}")
             cf = Path(td, f[:-4] + "-colors.txt")
             _require(len(cf.read_text().splitlines()) == n, f"{cf.name}: not {n} lines")
+        colors = {f: Path(td, f).read_text() for f in files if f.endswith("-colors.txt")}
     runs = [ln.split(" → ")[0] for ln in proc.stdout.splitlines() if " rep 0: " in ln]
-    print(f"phase 15 CLI {' '.join(args)}: exit 0 in {wall:.3f} s; {len(logs)} logs with "
+    print(f"phase {phase} CLI {' '.join(args)}: exit 0 in {wall:.3f} s; {len(logs)} logs with "
           f"the reference's fields; {'; '.join(runs)}")
     _require(len(runs) == len(tags) and all("VALID" in x for x in runs), "CLI: a run not VALID")
+    return proc, colors
 
 
 def phase_cli():
@@ -1795,6 +2399,29 @@ def phase_cli():
         _cli_run(["--simulate", "0.001", "-n", "20000", "--layout", "bucketed", "--mcmcgpu",
                   "--grdffgpu", "--vffgpu", "--lubygpu", "--tailcut", "--check", "--seed", "5",
                   *active], 20_000, ("MCMC_GPU", "LUBY", "GFF", "VFF"))
+
+
+def phase_cli_slice8():
+    """Slice 8's CLI calls at ER(20k, 0.01), --tailcut --check --seed 5:
+    --chains 4; --resident --chains 4 with --ckpt, then --resume (the same
+    colours); --dbg with standard input from /dev/null (no break-in); -v 1
+    (the free-colour TRACE lines on standard error)."""
+    base = ["--simulate", "0.01", "-n", "20000", "--mcmcgpu", "--tailcut", "--check", "--seed",
+            "5"]
+    _cli_run(base + ["--chains", "4"], 20_000, ("MCMC_GPU",), phase=25)
+    with tempfile.TemporaryDirectory() as td:
+        ck = os.path.join(td, "resident.npz")
+        _, first = _cli_run(base + ["--resident", "--chains", "4", "--ckpt", ck], 20_000,
+                            ("MCMC_GPU",), phase=25)
+        _require(os.path.exists(ck), "CLI --ckpt wrote no checkpoint")
+        _, again = _cli_run(base + ["--resident", "--chains", "4", "--resume", ck], 20_000,
+                            ("MCMC_GPU",), phase=25)
+        _require(first == again, "CLI --resume ends in other colours than the run it resumes")
+    _cli_run(base + ["--dbg"], 20_000, ("MCMC_GPU",), phase=25)
+    proc, _ = _cli_run(base + ["-v", "1"], 20_000, ("MCMC_GPU",), phase=25)
+    lines = [ln for ln in proc.stderr.splitlines() if "Max Free Colors: " in ln]
+    print(f"phase 25 CLI -v 1: {len(lines)} free-colour TRACE lines ({lines[-1] if lines else ''})")
+    _require(lines, "CLI -v 1 printed no free-colour TRACE line")
 
 
 def main() -> int:
@@ -1856,7 +2483,7 @@ def main() -> int:
     t_slice7 = time.perf_counter()
     k2_b4, k3_b4, f2, e2, e3 = phase_config4_bucketed(device, g4, r4, gff4)
     frac2, err2, err3 = max(frac2, f2), max(err2, e2), max(err3, e3)
-    del g4, r4, gff4
+    del r4, gff4
     torch.cuda.empty_cache()
     k2_b1m, k3_b1m, f2, e2, e3 = phase_ba1m_bucketed(device)
     frac2, err2, err3 = max(frac2, f2), max(err2, e2), max(err3, e3)
@@ -1871,12 +2498,27 @@ def main() -> int:
     host_k1, k1_host_shape = phase_packed_host(device, g_bench, c, r1, r2)
     hast_k2, hast_k1 = phase_hastings_xla(device, g_bench)
     slice6_s += time.perf_counter() - t_slice6
+    torch.cuda.empty_cache()
+    t_slice8 = time.perf_counter()
+    k2_st, k3_st, f2, e2, e3 = phase_stepped(device, g_bench)
+    frac2, err2, err3 = max(frac2, f2), max(err2, e2), max(err3, e3)
+    torch.cuda.empty_cache()
+    ens = phase_ensembles(device, g_bench, g4)
+    del g4
+    res_ens, trace_k1 = phase_resident_ensemble(device, g_bench, c)
+    frac2 = max(frac2, ens["frac"], res_ens["frac"])
+    err2 = max(err2, ens["qerr"], res_ens["qerr"])
+    err3 = max([err3] + [x["max_abs_err"] for x in ens["K3"] + res_ens["K3"]])
+    slice8_s = time.perf_counter() - t_slice8
     del c
     torch.cuda.empty_cache()
     t_slice6 = time.perf_counter()
     phase_cli()
-    print(f"phase 15 CLI: {time.perf_counter() - t_slice6:.3f} s; phases 16-19 (slice 6) "
-          f"{slice6_s:.3f} s; phases 20-21 (slice 7) {slice7_s:.3f} s")
+    t_cli8 = time.perf_counter()
+    phase_cli_slice8()
+    print(f"phase 15 CLI: {t_cli8 - t_slice6:.3f} s; phases 16-19 (slice 6) "
+          f"{slice6_s:.3f} s; phases 20-21 (slice 7) {slice7_s:.3f} s; phases 22-24 (slice 8) "
+          f"{slice8_s:.3f} s, its CLI calls (phase 25) {time.perf_counter() - t_cli8:.3f} s")
 
     # no single PyTorch call computes what K1, K2 or K3 compute from their
     # inputs (PERF.md): library_ms is null
@@ -1886,8 +2528,10 @@ def main() -> int:
     # resident Luby's two, one launch each a round (phase 14), and the
     # host graph's packed chain (phase 18, n_pad 131,072); its times are
     # their means weighted by those launches
-    k1_shapes = [("resident chain", chain_ncp, launches + res["k1"] + hast_k1, err, k_ms,
-                  p_ms, k1_bytes, k1_bits)]
+    # (phase 24's resident TRACE run counts on the resident chain's row: its
+    # sweeps, TRACE counts and tailcut all run K1 at that shape)
+    k1_shapes = [("resident chain", chain_ncp, launches + res["k1"] + hast_k1 + trace_k1, err,
+                  k_ms, p_ms, k1_bytes, k1_bits)]
     k1_shapes += [(f"resident Luby {ncp}", ncp, luby_rounds, *rest) for ncp, *rest in luby_k1]
     k1_shapes += [("host-graph packed chain", k1_host_shape[0], host_k1, *k1_host_shape[1:])]
     k1_rows = []
@@ -1895,14 +2539,19 @@ def main() -> int:
         b_ms, b_by = _bound(n_bytes, ops, INT32_OPS_PER_S)
         k1_rows.append({"shape": label, "n_col_pad": ncp, "launches": n, "max_abs_err": e,
                         "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by})
+    # slice 8: K1 with a chain axis (phase 24's resident and matmul
+    # ensembles), one row a shape, timed beside its chains' single launches
+    for row in res_ens["K1"]:
+        b_ms, b_by = _bound(row["bytes"], row["ops"], INT32_OPS_PER_S)
+        k1_rows.append({**row, "bound_ms": b_ms, "bound_by": b_by})
     k1_n = sum(x["launches"] for x in k1_rows)
 
     def weighted(rows, key):
         return sum(x[key] * x["launches"] for x in rows) / sum(x["launches"] for x in rows)
 
     k1_ms, k1_bound = weighted(k1_rows, "ms"), weighted(k1_rows, "bound_ms")
-    _require(k1_n == launches + luby_launches + res["k1"] + host_k1 + hast_k1,
-             "K1 launches by shape do not add up")
+    _require(k1_n == launches + luby_launches + res["k1"] + host_k1 + hast_k1 + trace_k1
+             + sum(x["launches"] for x in res_ens["K1"]), "K1 launches by shape do not add up")
     # K2 ran on the main paths one launch a sweep at the config-3 sweep in
     # the L2 regime (phases 9 and 16) and the ER(100k, 0.01) sweep staged
     # (phases 11 and 19), one a frontier iteration at each (palette, cap)
@@ -1913,9 +2562,11 @@ def main() -> int:
     _require(sum(x["launches"] for x in res["k2_rows"]) == res["k2"],
              "resident frontier K2 launches by cap do not add up")
     k2_rows = []
+    # slice 8: the stepped and traced chains' shapes (phase 22), and K2 with
+    # a chain axis at each shape of phase 23's ensembles
     for row in ([{**k2_config3, "launches": launches2 + fr3_full},
                  {**k2_bench, "launches": l2_bench + hast_k2}] + k2_fr3 + res["k2_rows"]
-                + k2_b4 + k2_b1m):
+                + k2_b4 + k2_b1m + k2_st + ens["K2"] + res_ens["K2"]):
         b_ms, b_by = _bound(row["bytes"], row["ops"], FP32_OPS_PER_S)
         k2_rows.append({**row, "bound_ms": b_ms, "bound_by": b_by,
                         "bound_share": b_ms / row["ms"]})
@@ -1926,7 +2577,7 @@ def main() -> int:
     k3_rows = []
     for row in ([{"shape": "config-3 band", "launches": launches3, "max_abs_err": err3,
                   "ms": k3_ms, "plain_ms": p3_ms, "bytes": k3_bytes, "ops": k3_slots}]
-                + k3_b4 + k3_b1m):
+                + k3_b4 + k3_b1m + k3_st + ens["K3"] + res_ens["K3"]):
         b_ms, b_by = _bound(row["bytes"], row["ops"], INT32_OPS_PER_S)
         k3_rows.append({**row, "bound_ms": b_ms, "bound_by": b_by,
                         "bound_share": b_ms / row["ms"]})

@@ -16,15 +16,20 @@ the resident one with ``--resident``); ``--backend matmul|packed`` runs
 ``MCMCColorer``'s packed chain over a host graph, and the other device
 colorers take ``auto`` instead, as the JAX CLI does.  ``--layout
 bucketed`` lays the graph out in degree classes for every device colorer
-(with ``--active`` too).
+(with ``--active`` too).  ``--chains N`` runs ``EnsembleMCMCColorer``
+(with ``--resident``, the resident ensemble); ``--dbg`` runs the stepped
+chain (``SteppedMCMC``) under the break-in debugger (``DebugAttach``);
+``--ckpt``/``--resume`` go to the targets that checkpoint (the resident
+colorer, the stepped chain), as in JAX: for any other ``--resume`` exits
+2 and ``--ckpt`` is ignored with a message; ``-v 1`` or more turns the
+TRACE output on (the device chain's free-colour lines among it).
 
-Paths the port does not have yet print a message naming their
-ROADMAP.md Queue 1 item and exit 2: ``--chains > 1`` and ``--dbg``
-(item 11), ``--mesh-chains``, ``--mesh-shards`` and ``--anneal`` (item
-12), ``--ckpt``, ``--resume`` and the device MCMC's TRACE output (item
-5).  The JAX CLI's refusals of
-``--active --hastings`` and of ``--resident --active`` with checkpoints
-or ``--chains`` exit 2 with its messages.
+The multi-device paths (ROADMAP.md Queue 1 item 12) print a message
+naming the item and exit 2: ``--mesh-chains``, ``--mesh-shards``,
+``--anneal`` and ``--active --chains`` (JAX runs frontier ensembles on
+its sharded colorer).  The JAX CLI's refusals of ``--active
+--hastings``, of ``--resident --active`` with checkpoints or
+``--chains`` and of ``--resident --dbg`` exit 2 with its messages.
 
 Run ``python -m mcmc_colorer_tpu_torch.cli --help``.
 """
@@ -165,8 +170,8 @@ def build_parser() -> argparse.ArgumentParser:
     gen.add_argument(
         "--dbg",
         action="store_true",
-        help="interactive debugger of the parallel MCMC chain (not ported "
-        "yet: ROADMAP.md Queue 1 item 11)",
+        help="interactive debugger of the parallel MCMC chain (ESC breaks "
+        "in at a segment boundary; reference src/utils/dbg.cpp)",
     )
     gen.add_argument(
         "--device",
@@ -175,10 +180,7 @@ def build_parser() -> argparse.ArgumentParser:
         "card; refused without one) or 'cpu' (their plain versions)",
     )
     dev = p.add_argument_group("Device scaling (no reference counterpart)")
-    dev.add_argument(
-        "--chains", type=int, default=1,
-        help="independent chains (ensemble; > 1 not ported yet: item 11)",
-    )
+    dev.add_argument("--chains", type=int, default=1, help="independent chains (ensemble)")
     dev.add_argument("--mesh-chains", type=int, default=0, help="not ported yet (item 12)")
     dev.add_argument("--mesh-shards", type=int, default=0, help="not ported yet (item 12)")
     dev.add_argument(
@@ -208,8 +210,12 @@ def build_parser() -> argparse.ArgumentParser:
         "bytes uploaded; models/mcmc_resident.py).  --mcmcgpu and/or "
         "--lubygpu; --check re-derives the identical graph host-side",
     )
-    dev.add_argument("--ckpt", metavar="PATH", help="chain checkpoints (item 5)")
-    dev.add_argument("--resume", metavar="PATH", help="resume a checkpoint (item 5)")
+    dev.add_argument(
+        "--ckpt", metavar="PATH",
+        help="write a chain checkpoint at every segment boundary (the resident colorer "
+        "and the stepped chain)",
+    )
+    dev.add_argument("--resume", metavar="PATH", help="resume a chain from a checkpoint")
     dev.add_argument(
         "--active",
         action="store_true",
@@ -226,12 +232,9 @@ def _refuse(msg: str) -> None:
     sys.exit(2)
 
 
-def _trace_on() -> bool:
-    return os.environ.get("MCMC_COLORER_TRACE", "") not in ("", "0", "false")
-
-
 def _check_unported(args) -> None:
-    """Refuse, naming the ROADMAP.md item, every path the port lacks."""
+    """Refuse, naming the ROADMAP.md item, every path the port lacks,
+    and the combinations the JAX CLI refuses."""
     item = "is not ported yet (ROADMAP.md Queue 1 item"
     if args.mcmcgpu and args.active and args.hastings:
         # the frontier sweep never forms the passive set's proposal
@@ -244,20 +247,16 @@ def _check_unported(args) -> None:
     if args.resident and args.active and args.chains > 1:
         _refuse("--resident --active is single-chain (or mesh): drop --chains or add "
                 "--mesh-shards.")
-    if args.chains > 1:
-        _refuse(f"--chains {args.chains}: MCMC ensembles {item} 11).")
-    if args.dbg:
-        _refuse(f"--dbg: the interactive chain debugger {item} 11).")
+    if args.resident and args.dbg:
+        _refuse("--resident is incompatible with --dbg.")
     for flag, on in (("--mesh-chains", args.mesh_chains), ("--mesh-shards", args.mesh_shards),
                      ("--anneal", args.anneal)):
         if on:
             _refuse(f"{flag}: multi-device meshes and annealing {item} 12).")
-    for flag, on in (("--ckpt", args.ckpt), ("--resume", args.resume)):
-        if on:
-            _refuse(f"{flag}: chain checkpoints {item} 5).")
-    if args.mcmcgpu and _trace_on():
-        _refuse(f"--verbose-level >= 1 with --mcmcgpu: the device chain's free-colour "
-                f"TRACE {item} 5).")
+    if args.mcmcgpu and args.active and args.chains > 1:
+        # JAX runs frontier ensembles on its sharded colorer (cli.py:386-411)
+        _refuse(f"--active --chains {args.chains}: frontier ensembles run on the sharded "
+                f"colorer, which {item} 12).")
 
 
 def _load_graph(args, seed: int) -> tuple[Graph, float | None]:
@@ -361,6 +360,19 @@ def _make_colorer(kind: ColorerKind, g: Graph, args, params: MCMCParams, device)
         from mcmc_colorer_tpu_torch.models.mcmc_sequential import SequentialMCMCColorer
 
         return SequentialMCMCColorer(g, params)
+    if kind == ColorerKind.MCMC and args.chains > 1:
+        from mcmc_colorer_tpu_torch.parallel.chains import EnsembleMCMCColorer
+
+        return _BestOfWrapper(EnsembleMCMCColorer(g, params, n_chains=args.chains,
+                                                  backend=args.backend, layout=args.layout,
+                                                  device=device))
+    if kind == ColorerKind.MCMC and args.dbg:
+        # the debugger needs the host-visible segment loop: the stepped chain
+        from mcmc_colorer_tpu_torch.models.chain_api import SteppedMCMC
+        from mcmc_colorer_tpu_torch.utils.dbg import DebugAttach
+
+        return _DbgWrapper(SteppedMCMC(g, params, backend=_device_backend(args),
+                                       layout=args.layout, device=device), DebugAttach())
     if kind == ColorerKind.MCMC and args.active:
         from mcmc_colorer_tpu_torch.models.mcmc_active import ActiveMCMCColorer
 
@@ -393,6 +405,53 @@ def _make_colorer(kind: ColorerKind, g: Graph, args, params: MCMCParams, device)
 
         return SequentialGreedyColorer(g)
     raise ValueError(kind)
+
+
+class _DbgWrapper:
+    """Adapts SteppedMCMC + DebugAttach to the single-result interface."""
+
+    def __init__(self, inner, dbg):
+        self.inner = inner
+        self.dbg = dbg
+
+    def run(self, seed, repetition=0, **kw):
+        return self.inner.run(seed, repetition, dbg=self.dbg, **kw)
+
+
+class _BestOfWrapper:
+    """Adapts an ensemble (returning (best, summaries)) to the
+    single-result interface."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def run(self, seed, repetition=0, **kw):
+        best, _summaries = self.inner.run(seed, repetition, **kw)
+        return best
+
+
+def _checkpoint_kwargs(colorer, args, tag: str, rep: int) -> dict:
+    """``--ckpt``/``--resume`` for one run, as the JAX CLI hands them
+    over (cli.py:676-700): only targets with ``save_checkpoint`` take them;
+    for any other ``--resume`` exits 2 and ``--ckpt`` is ignored."""
+    run_kw = {}
+    if not (args.ckpt or args.resume):
+        return run_kw
+    if hasattr(getattr(colorer, "inner", colorer), "save_checkpoint"):
+        if args.ckpt:
+            run_kw["checkpoint_path"] = args.ckpt
+        if args.resume and rep == 0:
+            run_kw["resume_from"] = args.resume
+    elif args.resume:
+        # silently re-running from iteration 0 would let an operator
+        # believe they resumed
+        print(f"--resume: {tag} does not support checkpointing; refusing to restart "
+              "silently.", file=sys.stderr)
+        sys.exit(2)
+    else:
+        print(f"--ckpt ignored: {tag} does not support checkpointing "
+              "(the resident, sharded and stepped colorers do).", file=sys.stderr)
+    return run_kw
 
 
 def main(argv=None) -> int:
@@ -463,6 +522,7 @@ def main(argv=None) -> int:
                 graph_seed=seed,
                 params=template,
                 num_col_ratio=ratio,
+                n_chains=max(1, args.chains),
                 active=args.active,
                 device=device,
             )
@@ -513,7 +573,8 @@ def main(argv=None) -> int:
             colorer = _make_colorer(kind, g, args, params, device)
         tag = _ALGO_TAG[kind]
         for rep in range(args.repet):
-            result = colorer.run(seed, repetition=rep)
+            result = colorer.run(seed, repetition=rep,
+                                 **_checkpoint_kwargs(colorer, args, tag, rep))
             log_path, _ = save_run(
                 out_dir,
                 graph_name,

@@ -40,6 +40,14 @@
 // fewer copies (down to one) so a row still fits: one design serves every
 // palette whose bitmask fits the 232,448 bytes of shared memory a block
 // may use.  All of it is integer work: the result is exact.
+//
+// The chain axis.  An ensemble's tailcut runs one first fit a chain over
+// one shared ELL (JAX vmaps _tailcut_body, and so pallas_first_fit:
+// parallel/chains.py:173-177 -> models/mcmc.py:1205).  Here the chain is
+// the grid's y index: block (x, c) reads chain c's colours
+// colors[c * n_ids, ...) and its cur[c * n_rows, ...) and writes
+// out[c * n_rows, ...); neighbors and allow are shared.  C = 1 is the
+// one-chain launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,6 +80,10 @@ __global__ void first_fit_kernel(
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= n_rows) return;  // uniform across the warp
+  const size_t chain = blockIdx.y;
+  colors += chain * n_ids;
+  if (cur != nullptr) cur += chain * n_rows;
+  out += chain * n_rows;
 
   const int row_words = n_words * copies;
   uint32_t* occ = smem + static_cast<size_t>(warp) * row_words;
@@ -142,7 +154,7 @@ __global__ void first_fit_kernel(
 template <bool VEC, int UNROLL>
 int launch(const void* neighbors, const void* colors, int n_ids,
            const void* allow_bits, const void* cur, void* out, int n_rows,
-           int d_pad, int n_colors, int rows_per_block, int copies,
+           int d_pad, int n_colors, int rows_per_block, int copies, int n_chains,
            cudaStream_t stream) {
   const int n_words = (n_colors + 31) / 32;
   const size_t smem = static_cast<size_t>(rows_per_block) * n_words * copies *
@@ -155,7 +167,7 @@ int launch(const void* neighbors, const void* colors, int n_ids,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int grid = (n_rows + rows_per_block - 1) / rows_per_block;
-  kernel<<<grid, 32 * rows_per_block, smem, stream>>>(
+  kernel<<<dim3(grid, n_chains), 32 * rows_per_block, smem, stream>>>(
       static_cast<const int*>(neighbors), static_cast<const int*>(colors),
       n_ids, static_cast<const uint32_t*>(allow_bits),
       static_cast<const int*>(cur), static_cast<int*>(out), n_rows, d_pad,
@@ -169,22 +181,25 @@ extern "C" {
 
 // Launches K3 on `stream`; returns cudaGetLastError() of the launch
 // (0 on success), or cudaErrorInvalidValue for a `copies` that is not a
-// power of two up to 32.  Pointers are device pointers; cur may be null.
-// neighbors is [n_rows, d_pad], 16-byte aligned when d_pad % 4 == 0 (its
-// rows are then read as 16-byte vectors); colors is [n_ids].
+// power of two up to 32 or a chain count outside 1 to 65535.  Pointers
+// are device pointers; cur may be null.  neighbors is [n_rows, d_pad],
+// 16-byte aligned when d_pad % 4 == 0 (its rows are then read as 16-byte
+// vectors); colors is [n_chains, n_ids]; cur and out are [n_chains,
+// n_rows].
 int first_fit_launch(const void* neighbors, const void* colors, int n_ids,
                      const void* allow_bits, const void* cur, void* out,
                      int n_rows, int d_pad, int n_colors, int rows_per_block,
-                     int copies, void* stream) {
-  if (copies < 1 || copies > 32 || (copies & (copies - 1)) != 0) {
+                     int copies, int n_chains, void* stream) {
+  if (copies < 1 || copies > 32 || (copies & (copies - 1)) != 0 || n_chains < 1 ||
+      n_chains > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
   return (d_pad & 3) == 0
              ? launch<true, 2>(neighbors, colors, n_ids, allow_bits, cur, out, n_rows, d_pad,
-                               n_colors, rows_per_block, copies, s)
+                               n_colors, rows_per_block, copies, n_chains, s)
              : launch<false, 8>(neighbors, colors, n_ids, allow_bits, cur, out, n_rows, d_pad,
-                                n_colors, rows_per_block, copies, s);
+                                n_colors, rows_per_block, copies, n_chains, s);
 }
 
 const char* first_fit_error_string(int code) {

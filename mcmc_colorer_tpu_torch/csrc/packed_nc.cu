@@ -44,6 +44,14 @@
 // so the output needs no zero fill.  Integer atomics make the result
 // exact and the same on every run.  The wrapper picks rows_per_block so
 // that the ring and the histograms fit the 227 KB a block may use.
+//
+// The chain axis.  An ensemble's chains share one A (JAX vmaps the
+// packed-NC product over them: models/mcmc_resident.py:287,303,311,
+// parallel/chains.py:105-143).  Here the chain is the grid's y index:
+// block (x, c) counts chain c's colours colors16[c * words * 32, ...)
+// into out[c * n_rows * n_col_pad, ...).  Each chain's blocks read A
+// again (C reads of A a launch): streaming A once for all chains is later
+// work.  C = 1 is the one-chain launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -144,6 +152,8 @@ __global__ void __launch_bounds__(32 * kMaxRows, kMinBlocks)
     packed_nc_kernel(const uint4* __restrict__ packed, const uint16_t* __restrict__ colors16,
                      int* __restrict__ out, int n_rows, int words, int n_col_pad) {
   extern __shared__ int4 smem[];
+  colors16 += static_cast<size_t>(blockIdx.y) * words * 32;
+  out += static_cast<size_t>(blockIdx.y) * n_rows * n_col_pad;
   uint16_t* ring = reinterpret_cast<uint16_t*>(smem);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -220,10 +230,12 @@ __global__ void __launch_bounds__(32 * kMaxRows, kMinBlocks)
 
 template <int MODE>
 int launch(const void* packed, const void* colors16, void* out, int n_rows,
-           int words, int n_col_pad, int rows_per_block, cudaStream_t stream) {
+           int words, int n_col_pad, int rows_per_block, int n_chains, cudaStream_t stream) {
   const size_t smem = kRing * kWindowBytes +
                       static_cast<size_t>(rows_per_block) * n_col_pad * sizeof(uint16_t);
-  if (rows_per_block > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows_per_block > kMaxRows || n_chains < 1 || n_chains > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto kernel = packed_nc_kernel<MODE>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -232,7 +244,7 @@ int launch(const void* packed, const void* colors16, void* out, int n_rows,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int grid = (n_rows + rows_per_block - 1) / rows_per_block;
-  kernel<<<grid, 32 * rows_per_block, smem, stream>>>(
+  kernel<<<dim3(grid, n_chains), 32 * rows_per_block, smem, stream>>>(
       static_cast<const uint4*>(packed), static_cast<const uint16_t*>(colors16),
       static_cast<int*>(out), n_rows, words, n_col_pad);
   return static_cast<int>(cudaGetLastError());
@@ -244,19 +256,22 @@ extern "C" {
 
 // Launches K1 on `stream`; returns cudaGetLastError() of the launch
 // (0 on success), or cudaErrorInvalidValue for a `mode` other than 0, 1
-// or 2 or more than kMaxRows rows a block.  Pointers are device pointers, 16-byte aligned; out is
-// [n_rows, n_col_pad], colors16 [words * 32].  mode 0 is K1; 1 and 2 are
-// the measurements described at packed_nc_kernel.
+// or 2, more than kMaxRows rows a block, or a chain count outside 1 to
+// 65535.  Pointers are device pointers, 16-byte aligned; out is
+// [n_chains, n_rows, n_col_pad], colors16 [n_chains, words * 32].  mode 0
+// is K1; 1 and 2 are the measurements described at packed_nc_kernel.
 int packed_nc_launch(const void* packed, const void* colors16, void* out,
                      int n_rows, int words, int n_col_pad, int rows_per_block,
-                     int mode, void* stream) {
+                     int n_chains, int mode, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+#define K1_ARGS packed, colors16, out, n_rows, words, n_col_pad, rows_per_block, n_chains, s
   switch (mode) {
-    case 0: return launch<0>(packed, colors16, out, n_rows, words, n_col_pad, rows_per_block, s);
-    case 1: return launch<1>(packed, colors16, out, n_rows, words, n_col_pad, rows_per_block, s);
-    case 2: return launch<2>(packed, colors16, out, n_rows, words, n_col_pad, rows_per_block, s);
+    case 0: return launch<0>(K1_ARGS);
+    case 1: return launch<1>(K1_ARGS);
+    case 2: return launch<2>(K1_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef K1_ARGS
 }
 
 const char* packed_nc_error_string(int code) {

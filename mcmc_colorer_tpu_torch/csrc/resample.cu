@@ -70,6 +70,16 @@
 // `mode` 1 and 2 are measurement variants with no defined output: 1
 // streams the ids alone, 2 also looks the colours up and fills the
 // occupancy, without the palette passes.
+//
+// The chain axis.  An ensemble of C independent chains sweeps one shared
+// ELL (JAX vmaps pallas_sweep over its chains: parallel/chains.py:145-153).
+// Here the chain is the grid's y index: block (x, c) serves chain c, whose
+// colour vector is colors[c * n_ids, ...), whose per-row vectors (cur,
+// taboo, unif and the four outputs) are [c * n_rows, ...) and whose p_eff
+// is p_eff[c * n_colors, ...); neighbors, self_ids and eps are shared.
+// In the staged regime each block stages its own chain's vector, and the
+// wrapper gives each chain SMs / C persistent blocks (at least one), so a
+// launch is still about one block an SM.  C = 1 is the one-chain launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -217,6 +227,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32) resample_kernel(
     const int* __restrict__ self_ids, int n_colors, int n_words, int copies,
     int kind, float lam, int lam_zero, int taboo_iterations, int mode) {
   extern __shared__ __align__(16) unsigned char smem[];
+  {  // this block's chain: offset every per-chain array to its slice
+    const size_t chain = blockIdx.y;
+    colors += chain * n_ids;
+    cur += chain * n_rows;
+    taboo += chain * n_rows;
+    unif += chain * n_rows;
+    p_eff += chain * n_colors;
+    star += chain * n_rows;
+    qstar += chain * n_rows;
+    new_taboo += chain * n_rows;
+    conf += chain * n_rows;
+  }
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -366,14 +388,14 @@ int launch(const void* neighbors, const void* colors, int n_ids, const void* cur
            void* star, void* qstar, void* new_taboo, void* conf, int n_rows,
            int d_pad, int row0, const void* self_ids, int n_colors, int n_words,
            int copies, int kind, float lam, int lam_zero, int taboo_iterations, int warps, int grid,
-           size_t smem, int mode, cudaStream_t stream) {
+           int n_chains, size_t smem, int mode, cudaStream_t stream) {
   auto kernel = resample_kernel<STAGED, VEC, UNROLL>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<grid, 32 * warps, smem, stream>>>(
+  kernel<<<dim3(grid, n_chains), 32 * warps, smem, stream>>>(
       static_cast<const int*>(neighbors), static_cast<const int*>(colors), n_ids,
       static_cast<const int*>(cur), static_cast<const int*>(taboo),
       static_cast<const float*>(unif), static_cast<const float*>(p_eff),
@@ -390,26 +412,28 @@ extern "C" {
 
 // Launches K2 on `stream`; returns cudaGetLastError() of the launch (0 on
 // success), or cudaErrorInvalidValue for a shape the kernel does not take:
-// `copies` a power of two up to 32, 1 to 32 warps a block, the staged
-// regime with fewer than 65535 colours, and shared memory within a block's
-// 232,448 bytes.  Pointers are device pointers; outputs are [n_rows].
-// neighbors is [n_rows, d_pad], 16-byte aligned when d_pad % 4 == 0 (its
-// rows are then read as 16-byte vectors); colors is [n_ids]; self_ids is
-// [n_rows] or null (the own ids are then row0 on).
+// `copies` a power of two up to 32, 1 to 32 warps a block, 1 to 65535
+// chains, the staged regime with fewer than 65535 colours, and shared
+// memory within a block's 232,448 bytes.  Pointers are device pointers;
+// outputs are [n_chains, n_rows].  neighbors is [n_rows, d_pad], 16-byte
+// aligned when d_pad % 4 == 0 (its rows are then read as 16-byte vectors);
+// colors is [n_chains, n_ids]; cur, taboo and unif are [n_chains, n_rows];
+// p_eff is [n_chains, n_colors]; self_ids is [n_rows] or null (the own ids
+// are then row0 on); `grid` is the blocks of one chain.
 int resample_launch(const void* neighbors, const void* colors, int n_ids,
                     const void* cur, const void* taboo, const void* unif,
                     const void* p_eff, const void* eps, void* star, void* qstar,
                     void* new_taboo, void* conf, int n_rows, int d_pad, int row0,
                     const void* self_ids, int n_colors, int kind, float lam, int lam_zero,
                     int taboo_iterations, int staged, int warps, int copies,
-                    int grid, int mode, void* stream) {
+                    int grid, int n_chains, int mode, void* stream) {
   const int n_words = (n_colors + 31) / 32;
   size_t smem = round16(static_cast<size_t>(warps) * n_words * copies * 4);
   if (staged) {
     smem += round16(static_cast<size_t>(n_colors) * 4) + round16(static_cast<size_t>(n_ids) * 2);
   }
   if (copies < 1 || copies > 32 || (copies & (copies - 1)) != 0 || warps < 1 ||
-      warps > kMaxWarps || grid < 1 || smem > kSmemMax ||
+      warps > kMaxWarps || grid < 1 || n_chains < 1 || n_chains > 65535 || smem > kSmemMax ||
       (staged && n_colors >= static_cast<int>(kNo16))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -418,7 +442,7 @@ int resample_launch(const void* neighbors, const void* colors, int n_ids,
 #define K2_ARGS                                                                   \
   neighbors, colors, n_ids, cur, taboo, unif, p_eff, eps, star, qstar, new_taboo, \
       conf, n_rows, d_pad, row0, self_ids, n_colors, n_words, copies, kind, lam,  \
-      lam_zero, taboo_iterations, warps, grid, smem, mode, s
+      lam_zero, taboo_iterations, warps, grid, n_chains, smem, mode, s
   if (staged) {
     return vec ? launch<true, true, 2>(K2_ARGS) : launch<true, false, 8>(K2_ARGS);
   }

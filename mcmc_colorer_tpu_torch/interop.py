@@ -5,7 +5,13 @@
 - The chain carry: the fields a JAX resident checkpoint holds
   (``models/mcmc_resident.py:save_checkpoint``: colors, taboo,
   iteration, conf_last, trace, done) become the port's ``ChainState``
-  and back.  The key is left out: the port draws from its own source.
+  at C = 1 and back; with a leading chain axis (a batched resident
+  carry), a ``ChainState`` of C chains (``chains_from_numpy`` /
+  ``chains_to_numpy``).  JAX's
+  stepped ``ChainState`` (colors, taboo, iteration, conflicts) becomes
+  the port's stepped one and back (``stepped_from_numpy`` /
+  ``stepped_to_numpy``).  The key is left out: the port draws from its
+  own source, whose generator state the caller gives.
 - Host graphs and ELL layouts: a JAX ``Graph`` becomes the port's
   (``graph_from_jax``, a copy of the CSR); an ``EllGraph`` of either
   package reads back as numpy (``ell_to_numpy``); a degree-bucketed
@@ -38,30 +44,56 @@ def adjacency_to_jax(adj: torch.Tensor) -> np.ndarray:
     return adj.cpu().numpy().view(np.uint32)
 
 
-def carry_from_numpy(
-    colors, taboo, iteration, conf_last, trace, done, device="cpu"
-) -> ChainState:
-    """The port's chain state from a JAX carry's (or checkpoint's) fields."""
+def _tensor(x, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+
+
+def chains_from_numpy(colors, taboo, iteration, conf_last, trace, done, device="cpu"):
+    """The port's ``ChainState`` from a batched (vmapped) JAX carry's
+    fields, each with a leading chain axis."""
     return ChainState(
-        colors=torch.from_numpy(np.asarray(colors, dtype=np.int32).copy()).to(device),
-        taboo=torch.from_numpy(np.asarray(taboo, dtype=np.int32).copy()).to(device),
-        rip=int(iteration),
-        conf_last=int(conf_last),
-        trace=np.asarray(trace, dtype=np.int32).copy(),
-        done=bool(done),
+        colors=_tensor(colors, np.int32, device), taboo=_tensor(taboo, np.int32, device),
+        rip=np.array(iteration, dtype=np.int64), conf_last=np.array(conf_last, np.int64),
+        trace=np.array(trace, dtype=np.int32), done=np.array(done, dtype=bool),
     )
 
 
-def carry_to_numpy(state: ChainState) -> dict:
-    """The inverse of :func:`carry_from_numpy`, keyed by checkpoint field."""
+def chains_to_numpy(state: ChainState) -> dict:
+    """The inverse of :func:`chains_from_numpy`, keyed by checkpoint field."""
     return {
-        "colors": state.colors.cpu().numpy(),
-        "taboo": state.taboo.cpu().numpy(),
-        "iteration": np.int32(state.rip),
-        "conf_last": np.int32(state.conf_last),
-        "trace": state.trace.copy(),
-        "done": np.bool_(state.done),
+        "colors": state.colors.cpu().numpy(), "taboo": state.taboo.cpu().numpy(),
+        "iteration": state.rip.astype(np.int32), "conf_last": state.conf_last.astype(np.int32),
+        "trace": state.trace.copy(), "done": state.done.copy(),
     }
+
+
+def carry_from_numpy(colors, taboo, iteration, conf_last, trace, done,
+                     device="cpu") -> ChainState:
+    """The port's carry of one chain (C = 1) from a JAX single-chain
+    carry's (or checkpoint's) fields."""
+    fields = (colors, taboo, iteration, conf_last, trace, done)
+    return chains_from_numpy(*(np.asarray(x)[None] for x in fields), device=device)
+
+
+def carry_to_numpy(state: ChainState) -> dict:
+    """The inverse of :func:`carry_from_numpy`: JAX's single-chain shapes."""
+    return {k: v[0] for k, v in chains_to_numpy(state).items()}
+
+
+def stepped_from_numpy(colors, taboo, iteration, conflicts, rng, device="cpu"):
+    """The port's stepped ``ChainState`` (``models/chain_api.py``) from JAX's
+    stepped state's fields; ``rng`` is the generator state to draw from."""
+    from mcmc_colorer_tpu_torch.models.chain_api import ChainState as SteppedState
+
+    return SteppedState(colors=_tensor(colors, np.int32, device),
+                        taboo=_tensor(taboo, np.int32, device), rng=rng,
+                        iteration=int(iteration), conflicts=int(conflicts))
+
+
+def stepped_to_numpy(state) -> dict:
+    """The stepped state's fields JAX's holds too, as numpy."""
+    return {"colors": state.colors.cpu().numpy(), "taboo": state.taboo.cpu().numpy(),
+            "iteration": np.int32(state.iteration), "conflicts": np.int32(state.conflicts)}
 
 
 def graph_from_jax(jax_graph) -> Graph:

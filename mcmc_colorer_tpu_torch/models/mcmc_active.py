@@ -195,14 +195,15 @@ def _full_iteration(ell, colors, taboo, source, *, params: MCMCParams, block: in
     separate count."""
     unif = source.next(ell.n_pad)
     p_eff = _p_eff_of(colors, params, ell.n_nodes, ell.node_mask)
+    # the chain core's sweeps take a chain axis: this is one chain
+    args = (ell, params, block, colors[None], taboo[None], unif[None],
+            None if p_eff is None else p_eff[None])
     if backend == "pallas":
-        star, new_taboo, _, conf = _sweep_pallas_fused(
-            ell, params, block, colors, taboo, unif, p_eff
-        )
+        star, new_taboo, _, conf = _sweep_pallas_fused(*args)
     else:
-        star, new_taboo, _ = _sweep(ell, params, block, colors, taboo, unif, p_eff)
-        conf = _conflict_edges(ell, colors)
-    return star, new_taboo, conf
+        star, new_taboo, _ = _sweep(*args)
+        conf = _conflict_edges(ell, colors[None])
+    return star[0], new_taboo[0], conf[0]
 
 
 def _active_iteration(graph, colors, taboo, cnt, source, *, cap: int, params: MCMCParams,

@@ -19,6 +19,11 @@ row's own colour ``cur`` (when given), or -1.
   itself, or raise.  There is no fallback from the card to the plain
   version.
 
+Both take one colour vector ``[n]`` or a chain axis ``[C, n]`` (with
+``cur`` then ``[C, rows]``; ``neighbors`` and ``allow`` are shared): an
+ensemble's tailcut, where JAX vmaps its first fit over the chains.  The
+result is then ``[C, rows]``, one launch for all chains.
+
 Both are integer work and agree exactly.  ``launches`` counts the
 kernel's launches.
 """
@@ -30,7 +35,11 @@ from pathlib import Path
 
 import torch
 
-from mcmc_colorer_tpu_torch.ops.neighbor import neighbor_colors, occupancy_matrix
+from mcmc_colorer_tpu_torch.ops.neighbor import (
+    neighbor_colors,
+    neighbor_colors_chains,
+    occupancy_matrix,
+)
 from mcmc_colorer_tpu_torch.ops.packed_nc import SMEM_BLOCK_BYTES
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "first_fit.cu"
@@ -61,7 +70,7 @@ def load_kernel():
         fn = built.lib.first_fit_launch
         fn.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         err = built.lib.first_fit_error_string
@@ -86,12 +95,20 @@ def _check(nc, allow, n_colors, cur):
 
 
 def _check_ids(neighbors, colors, allow, n_colors, cur):
-    """``_check`` on the ids, plus the colour vector they index."""
-    _check(neighbors, allow, n_colors, cur)
-    if colors.dtype != torch.int32 or colors.dim() != 1:
-        raise TypeError(f"colors must be 1-D int32, got {colors.dtype} {tuple(colors.shape)}")
+    """``_check`` on the ids, plus the colour vector they index: [n], or
+    [C, n] with ``cur`` [C, rows]."""
+    if colors.dtype != torch.int32 or colors.dim() not in (1, 2):
+        raise TypeError(f"colors must be [n] or [C, n] int32, got {colors.dtype} "
+                        f"{tuple(colors.shape)}")
     if colors.device != neighbors.device:
         raise ValueError(f"neighbors on {neighbors.device} but colors on {colors.device}")
+    if colors.dim() == 2 and cur is not None:
+        want = (colors.shape[0], neighbors.shape[0])
+        if cur.dtype != torch.int32 or tuple(cur.shape) != want:
+            raise TypeError(f"cur must be {list(want)} int32, got {cur.dtype} "
+                            f"{tuple(cur.shape)}")
+        cur = cur[0]
+    _check(neighbors, allow, n_colors, cur)
 
 
 def pack_bits(mask: torch.Tensor) -> torch.Tensor:
@@ -107,8 +124,8 @@ def pack_bits(mask: torch.Tensor) -> torch.Tensor:
 
 
 def first_fit(neighbors, colors, allow, n_colors: int, cur=None) -> torch.Tensor:
-    """[rows] int32: the smallest allowed colour other than ``cur`` that no
-    neighbour holds, or -1."""
+    """[rows] int32 ([C, rows] for colours [C, n]): the smallest allowed
+    colour other than ``cur`` that no neighbour holds, or -1."""
     if neighbors.device.type == "cpu":
         return first_fit_plain(neighbors, colors, allow, n_colors, cur)
     if neighbors.device.type != "cuda":
@@ -146,16 +163,17 @@ def first_fit_cuda(neighbors, colors, allow, n_colors: int, cur=None) -> torch.T
     if d_pad % 4 == 0 and neighbors.data_ptr() % 16:
         raise ValueError("K3 reads rows of d_pad % 4 == 0 as 16-byte vectors: align neighbors")
     rows_per_block, copies = _kernel_shape(n_colors)
+    chains = colors.shape[0] if colors.dim() == 2 else 1
     allow_bits = pack_bits(allow)
-    out = torch.empty((rows,), dtype=torch.int32, device=neighbors.device)
-    if rows == 0:
+    out = torch.empty((*colors.shape[:-1], rows), dtype=torch.int32, device=neighbors.device)
+    if rows == 0 or chains == 0:
         return out
     lib = load_kernel().lib
     with torch.cuda.device(neighbors.device):
         rc = lib.first_fit_launch(
-            neighbors.data_ptr(), colors.data_ptr(), colors.shape[0],
+            neighbors.data_ptr(), colors.data_ptr(), colors.shape[-1],
             allow_bits.data_ptr(), cur.data_ptr() if cur is not None else None,
-            out.data_ptr(), rows, d_pad, n_colors, rows_per_block, copies,
+            out.data_ptr(), rows, d_pad, n_colors, rows_per_block, copies, chains,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
@@ -168,9 +186,15 @@ def first_fit_cuda(neighbors, colors, allow, n_colors: int, cur=None) -> torch.T
 
 def first_fit_plain(neighbors, colors, allow, n_colors: int, cur=None) -> torch.Tensor:
     """Plain version of K3: the gather ``neighbor_colors`` (padding ids
-    land on -1), then ``first_fit_reference`` on the gathered band."""
+    land on -1), then ``first_fit_reference`` on the gathered band; with a
+    chain axis, on the chains' bands stacked row-wise."""
     _check_ids(neighbors, colors, allow, n_colors, cur)
-    return first_fit_reference(neighbor_colors(neighbors, colors), allow, n_colors, cur)
+    if colors.dim() == 1:
+        return first_fit_reference(neighbor_colors(neighbors, colors), allow, n_colors, cur)
+    chains, rows = colors.shape[0], neighbors.shape[0]
+    nc = neighbor_colors_chains(neighbors, colors).reshape(chains * rows, -1)
+    flat_cur = cur.reshape(-1) if cur is not None else None
+    return first_fit_reference(nc, allow, n_colors, flat_cur).reshape(chains, rows)
 
 
 def first_fit_reference(nc, allow, n_colors: int, cur=None) -> torch.Tensor:

@@ -27,6 +27,17 @@ def neighbor_colors(
     return ext.index_select(0, neighbors.reshape(-1)).reshape(neighbors.shape)
 
 
+def neighbor_colors_chains(
+    neighbors: torch.Tensor, colors: torch.Tensor, fill: int = -1
+) -> torch.Tensor:
+    """``neighbor_colors`` for a chain axis: colours [C, n] ->
+    [C, B, d_pad], one gather for every chain."""
+    tail = torch.full((colors.shape[0], 1), fill, dtype=torch.int32, device=colors.device)
+    ext = torch.cat([colors.to(torch.int32), tail], dim=1)
+    return ext.index_select(1, neighbors.reshape(-1)).reshape(colors.shape[0],
+                                                              *neighbors.shape)
+
+
 def occupancy_matrix(neigh_cols: torch.Tensor, n_colors: int) -> torch.Tensor:
     """[B, n_colors] bool: occ[v, c] iff some neighbour of v has colour c.
     Colours < 0 (padding) and >= n_colors (phantoms) are dropped: they

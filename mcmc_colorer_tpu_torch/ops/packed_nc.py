@@ -10,6 +10,11 @@ Replaces ``mcmc_colorer_tpu/ops/pallas_bitmatmul.py:packed_nc_pallas``.
   (built with nvcc for sm_90a at first use) or raise.  There is no
   fallback from the card to the plain version.
 
+Both take one colour vector ``[K]`` or a chain axis ``[C, K]`` (an
+ensemble's chains over one shared A, what JAX's ``vmap`` of the product
+computes): NC is then ``[C, rows, n_col_pad]``, one launch for all
+chains, and the plain version one broadcast product a window.
+
 ``launches`` counts the kernel's launches, so a run can show that its
 main path went through the kernel.
 """
@@ -45,7 +50,7 @@ def load_kernel():
 
         built = build_library("packed_nc", SOURCE)
         fn = built.lib.packed_nc_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = built.lib.packed_nc_error_string
         err.argtypes = [ctypes.c_int]
@@ -57,8 +62,9 @@ def load_kernel():
 def _check(packed: torch.Tensor, colors: torch.Tensor, n_col_pad: int):
     if packed.dtype != torch.int32 or packed.dim() != 2:
         raise TypeError(f"packed must be 2-D int32, got {packed.dtype} {tuple(packed.shape)}")
-    if colors.dtype != torch.int32 or colors.dim() != 1:
-        raise TypeError(f"colors must be 1-D int32, got {colors.dtype} {tuple(colors.shape)}")
+    if colors.dtype != torch.int32 or colors.dim() not in (1, 2):
+        raise TypeError(f"colors must be [K] or [C, K] int32, got {colors.dtype} "
+                        f"{tuple(colors.shape)}")
     if packed.device != colors.device:
         raise ValueError(f"packed on {packed.device} but colors on {colors.device}")
     words = packed.shape[1]
@@ -66,23 +72,26 @@ def _check(packed: torch.Tensor, colors: torch.Tensor, n_col_pad: int):
         raise ValueError(f"words={words} not a positive multiple of 128")
     if n_col_pad <= 0 or n_col_pad % 128:
         raise ValueError(f"n_col_pad={n_col_pad} not a positive multiple of 128")
-    if colors.shape[0] > words * 32:
+    if colors.shape[-1] > words * 32:
         raise ValueError(
-            f"{colors.shape[0]} colours for {words * 32} packed columns"
+            f"{colors.shape[-1]} colours for {words * 32} packed columns"
         )
 
 
 def _pad_colors(colors: torch.Tensor, k_total: int) -> torch.Tensor:
-    """Colours padded with -1 (counts nowhere) to one per packed column."""
-    if colors.shape[0] == k_total:
+    """Colours (a chain's last axis) padded with -1 (counts nowhere) to one
+    per packed column."""
+    if colors.shape[-1] == k_total:
         return colors
-    out = torch.full((k_total,), -1, dtype=torch.int32, device=colors.device)
-    out[: colors.shape[0]] = colors
+    out = torch.full((*colors.shape[:-1], k_total), -1, dtype=torch.int32,
+                     device=colors.device)
+    out[..., : colors.shape[-1]] = colors
     return out
 
 
 def packed_nc(packed: torch.Tensor, colors: torch.Tensor, n_col_pad: int) -> torch.Tensor:
-    """[rows, n_col_pad] int32: NC[i, c] = #{j : A[i, j] = 1, colors[j] = c}."""
+    """[rows, n_col_pad] int32: NC[i, c] = #{j : A[i, j] = 1, colors[j] = c};
+    [C, rows, n_col_pad] for colours [C, K]."""
     if packed.device.type == "cpu":
         return packed_nc_reference(packed, colors, n_col_pad)
     if packed.device.type != "cuda":
@@ -113,18 +122,20 @@ def packed_nc_cuda(packed: torch.Tensor, colors: torch.Tensor, n_col_pad: int, *
             f"n_col_pad={n_col_pad} > {N_COL_PAD_MAX}: K1 passes colours as uint16"
         )
     rows, words = packed.shape
+    chains = colors.shape[0] if colors.dim() == 2 else 1
     rows_per_block = min(ROWS_PER_BLOCK, (SMEM_BLOCK_BYTES - RING_BYTES) // (n_col_pad * 2))
     colors16 = _colors16(_pad_colors(colors, words * 32), n_col_pad)
-    out = torch.empty((rows, n_col_pad), dtype=torch.int32, device=packed.device)
+    out = torch.empty((*colors.shape[:-1], rows, n_col_pad), dtype=torch.int32,
+                      device=packed.device)
     if packed.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("K1 reads and writes 16-byte vectors: align packed and out")
-    if rows == 0:
+    if rows == 0 or chains == 0:
         return out
     lib = load_kernel().lib
     with torch.cuda.device(packed.device):
         rc = lib.packed_nc_launch(
             packed.data_ptr(), colors16.data_ptr(), out.data_ptr(),
-            rows, words, n_col_pad, rows_per_block, mode,
+            rows, words, n_col_pad, rows_per_block, chains, mode,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
@@ -152,16 +163,17 @@ def _full_float32_matmul(device: torch.device):
 
 def packed_nc_reference(packed: torch.Tensor, colors: torch.Tensor, n_col_pad: int) -> torch.Tensor:
     """Plain version of K1: per 4096-column window, unpack A to 0/1 and
-    multiply by the window's one-hot colour rows.  The product runs in
-    float32 and is cast to int32: every partial sum is an integer of at
-    most 4096 < 2**24, so it is exact in any order of addition."""
+    multiply by the window's one-hot colour rows (a chain axis broadcasts:
+    [rows, 4096] @ [C, 4096, n_col_pad]).  The product runs in float32 and
+    is cast to int32: every partial sum is an integer of at most 4096 <
+    2**24, so it is exact in any order of addition."""
     _check(packed, colors, n_col_pad)
     rows, words = packed.shape
     dev = packed.device
     colors_k = _pad_colors(colors, words * 32)
     shifts = torch.arange(32, dtype=torch.int32, device=dev)[None, :, None]
-    col_ids = torch.arange(n_col_pad, dtype=torch.int32, device=dev)[None, :]
-    out = torch.zeros((rows, n_col_pad), dtype=torch.int32, device=dev)
+    col_ids = torch.arange(n_col_pad, dtype=torch.int32, device=dev)
+    out = torch.zeros((*colors.shape[:-1], rows, n_col_pad), dtype=torch.int32, device=dev)
     with _full_float32_matmul(dev):
         for k in range(words // 128):
             pk = packed[:, k * 128:(k + 1) * 128]
@@ -169,7 +181,7 @@ def packed_nc_reference(packed: torch.Tensor, colors: torch.Tensor, n_col_pad: i
             bits = ((pk[:, None, :] >> shifts) & 1).to(torch.float32).reshape(
                 rows, PACKED_K_CHUNK
             )
-            window = colors_k[k * PACKED_K_CHUNK:(k + 1) * PACKED_K_CHUNK]
-            onehot = (window[:, None] == col_ids).to(torch.float32)
+            window = colors_k[..., k * PACKED_K_CHUNK:(k + 1) * PACKED_K_CHUNK]
+            onehot = (window[..., None] == col_ids).to(torch.float32)
             out += (bits @ onehot).to(torch.int32)  # in place: one accumulator
     return out

@@ -61,7 +61,7 @@ from mcmc_colorer_tpu_torch.ops.neighbor import frontier_ids, take_rows
 
 from test_torch_active import Replay
 from test_torch_luby import JaxKeySource, assert_mis_classes
-from test_torch_mcmc import carry_state, jax_uniform, port_params
+from test_torch_mcmc import RUN1, carry_state, jax_uniform, one, port_params
 from test_torch_resample import assert_boundary_only
 
 torch.set_num_threads(2)
@@ -202,7 +202,7 @@ def test_conflict_edges_and_cnt_exact(ba, min_lane):
     jb, tb = layouts(ba, min_lane=min_lane)
     colors, _, _ = random_state(jb, 12, seed=3)
     want = int(jm._conflict_edges_bucketed(jb, jnp.asarray(colors)))
-    assert int(tm._conflict_edges(tb, t(colors))) == want > 0
+    assert int(tm._conflict_edges(tb, t(colors)[None])[0]) == want > 0
     cnt = ta._cnt_of(tb, t(colors))
     assert np.array_equal(cnt.numpy(), np.asarray(ja._cnt_of(jb, jnp.asarray(colors),
                                                              params=None)))
@@ -243,15 +243,16 @@ def test_bucketed_sweep_matches_jax(ba, case):
     hist = j_hist(jnp.asarray(colors), n_colors, jb.node_mask)
     p_eff = jm._variant_distribution(jp, hist, jb.n_nodes)
     args_j = (jnp.asarray(colors), jnp.asarray(taboo), jnp.asarray(unif), p_eff)
-    p_eff_t = None if p_eff is None else t(p_eff)
-    args_t = (t(colors), t(taboo), t(unif), p_eff_t)
+    p_eff_t = None if p_eff is None else t(p_eff)[None]
+    args_t = (t(colors)[None], t(taboo)[None], t(unif)[None], p_eff_t)  # one chain
     if backend == "pallas":
         star_j, taboo_j, logq_j, conf_j = jm._sweep_pallas_fused_bucketed(jb, jp, 128, *args_j)
-        star_t, taboo_t, logq_t, conf_t = tm._sweep_pallas_fused(tb, pt, 128, *args_t)
+        star_t, taboo_t, logq_t, conf_t = (
+            x[0] for x in tm._sweep_pallas_fused(tb, pt, 128, *args_t))
         assert int(conf_t) == int(conf_j) == int(jm._conflict_edges_bucketed(jb, args_j[0])) > 0
     else:
         star_j, taboo_j, logq_j = jm._sweep_bucketed(jb, jp, 128, *args_j)
-        star_t, taboo_t, logq_t = tm._sweep(tb, pt, 128, *args_t)
+        star_t, taboo_t, logq_t = (x[0] for x in tm._sweep(tb, pt, 128, *args_t))
     cdf = jax_cdf_bucketed(jb, args_j[0], jp, p_eff)
     mism = assert_boundary_only(star_t.numpy(), np.asarray(star_j), unif, cdf, jb.n_nodes)
     keep = np.ones(jb.n_pad, bool)
@@ -295,19 +296,21 @@ def test_bucketed_tailcut_rounds_match_jax(ba, n_colors):
     key = jax.random.key(6)
     body = jm._tailcut_body_bucketed(jb, key, params=jp, block=128)
     cj = (cr_j, jnp.int32(0), jnp.int32(0), jnp.bool_(False))
-    ct = (cr_t, 0, 0, False)
+    ct = tm.TailcutState(cr_t[None], np.zeros(1, np.int64), np.zeros(1, np.int64),
+                         np.zeros(1, bool))  # one chain
     for _ in range(3):
         rnd = np.array(jax.random.randint(jax.random.fold_in(key, cj[2]), (jb.n_pad,), 0,
                                           n_colors, dtype=jnp.int32))
-        ct = tm._tailcut_body(tb, ct, Replay([rnd]), params=pt, block=128)
+        ct = tm._tailcut_body(tb, ct, RUN1, one(Replay([rnd])), params=pt)
         cj = body(cj)
-        assert np.array_equal(ct[0].numpy(), np.asarray(cj[0]))
-        assert (ct[1], ct[2], ct[3]) == (int(cj[1]), int(cj[2]), bool(cj[3]))
+        assert np.array_equal(ct.colors_r[0].numpy(), np.asarray(cj[0]))
+        assert (ct.conflicts[0], ct.rounds[0], ct.done[0]) == (int(cj[1]), int(cj[2]),
+                                                               bool(cj[3]))
     out_j = jm._tailcut_finish(jb, cj[0], ord_j, params=jp)
-    assert np.array_equal(tm._tailcut_finish(tb, ct[0], ord_t, params=pt).numpy(),
+    assert np.array_equal(tm._tailcut_finish(tb, ct.colors_r[0], ord_t, params=pt).numpy(),
                           np.asarray(out_j))
     if n_colors == 3:
-        assert not np.array_equal(ct[0].numpy(), cr_t.numpy())
+        assert not np.array_equal(ct.colors_r[0].numpy(), cr_t.numpy())
 
 
 def test_teacher_forced_bucketed_fused_chain(ba):
@@ -323,9 +326,10 @@ def test_teacher_forced_bucketed_fused_chain(ba):
     key = rngu.for_repetition(rngu.root_key(3), 0)
     carry = c._jit_init(c.ell, key)
     _, k_init = jax.random.split(key)
-    init = tm._chain_init(tb.n_pad, tb.n_nodes, pt, Replay([jax_uniform(k_init, (tb.n_pad,))]),
-                          "cpu", node_mask=tb.node_mask)
-    assert np.array_equal(init.colors.numpy(), np.asarray(carry[0]))
+    init = tm._chain_init(tb.n_pad, tb.n_nodes, pt,
+                          one(Replay([jax_uniform(k_init, (tb.n_pad,))])), "cpu",
+                          node_mask=tb.node_mask)
+    assert np.array_equal(init.colors[0].numpy(), np.asarray(carry[0]))
     bodies = 0
     while not bool(carry[6]) and int(carry[3]) < jp.max_iterations:
         _, k_u = jax.random.split(carry[2])
@@ -333,16 +337,18 @@ def test_teacher_forced_bucketed_fused_chain(ba):
         hist = j_hist(carry[0], jp.n_colors, c.ell.node_mask)
         cdf = jax_cdf_bucketed(c.ell, carry[0], jp,
                                jm._variant_distribution(jp, hist, ba.n))
-        got = tm._chain_body(tb, carry_state(carry), params=pt, block=c.block,
-                             n_nodes=tb.n_nodes, source=Replay([unif.copy()]),
+        got = tm._chain_body(tb, carry_state(carry), RUN1, params=pt, block=c.block,
+                             n_nodes=tb.n_nodes, sources=one(Replay([unif.copy()])),
                              sweep=tm._sweep_pallas_fused)
         carry = c._jit_segment(c.ell, carry, jnp.int32(1))
         want = carry_state(carry)
-        assert (got.rip, got.conf_last, got.done) == (want.rip, want.conf_last, want.done)
-        mism = assert_boundary_only(got.colors.numpy(), want.colors.numpy(), unif, cdf, ba.n)
+        for f in ("rip", "conf_last", "done"):
+            assert np.array_equal(getattr(got, f), getattr(want, f)), f
+        mism = assert_boundary_only(got.colors[0].numpy(), want.colors[0].numpy(), unif, cdf,
+                                    ba.n)
         keep = np.ones(tb.n_pad, bool)
         keep[mism] = False
-        assert np.array_equal(got.taboo.numpy()[keep], want.taboo.numpy()[keep])
+        assert np.array_equal(got.taboo[0].numpy()[keep], want.taboo[0].numpy()[keep])
         bodies += 1
     assert bodies >= 2
 

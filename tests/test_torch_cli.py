@@ -8,6 +8,7 @@ package's ``log_parser`` reading the port's logs with the same fields
 as the JAX CLI's.
 """
 
+import io
 import os
 import subprocess
 import sys
@@ -159,16 +160,13 @@ def test_cli_resident_errors():
         assert e.value.code == 2
 
 
+# what is left is ROADMAP.md item 12's (meshes, annealing, and frontier
+# ensembles, which JAX runs on its sharded colorer)
 UNPORTED = {
-    "chains": (["--mcmcgpu", "--chains", "2"], 11),
-    "dbg": (["--mcmcgpu", "--dbg"], 11),
     "mesh_chains": (["--mcmcgpu", "--mesh-chains", "2"], 12),
     "mesh_shards": (["--mcmcgpu", "--mesh-shards", "2"], 12),
     "anneal": (["--mcmcgpu", "--anneal"], 12),
-    "ckpt": (["--mcmcgpu", "--ckpt", "run.npz"], 5),
-    "resume": (["--mcmcgpu", "--resume", "run.npz"], 5),
-    "trace": (["--mcmcgpu", "-v", "1"], 5),
-    "resident_trace": (["--mcmcgpu", "--resident", "-v", "2"], 5),
+    "active_chains": (["--mcmcgpu", "--active", "--chains", "2"], 12),
 }
 
 
@@ -185,21 +183,31 @@ def test_unported_flags_exit_2(tmp_path, capsys, case):
 
 
 # the flag sets that exited 2 until the frontier chain, the packed backend
-# over a host graph and the bucketed layout were ported; Luby ignores
-# --backend, as in JAX
+# over a host graph, the bucketed layout, the ensembles, the debugger,
+# checkpoints and TRACE were ported; Luby ignores --backend, as in JAX,
+# and MCMCColorer ignores --ckpt with a message, as in JAX
 PORTED = {
     "layout_bucketed": (["--grdffgpu", "--layout", "bucketed"], {"GFF"}),
     "backend_matmul": (["--mcmcgpu", "--backend", "matmul"], {"MCMC_GPU"}),
     "backend_packed_luby": (["--lubygpu", "--backend", "packed"], {"LUBY"}),
     "mcmc_active": (["--mcmcgpu", "--active"], {"MCMC_GPU"}),
     "resident_mcmc_active": (["--mcmcgpu", "--active", "--resident"], {"MCMC_GPU"}),
+    "chains": (["--mcmcgpu", "--chains", "2"], {"MCMC_GPU"}),
+    "dbg": (["--mcmcgpu", "--dbg"], {"MCMC_GPU"}),
+    "ckpt": (["--mcmcgpu", "--ckpt", "run.npz"], {"MCMC_GPU"}),
+    "trace": (["--mcmcgpu", "-v", "1"], {"MCMC_GPU"}),
+    "resident_trace": (["--mcmcgpu", "--resident", "-v", "2"], {"MCMC_GPU"}),
+    "resident_chains_ckpt": (["--mcmcgpu", "--resident", "--chains", "2", "--ckpt", "e.npz"],
+                             {"MCMC_GPU"}),
 }
 
 
 @pytest.mark.parametrize("case", list(PORTED))
-def test_ported_flags_run(tmp_path, case):
+def test_ported_flags_run(tmp_path, monkeypatch, case):
     """Each runs with --check --tailcut to a valid colouring, and JAX's
-    log_parser reads its log with the reference's fields."""
+    log_parser reads its log with the reference's fields.  (Checkpoint
+    paths are relative to the working directory, a temporary one.)"""
+    monkeypatch.chdir(tmp_path)
     flags, tags = PORTED[case]
     out = tmp_path / "out"
     rc = cli_main(["--simulate", "0.1", "-n", "60", "--quiet", "--outDir", str(out),
@@ -214,6 +222,8 @@ def test_ported_flags_run(tmp_path, case):
 
 
 REFUSED = {
+    "resume_without_checkpoints": (["--mcmcgpu", "--resume", "run.npz"],
+                                   "refusing to restart silently"),
     "active_hastings": (["--mcmcgpu", "--active", "--hastings"], "--hastings"),
     "resident_active_ckpt": (["--mcmcgpu", "--active", "--resident", "--ckpt", "x.npz"],
                              "does not checkpoint"),
@@ -224,7 +234,8 @@ REFUSED = {
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_frontier_refusals_exit_2(tmp_path, capsys, case):
-    """The JAX CLI's refusals around --active (cli.py:305-315, 344-350)."""
+    """The JAX CLI's refusals around --active (cli.py:305-315, 344-350) and
+    of --resume where nothing checkpoints (cli.py:676-700)."""
     flags, msg = REFUSED[case]
     out = tmp_path / "out"
     with pytest.raises(SystemExit) as e:
@@ -317,3 +328,21 @@ def test_cli_module_entry(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "GFF rep 0" in proc.stdout and "VALID" in proc.stdout
     assert list(out.glob("*-GFF-0.log"))
+
+
+@pytest.mark.parametrize("flags", [["--resident", "--chains", "3"], ["--resident"], ["--dbg"]],
+                         ids=["resident_ensemble", "resident", "stepped"])
+def test_cli_checkpoint_then_resume(tmp_path, monkeypatch, flags):
+    """--ckpt writes the chain's checkpoint at each segment boundary, and a
+    second call with --resume continues it to the same colouring."""
+    monkeypatch.setattr("sys.stdin", io.StringIO(""))
+    ck = str(tmp_path / "chain.npz")
+    # numColRatio 2: the chain needs sweeps, so a segment boundary comes
+    base = ["--simulate", "0.1", "-n", "150", "--mcmcgpu", "--seed", "4", "-r", "2",
+            "--tailcut", "--check", "--quiet", *flags, *CPU]
+    assert cli_main(base + ["--ckpt", ck, "--outDir", str(tmp_path / "a")]) == 0
+    assert os.path.exists(ck)
+    assert cli_main(base + ["--resume", ck, "--outDir", str(tmp_path / "b")]) == 0
+    (a,) = (tmp_path / "a").glob("*-colors.txt")
+    (b,) = (tmp_path / "b").glob("*-colors.txt")
+    assert a.read_text() == b.read_text()

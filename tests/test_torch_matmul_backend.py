@@ -43,7 +43,16 @@ from mcmc_colorer_tpu_torch.ops import dense_adj as td
 from mcmc_colorer_tpu_torch.ops import packed_nc as k1
 
 from test_torch_luby import JaxKeySource, assert_mis_classes
-from test_torch_mcmc import Replay, carry_state, check_body, jax_cdf, jax_uniform, port_params
+from test_torch_mcmc import (
+    RUN1,
+    Replay,
+    carry_state,
+    check_body,
+    jax_cdf,
+    jax_uniform,
+    one,
+    port_params,
+)
 from test_torch_sweep import assert_boundary_only
 
 torch.set_num_threads(2)
@@ -174,9 +183,10 @@ def test_sweep_matmul_packed_matches_jax(medium_er, kind):
     star_j, taboo_j, logq_j, conf_j, nc_j = jm._sweep_matmul(
         je, adj_j, jp, 128, jnp.asarray(colors), jnp.asarray(taboo), jnp.asarray(unif), p_eff_j)
     before = k1.launches
-    star_t, taboo_t, logq_t, conf_t, nc_t = tm._sweep_matmul(
-        adj_t, pt, 128, torch.from_numpy(colors), torch.from_numpy(taboo),
-        torch.from_numpy(unif), p_eff_t, te.n_nodes)
+    # the port's sweep has a chain axis: one chain here
+    star_t, taboo_t, logq_t, conf_t, nc_t = (x[0] for x in tm._sweep_matmul(
+        adj_t, pt, 128, torch.from_numpy(colors)[None], torch.from_numpy(taboo)[None],
+        torch.from_numpy(unif)[None], None if p_eff_t is None else p_eff_t[None], te.n_nodes))
     assert k1.launches == before  # CPU: K1's plain version
     assert np.array_equal(nc_t.numpy(), np.asarray(nc_j))
     assert int(conf_t) == int(conf_j)
@@ -229,8 +239,9 @@ def test_teacher_forced_packed_chain(medium_er, case):
         source = Replay(draws)
         cdf = jax_cdf(c.ell, carry[0], jp)
         before = np.asarray(carry[0])
-        got = tm._chain_body(tc._adj, carry_state(carry), params=pt, block=c.block,
-                             n_nodes=tc.ell.n_nodes, source=source)
+        got = tm._chain_body(tc._adj, carry_state(carry), RUN1, params=pt, block=c.block,
+                             n_nodes=tc.ell.n_nodes, sources=one(source),
+                             sweep=tm._sweep_matmul)
         assert not source.draws
         carry = c._jit_segment(c.ell, carry, jnp.int32(1))
         check_body(got, carry_state(carry), unif, cdf, tc.ell.n_nodes)

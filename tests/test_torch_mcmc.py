@@ -38,7 +38,7 @@ from mcmc_colorer_tpu_torch.models import mcmc as tm
 from mcmc_colorer_tpu_torch.models.greedy_ff import GreedyFFColorer
 from mcmc_colorer_tpu_torch.ops import firstfit as k3
 from mcmc_colorer_tpu_torch.ops import resample as k2
-from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource
+from mcmc_colorer_tpu_torch.utils.rng import ChainSources, TorchUniformSource
 
 from test_torch_resample import assert_boundary_only
 
@@ -56,7 +56,7 @@ class Replay:
         assert u.shape == (n,) and u.dtype == np.float32, (u.shape, n)
         return torch.from_numpy(u)
 
-    def randint(self, n, high):
+    def randint(self, n, high, low=0):
         r = self.draws.pop(0)
         assert r.shape == (n,) and r.dtype == np.int32 and r.max() < high
         return torch.from_numpy(r)
@@ -78,6 +78,14 @@ def carry_state(carry):
     return interop.carry_from_numpy(*(np.asarray(carry[i]) for i in (0, 1, 3, 4, 5, 6)))
 
 
+# the port's chain core has a chain axis: these tests run one chain
+RUN1 = np.ones(1, bool)
+
+
+def one(source):
+    return ChainSources([source], "cpu")
+
+
 def jax_cdf(ell, colors, jp):
     """JAX's cdf for a sweep from ``colors`` (the XLA formulation, which
     its kernel matches bit for bit)."""
@@ -88,12 +96,13 @@ def jax_cdf(ell, colors, jp):
 
 
 def check_body(got, want, unif, cdf, n_nodes):
-    assert (got.rip, got.conf_last, got.done) == (want.rip, want.conf_last, want.done)
-    assert np.array_equal(got.trace, want.trace)
-    mism = assert_boundary_only(got.colors.numpy(), want.colors.numpy(), unif, cdf, n_nodes)
+    for f in ("rip", "conf_last", "done", "trace"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    mism = assert_boundary_only(got.colors[0].numpy(), want.colors[0].numpy(), unif, cdf,
+                                n_nodes)
     keep = np.ones(unif.shape[0], bool)
     keep[mism] = False
-    assert np.array_equal(got.taboo.numpy()[keep], want.taboo.numpy()[keep])
+    assert np.array_equal(got.taboo[0].numpy()[keep], want.taboo[0].numpy()[keep])
 
 
 FUSED = {
@@ -117,16 +126,16 @@ def test_teacher_forced_fused_chain(medium_er, case):
     carry = c._jit_init(c.ell, key)
     _, k_init = jax.random.split(key)
     init = tm._chain_init(te.n_pad, te.n_nodes, pt,
-                          Replay([jax_uniform(k_init, (te.n_pad,))]), "cpu")
-    assert np.array_equal(init.colors.numpy(), np.asarray(carry[0]))
+                          one(Replay([jax_uniform(k_init, (te.n_pad,))])), "cpu")
+    assert np.array_equal(init.colors[0].numpy(), np.asarray(carry[0]))
     bodies = 0
     while not bool(carry[6]) and int(carry[3]) < jp.max_iterations:
         _, k_u = jax.random.split(carry[2])
         unif = jax_uniform(k_u, (te.n_pad,))
         source = Replay([unif.copy()])
         cdf = jax_cdf(c.ell, carry[0], jp)
-        got = tm._chain_body(te, carry_state(carry), params=pt, block=c.block,
-                             n_nodes=te.n_nodes, source=source,
+        got = tm._chain_body(te, carry_state(carry), RUN1, params=pt, block=c.block,
+                             n_nodes=te.n_nodes, sources=one(source),
                              sweep=tm._sweep_pallas_fused)
         assert not source.draws
         carry = c._jit_segment(c.ell, carry, jnp.int32(1))
@@ -134,7 +143,8 @@ def test_teacher_forced_fused_chain(medium_er, case):
         bodies += 1
     assert bodies >= 2
     final = carry_state(carry)
-    assert tm._chain_final_conflicts(te, final) == int(jm._chain_final_conflicts(c.ell, carry))
+    assert tm._chain_final_conflicts(te, final)[0] == int(
+        jm._chain_final_conflicts(c.ell, carry))
 
 
 GENERIC = {
@@ -158,8 +168,9 @@ def test_teacher_forced_generic_chain(medium_er, case):
     carry = c._jit_init(c.ell, key)
     _, k_init = jax.random.split(key)
     init = tm._chain_init(te.n_pad, te.n_nodes, pt,
-                          Replay([jax_uniform(k_init, (te.n_pad,))]), "cpu", ell=te)
-    assert init.conf_last == int(carry[4]) and np.array_equal(init.trace, np.asarray(carry[5]))
+                          one(Replay([jax_uniform(k_init, (te.n_pad,))])), "cpu", ell=te)
+    assert init.conf_last[0] == int(carry[4])
+    assert np.array_equal(init.trace[0], np.asarray(carry[5]))
     bodies = accepted = 0
     while int(carry[4]) > jp.tailcut_threshold(medium_er.n) and int(carry[3]) < jp.max_iterations:
         _, k_u, k_acc = jax.random.split(carry[2], 3)
@@ -168,14 +179,14 @@ def test_teacher_forced_generic_chain(medium_er, case):
         source = Replay(draws)
         cdf = jax_cdf(c.ell, carry[0], jp)
         before = np.asarray(carry[0])
-        got = tm._chain_body_generic(te, carry_state(carry), params=pt, block=c.block,
-                                     backend="xla", source=source)
+        got = tm._chain_body_generic(te, carry_state(carry), RUN1, params=pt, block=c.block,
+                                     backend="xla", sources=one(source))
         assert not source.draws
         carry = c._jit_segment(c.ell, carry, jnp.int32(1))
         want = carry_state(carry)
         if jp.hastings and np.array_equal(np.asarray(carry[0]), before):
             # rejected on both sides: the colours are kept exactly
-            assert np.array_equal(got.colors.numpy(), before)
+            assert np.array_equal(got.colors[0].numpy(), before)
         check_body(got, want, unif, cdf, te.n_nodes)
         accepted += not np.array_equal(np.asarray(carry[0]), before)
         bodies += 1
@@ -204,19 +215,22 @@ def test_tailcut_rounds_match_jax(medium_er, n_colors):
     key = jax.random.key(6)
     body = jm._tailcut_body_flat(je, key, params=jp, block=128)
     cj = (cr_j, jnp.int32(0), jnp.int32(0), jnp.bool_(False))
-    ct = (cr_t, 0, 0, False)
+    ct = tm.TailcutState(cr_t[None], np.zeros(1, np.int64), np.zeros(1, np.int64),
+                         np.zeros(1, bool))
     for _ in range(3):
         rnd = np.array(jax.random.randint(jax.random.fold_in(key, cj[2]), (je.n_pad,), 0,
                                           n_colors, dtype=jnp.int32))
-        ct = tm._tailcut_body(te, ct, Replay([rnd]), params=pt, block=128)
+        ct = tm._tailcut_body(te, ct, RUN1, one(Replay([rnd])), params=pt)
         cj = body(cj)
-        assert np.array_equal(ct[0].numpy(), np.asarray(cj[0]))
-        assert (ct[1], ct[2], ct[3]) == (int(cj[1]), int(cj[2]), bool(cj[3]))
+        assert np.array_equal(ct.colors_r[0].numpy(), np.asarray(cj[0]))
+        assert (ct.conflicts[0], ct.rounds[0], ct.done[0]) == (int(cj[1]), int(cj[2]),
+                                                               bool(cj[3]))
     out_j = jm._tailcut_finish(je, cj[0], ord_j, params=jp)
-    out_t = tm._tailcut_finish(te, ct[0], ord_t, params=pt)
+    out_t = tm._tailcut_finish(te, ct.colors_r[0], ord_t, params=pt)
     assert np.array_equal(out_t.numpy(), np.asarray(out_j))
     if n_colors == 3:
-        assert not np.array_equal(ct[0].numpy(), cr_t.numpy())  # the escape moved someone
+        # the escape moved someone
+        assert not np.array_equal(ct.colors_r[0].numpy(), cr_t.numpy())
 
 
 def test_super_blocks_do_not_change_the_sweep(medium_er, monkeypatch):
@@ -229,16 +243,17 @@ def test_super_blocks_do_not_change_the_sweep(medium_er, monkeypatch):
     taboo = torch.zeros(te.n_pad, dtype=torch.int32)
     unif = torch.from_numpy(rng.random(te.n_pad, dtype=np.float32))
     p_eff = tm._p_eff_of(colors, p, te.n_nodes, te.node_mask)
+    args = (colors[None], taboo[None], unif[None], p_eff[None])  # one chain
     assert tm._fused_super_block(te.n_pad, te.d_pad) == te.n_pad
-    ref = tm._sweep_pallas_fused(te, p, 128, colors, taboo, unif, p_eff)
+    ref = tm._sweep_pallas_fused(te, p, 128, *args)
     monkeypatch.setattr(tm, "_FUSED_NC_BYTES_CAP", 128 * te.d_pad * tm._SLOT_BYTES)
     assert tm._fused_super_block(te.n_pad, te.d_pad) == 128
-    got = tm._sweep_pallas_fused(te, p, 128, colors, taboo, unif, p_eff)
+    got = tm._sweep_pallas_fused(te, p, 128, *args)
     for a, b in zip(ref[:2], got[:2]):
         assert torch.equal(a, b)
-    assert np.isclose(float(ref[2]), float(got[2]), rtol=1e-5)
-    assert int(ref[3]) == int(got[3]) == int(tbase.count_conflict_edges(te, colors))
-    assert tm._sweep(te, p, 128, colors, taboo, unif, p_eff)[0].equal(ref[0])
+    assert np.isclose(float(ref[2][0]), float(got[2][0]), rtol=1e-5)
+    assert int(ref[3][0]) == int(got[3][0]) == int(tbase.count_conflict_edges(te, colors))
+    assert tm._sweep(te, p, 128, *args)[0].equal(ref[0])
 
 
 @pytest.mark.parametrize("kind", [ProposalKind.BALANCE_DYNAMIC, ProposalKind.DECREASE_EXP])
@@ -254,19 +269,19 @@ def test_ell_sweep_bands_or_one_piece(medium_er, monkeypatch, kind):
     colors = torch.from_numpy(colors)
     taboo = torch.from_numpy(rng.integers(0, 2, te.n_pad).astype(np.int32))
     unif = torch.from_numpy(rng.random(te.n_pad, dtype=np.float32))
-    p_eff = tm._p_eff_of(colors, p, te.n_nodes, te.node_mask)
+    p_eff = tm._p_eff(colors[None], p, te.n_nodes, te.node_mask)
+    args = (colors[None], taboo[None], unif[None], p_eff, None)  # one chain
     assert te.n_pad > te.n_nodes
-    whole = tm._ell_sweep(te, p, colors, taboo, unif, p_eff, None, k2.resample_sweep_plain,
-                          bands=False)
+    whole = tm._ell_sweep(te, p, *args, k2.resample_sweep_plain, bands=False)
     monkeypatch.setattr(tm, "_FUSED_NC_BYTES_CAP", 128 * te.d_pad * tm._SLOT_BYTES)
     assert len(list(tm._bands(te.n_nodes, te.d_pad))) > 1
-    banded = tm._ell_sweep(te, p, colors, taboo, unif, p_eff, None, k2.resample_sweep_plain)
+    banded = tm._ell_sweep(te, p, *args, k2.resample_sweep_plain)
     for a, b in zip(whole, banded):
         assert torch.equal(a, b)
     phantom = ~te.node_mask
-    assert torch.equal(whole[0][phantom], colors[phantom])
-    assert not whole[1][phantom].any()
-    assert int(whole[3]) == int(tbase.count_conflict_edges(te, colors))
+    assert torch.equal(whole[0][0][phantom], colors[phantom])
+    assert not whole[1][0][phantom].any()
+    assert int(whole[3][0]) == int(tbase.count_conflict_edges(te, colors))
 
 
 @pytest.mark.parametrize("backend", ["pallas", "xla"])
@@ -313,9 +328,12 @@ def test_hastings_run_and_unported_paths(medium_er, monkeypatch):
     assert tbase.check_coloring(g, buck.colors)
     assert np.array_equal(GreedyFFColorer(g, layout="bucketed", active=True,
                                           device="cpu").run().colors, buck.colors)
+    # the free-colour TRACE is ported: the same colouring, and a line a segment
+    plain = tm.MCMCColorer(g, p, device="cpu").run(seed=1)
     monkeypatch.setenv("MCMC_COLORER_TRACE", "1")
-    with pytest.raises(NotImplementedError, match="TRACE"):
-        tm.MCMCColorer(g, p, device="cpu").run(seed=1)
+    traced = tm.MCMCColorer(g, p, device="cpu").run(seed=1)
+    assert np.array_equal(traced.colors, plain.colors)
+    assert len(traced.extra["free_color_trace_segments"]) >= 1
 
 
 @pytest.mark.parametrize("fixture", ["small_er", "medium_er"])

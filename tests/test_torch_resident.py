@@ -37,6 +37,7 @@ from mcmc_colorer_tpu_torch.models import mcmc as tm
 from mcmc_colorer_tpu_torch.models.base import check_coloring
 from mcmc_colorer_tpu_torch.models.mcmc_resident import ResidentMCMCColorer
 from mcmc_colorer_tpu_torch.ops import dense_adj as td
+from mcmc_colorer_tpu_torch.utils.rng import ChainSources
 
 torch.set_num_threads(2)
 
@@ -129,18 +130,21 @@ def test_teacher_forced_chain(jax_colorer, case):
         source = Replay([unif.copy()] + ([u_acc] if jp.hastings else []))
         before = np.asarray(carry[0])
         state = interop.carry_from_numpy(*(np.asarray(carry[i]) for i in (0, 1, 3, 4, 5, 6)))
-        got = tm._chain_body(adj_t, state, params=pt, block=block, n_nodes=N, source=source)
+        # the chain core's body at one chain
+        got = tm._chain_body(adj_t, state, np.ones(1, bool), params=pt, block=block, n_nodes=N,
+                             sources=ChainSources([source], "cpu"), sweep=tm._sweep_matmul)
         assert not source.draws  # one draw per body, the last "done" body too
         cdf = jax_cdf(c, carry)
         carry = c._jit_segment(c.ell, c.adj, carry, jnp.int32(1))
         want = interop.carry_from_numpy(*(np.asarray(carry[i]) for i in (0, 1, 3, 4, 5, 6)))
-        assert (got.rip, got.conf_last, got.done) == (want.rip, want.conf_last, want.done)
-        assert np.array_equal(got.trace, want.trace)
-        mism = assert_boundary_only(got.colors.numpy(), want.colors.numpy(), unif, cdf, N)
+        for f in ("rip", "conf_last", "done", "trace"):
+            assert np.array_equal(getattr(got, f), getattr(want, f)), f
+        mism = assert_boundary_only(got.colors[0].numpy(), want.colors[0].numpy(), unif, cdf,
+                                    N)
         keep = np.ones(n_pad, bool)
         keep[mism] = False
-        assert np.array_equal(got.taboo.numpy()[keep], want.taboo.numpy()[keep])
-        accepted += not np.array_equal(want.colors.numpy(), before)
+        assert np.array_equal(got.taboo[0].numpy()[keep], want.taboo[0].numpy()[keep])
+        accepted += not np.array_equal(want.colors[0].numpy(), before)
         bodies += 1
     assert bodies >= 2
     if case in HASTINGS:
@@ -190,20 +194,29 @@ def test_interop_round_trip(jax_colorer):
         assert np.array_equal(back[k], v), k
 
 
-def test_unported_paths_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        ResidentMCMCColorer(300, 0.05, 1, n_chains=2, device="cpu")
+def test_unported_paths_raise(monkeypatch, tmp_path):
+    """The paths ported since they raised here run: ensembles, the frontier
+    mode, checkpoints and TRACE; what JAX refuses is still refused."""
+    e = ResidentMCMCColorer(300, 0.05, 1, n_chains=2, device="cpu")
+    best = e.run(seed=1)
+    assert best.extra["chains"] == 2 and best.extra["final_conflicts"] == 0
+    assert check_coloring(e.host_graph(), best.colors)
     # the frontier mode is ported: it runs to a valid colouring
     a = ResidentMCMCColorer(300, 0.05, 1, active=True, device="cpu")
     r = a.run(seed=1)
     assert r.extra["active"] and r.extra["final_conflicts"] == 0
     assert check_coloring(a.host_graph(), r.colors)
+    with pytest.raises(NotImplementedError, match="checkpointing"):
+        a.run(seed=1, checkpoint_path=str(tmp_path / "x"))
+    with pytest.raises(NotImplementedError, match="single-chain"):
+        ResidentMCMCColorer(300, 0.05, 1, n_chains=2, active=True, device="cpu")
     c = ResidentMCMCColorer(300, 0.05, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        c.run(seed=1, checkpoint_path="x")
+    r1 = c.run(seed=1, checkpoint_path=str(tmp_path / "x"))
+    assert (tmp_path / "x.npz").exists() and r1.iterations >= 1
     monkeypatch.setenv("MCMC_COLORER_TRACE", "1")
-    with pytest.raises(NotImplementedError, match="TRACE"):
-        c.run(seed=1)
+    r2 = c.run(seed=1)
+    assert np.array_equal(r2.colors, r1.colors)
+    assert len(r2.extra["free_color_trace_segments"]) >= 1
     with pytest.raises(ValueError, match="packed-adjacency HBM cap"):
         ResidentMCMCColorer(td.PACKED_ADJ_MAX_N + 1, 0.001, graph_seed=1, device="cpu")
 

@@ -119,10 +119,11 @@ def test_sweep_matches_jax(graph, kind, taboo, n_colors):
         ell, adj_j, pj, JAX_BLOCK, jnp.asarray(colors), jnp.asarray(tab),
         jnp.asarray(unif), p_eff_j,
     )
-    star_t, taboo_t, logq_t, conf_t, nc_t = tm._sweep_matmul(
-        adj_t, pt, TORCH_BLOCK, torch.from_numpy(colors), torch.from_numpy(tab),
-        torch.from_numpy(unif), p_eff_t, N,
-    )
+    # the port's sweep has a chain axis: one chain here
+    star_t, taboo_t, logq_t, conf_t, nc_t = (x[0] for x in tm._sweep_matmul(
+        adj_t, pt, TORCH_BLOCK, torch.from_numpy(colors)[None], torch.from_numpy(tab)[None],
+        torch.from_numpy(unif)[None], None if p_eff_t is None else p_eff_t[None], N,
+    ))
     assert np.array_equal(nc_t.numpy(), np.asarray(nc_j))
     assert int(conf_t) == int(conf_j)
 

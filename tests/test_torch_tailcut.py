@@ -100,9 +100,10 @@ def test_tailcut_rounds_match_jax(graph, palette):
     cj, confj, ncj = jr._tailcut_nc_round(
         adj_j, jnp.asarray(colors), k1, mask_j, n_colors=n_colors
     )
-    ct, conft, nct = tr._tailcut_nc_round(
-        adj_t, torch.from_numpy(colors), coins(k1), mask_t, n_colors=n_colors
-    )
+    # the port's round has a chain axis: one chain here
+    ct, conft, nct = (x[0] for x in tr._tailcut_nc_round(
+        adj_t, torch.from_numpy(colors)[None], coins(k1)[None], mask_t, n_colors=n_colors
+    ))
     moved = np.asarray(cj) != colors
     nc0 = td.neighbor_color_counts(adj_t, torch.from_numpy(colors), n_colors, mask_t)
     no_free = ((nc0 == 0) & (torch.arange(nc0.shape[1]) < n_colors)).sum(1) == 0
@@ -113,9 +114,9 @@ def test_tailcut_rounds_match_jax(graph, palette):
     assert np.array_equal(nct.numpy(), np.asarray(ncj))
 
     cj2, confj2, ncj2 = jr._tailcut_nc_round(adj_j, cj, k2, mask_j, ncj, n_colors=n_colors)
-    ct2, conft2, nct2 = tr._tailcut_nc_round(
-        adj_t, ct, coins(k2), mask_t, nct, n_colors=n_colors
-    )
+    ct2, conft2, nct2 = (x[0] for x in tr._tailcut_nc_round(
+        adj_t, ct[None], coins(k2)[None], mask_t, nct[None], n_colors=n_colors
+    ))
     assert np.array_equal(ct2.numpy(), np.asarray(cj2))
     assert int(conft2) == int(confj2)
     assert np.array_equal(nct2.numpy(), np.asarray(ncj2))
