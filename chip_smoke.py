@@ -77,7 +77,22 @@ the card by default:
   version and against one launch a chain, exactly (samples under the
   CDF-boundary rule), and timed beside them by CUDA events and device
   time; phase 25 the CLI's ``--chains``, ``--resident --chains --ckpt``
-  then ``--resume``, ``--dbg`` and ``-v 1``.
+  then ``--resume``, ``--dbg`` and ``-v 1``;
+- slice 9, the sharded ensemble over ``torch.distributed``: phase 26
+  ``ShardedMCMCColorer`` on a 1x1 mesh under a one-rank NCCL group at
+  ER(100k, 0.01) with 8 chains (full sweeps, the frontier, Hastings,
+  pooled annealing, and a run stopped after 2 sweeps for the rank-space
+  tailcut), beside the 8-chain ensemble in the same call; phase 27 config
+  3 at 2 chains (K2 in L2 with a million rows on the rank); phase 28 a
+  segmented run and a resumed one, each equal to the uninterrupted run;
+  phase 29 two gloo ranks spawned on the one card, at (2, 1) and (1, 2)
+  each equal to the 1x1 run (a chain's full sweeps draw alike on every
+  geometry), (2, 1) also resumed from phase 28's 1x1 checkpoint, and the
+  CLI under ``torchrun --nproc-per-node 2 ... --mesh-shards 2``; phase 30
+  K2 and K3 on shard 1's rows of a (1, 2) layout, at its row offset,
+  against their plain versions; phase 31 the CLI's ``--active --chains
+  4``, also with ``--anneal``.  Every K2 and K3 launch of phases 26 and
+  27 is recorded by shape, held against the plain version and timed.
 
 Every colouring is checked with ``check_coloring``.  Any failed check
 raises, so the exit code is non-zero.  Without CUDA, or outside a
@@ -1499,6 +1514,8 @@ class _LaunchShapes:
             before = k2_mod.launches
             out = k2_orig(neighbors, colors, cur, taboo, row0, unif, p_eff, eps, params,
                           self_ids, **kw)
+            if colors.dim() == 2 and colors.shape[0] > 1:
+                return out  # a chain axis: _ChainShapes holds those launches
             if colors.dim() == 2:
                 colors, cur, taboo, unif, p_eff = map(one, (colors, cur, taboo, unif, p_eff))
             record("K2", (tuple(neighbors.shape), colors.shape[-1], params.n_colors,
@@ -1510,6 +1527,8 @@ class _LaunchShapes:
         def k3_launch(neighbors, colors, allow, n_colors, cur=None):
             before = k3_mod.launches
             out = k3_orig(neighbors, colors, allow, n_colors, cur)
+            if colors.dim() == 2 and colors.shape[0] > 1:
+                return out
             if colors.dim() == 2:
                 colors, cur = one(colors), one(cur)
             record("K3", (tuple(neighbors.shape), colors.shape[-1], n_colors, cur is not None),
@@ -2341,15 +2360,17 @@ LOG_FIELDS = ("Nodes:", "Edges:", "Max deg:", "Edge probability", "Seed:", "Repe
               "BalancingIndex")
 
 
-def _cli_run(args, n, tags, phase=15):
+def _cli_run(args, n, tags, phase=15, launcher=()):
     """Run the port's CLI in a subprocess into a temporary directory, with
     its standard input from /dev/null; check its exit code, its logs' field
-    names and its colour files.  Returns (the process, {colour file name:
-    its text})."""
+    names and its colour files.  ``launcher``: arguments of python before
+    the module (``-m torch.distributed.run ...`` for torchrun).  Returns
+    (the process, {colour file name: its text})."""
     with tempfile.TemporaryDirectory() as td:
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", "mcmc_colorer_tpu_torch.cli", *args, "--outDir", td],
+            [sys.executable, *launcher, "-m", "mcmc_colorer_tpu_torch.cli", *args,
+             "--outDir", td],
             cwd=ROOT, capture_output=True, text=True, timeout=600, stdin=subprocess.DEVNULL,
         )
         wall = time.perf_counter() - t0
@@ -2424,6 +2445,366 @@ def phase_cli_slice8():
     _require(lines, "CLI -v 1 printed no free-colour TRACE line")
 
 
+# slice 9: the sharded ensemble's chains on a 1x1 mesh (phase 26) and the
+# frontier's ε there.  JAX's switch to frontier sweeps wants
+# n_passive·(nCol−1)·ε <= 1; at ER(100k, 0.01), nCol 1150 and the
+# reference's ε = 1e-8 that is 100k · 1149 · 1e-8 = 1.15, which holds the
+# chain on full sweeps throughout, so the frontier run takes ε = 5e-9
+# (0.57), and switches once at most n/8 rows conflict
+SHARDED_CHAINS = 8
+SHARDED_FRONTIER_EPS = 5e-9
+SHARDED_CONFIG3_CHAINS = 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _sharded_digest(result):
+    """What two sharded runs must share: the best colours, iterations,
+    trace, summaries and the extra without its times."""
+    best, summ = result
+    times = ("chain_seconds", "tailcut_seconds", "setup_seconds")
+    return (best.colors.tolist(), best.iterations, best.conflict_trace.tolist(),
+            {k: v for k, v in best.extra.items() if k not in times}, summ)
+
+
+def _sharded_run(c, g, label, phase, seed, shapes=(), tag=None):
+    """One timed run of a sharded colorer with its counts set to 0 just
+    before and read just after, inside the launch recorders ``shapes``
+    (tagged ``tag``, by default ``label``); prints ms a sweep of all chains, sweeps, frontier
+    sweeps, tailcut rounds, launches and peak device bytes, and requires a
+    valid colouring.  Returns (result, K2 launches, K3 launches)."""
+    import contextlib
+
+    import torch
+
+    from mcmc_colorer_tpu_torch.models.base import check_coloring
+    from mcmc_colorer_tpu_torch.ops import firstfit as k3
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for rec in shapes:
+        rec.tag = tag or label
+    k2.launches = k3.launches = 0
+    with contextlib.ExitStack() as stack:
+        for rec in shapes:
+            stack.enter_context(rec)
+        best, summ = c.run(seed=seed)
+    torch.cuda.synchronize()
+    l2, l3 = k2.launches, k3.launches
+    peak = torch.cuda.max_memory_allocated() - base
+    x = best.extra
+    valid = check_coloring(g, best.colors)
+    print(f"phase {phase} {label}: {c.n_chains} chains on a {c.mesh.chains}x{c.mesh.shards} mesh, "
+          f"n_colors={c.params.n_colors}, seed {seed}: sweeps {best.iterations}, chain "
+          f"{x['chain_seconds']:.3f} s "
+          f"({x['chain_seconds'] / max(best.iterations, 1) * 1e3:.3f} ms "
+          f"a sweep of all chains), frontier sweeps of the best chain {x['frontier_sweeps']}, "
+          f"tailcut rounds {x['tailcut_rounds']} ({x['tailcut_seconds']:.3f} s); per chain "
+          f"conflicts {[r['conflicts'] for r in summ]}, accepted/attempted "
+          f"{[(r['accepted_sweeps'], r['attempted_sweeps']) for r in summ]}; best chain "
+          f"{x['best_chain']}, eps scale {x['final_eps_scale']}; K2 launches {l2}, K3 launches "
+          f"{l3}; peak device memory {peak} bytes above the {base} allocated before; valid "
+          f"{valid}, final conflicts {x['final_conflicts']}")
+    _require(valid and x["final_conflicts"] == 0, f"phase {phase} {label}: invalid colouring")
+    _require(l2 > 0, f"phase {phase} {label}: K2 launched no time")
+    return (best, summ), l2, l3
+
+
+def _chain_colors(c, seed):
+    """Every chain's colours [n_chains, n] where the chain phase (no
+    tailcut) of sharded colorer ``c`` ends, gathered over its mesh from
+    each chain group's first shard."""
+    import numpy as np
+
+    st = c._run_sharded_segment(c.init_state(seed), c.params.max_iterations)
+    parts = c.mesh.gather_objects(st.colors[:, :c.graph.n].cpu().numpy())
+    return np.concatenate([x for r, x in enumerate(parts) if r % c.mesh.shards == 0])
+
+
+def _init_nccl_world_of_one() -> None:
+    """A one-rank NCCL process group, so the 1x1 mesh's collectives run
+    through NCCL (its all-gathers and all-reduces of one rank)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                world_size=1, rank=0)
+
+
+def phase_sharded(device, g, seed=5):
+    """Slice 9, phase 26: ``ShardedMCMCColorer`` (backend ``pallas``) with
+    ``SHARDED_CHAINS`` chains on a 1x1 mesh under a one-rank NCCL group, on
+    phase 11's ER(100k, 0.01) host graph at nCol = its max degree, tailcut
+    on: full sweeps (K2 one launch for all chains a sweep), the frontier
+    (``active_cap = n // 8``, K2 on the frontier's rows with ``self_ids``),
+    Hastings (30 sweeps at most), pooled annealing, and full sweeps
+    stopped after 2 (K3 in the rank-space tailcut, which each run enters
+    when its best chain ends with conflicts).  Each valid; every launch recorded by shape; beside
+    ``EnsembleMCMCColorer`` with as many chains on the same graph, timed
+    in this call.  Returns (chain-axis rows, single-chain K2 rows, K3
+    rows, K2 boundary fraction, qstar error, K3 error)."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.parallel.chains import EnsembleMCMCColorer
+    from mcmc_colorer_tpu_torch.parallel.mesh import make_mesh
+    from mcmc_colorer_tpu_torch.parallel.sharded import AnnealConfig, ShardedMCMCColorer
+
+    _init_nccl_world_of_one()
+    mesh = make_mesh(1, 1)
+    _require(mesh.distributed and mesh.device == device, f"phase 26: mesh {mesh}")
+    cs, ls = _ChainShapes(), _LaunchShapes()
+    base = dict(n_colors=g.max_degree, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
+    # at nCol 1150 the chains reach the tailcut's threshold within a few
+    # sweeps and the best one often has no conflict left, so one run stops
+    # after 2 sweeps and leaves its conflicts to the tailcut (K3)
+    runs = (
+        ("full", {}, {}),
+        ("frontier", dict(epsilon=SHARDED_FRONTIER_EPS), dict(active_cap=g.n // 8)),
+        ("hastings", dict(hastings=True, lambda_=25.0, max_iterations=30), {}),
+        ("anneal", {}, dict(anneal=AnnealConfig(enabled=True))),
+        ("tailcut after 2 sweeps", dict(max_iterations=2), {}),
+    )
+    l3_all, ms_full = 0, None
+    for name, pkw, ckw in runs:
+        c = ShardedMCMCColorer(g, MCMCParams(**base, **pkw), mesh, n_chains=SHARDED_CHAINS,
+                               backend="pallas", **ckw)
+        c.run(seed=seed)  # warm-up: each run's paths are timed warm
+        (best, _), l2, l3 = _sharded_run(c, g, f"sharded 1x1 {name}", 26, seed, (cs, ls),
+                                         tag=f"sharded 1x1 ER({BENCH_N}, {BENCH_P})")
+        l3_all += l3
+        if name == "full":
+            ms_full = best.extra["chain_seconds"] / best.iterations * 1e3
+        if name == "frontier":
+            _require(best.extra["frontier_sweeps"] > 0, "phase 26: no frontier sweep ran")
+    _require(l3_all > 0, "phase 26: the sharded tailcut launched K3 no time")
+    ens = EnsembleMCMCColorer(g, MCMCParams(**base), SHARDED_CHAINS, backend="pallas",
+                              device=device)
+    ens.run(seed=seed)  # warm-up
+    eb, _ = ens.run(seed=seed)
+    ms_ens = eb.extra["chain_seconds"] / max(eb.extra["sweeps"], 1) * 1e3
+    print(f"phase 26 the same {SHARDED_CHAINS} chains in EnsembleMCMCColorer: "
+          f"{eb.extra['sweeps']} sweeps, {ms_ens:.3f} ms a sweep of all chains; the sharded "
+          f"1x1 full run {ms_full:.3f} ms a sweep (its cnt recount and host read a sweep)")
+    torch.cuda.empty_cache()
+    chain_rows = cs.check(26)
+    k2_rows, k3_rows, frac, qerr, err3 = ls.check(26, plain_runs=3)
+    return chain_rows, k2_rows, k3_rows, frac, qerr, err3
+
+
+def phase_sharded_config3(device, g3, seed=5):
+    """Slice 9, phase 27: config 3 (ER(1M, 0.001)) on the 1x1 mesh at
+    ``SHARDED_CONFIG3_CHAINS`` chains, numColRatio 1, full sweeps and the
+    tailcut, timed warm: K2 in its L2 regime with a million rows on one
+    rank.  Returns (chain-axis rows, single-chain K2 rows, K3 rows, K3
+    error)."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+    from mcmc_colorer_tpu_torch.parallel.mesh import make_mesh
+    from mcmc_colorer_tpu_torch.parallel.sharded import ShardedMCMCColorer
+
+    _init_nccl_world_of_one()
+    mesh = make_mesh(1, 1)
+    cs, ls = _ChainShapes(), _LaunchShapes()
+    p = MCMCParams(n_colors=g3.max_degree, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
+    t0 = time.perf_counter()
+    c = ShardedMCMCColorer(g3, p, mesh, n_chains=SHARDED_CONFIG3_CHAINS, backend="pallas")
+    print(f"phase 27 config 3 sharded colorer: rows [{c.n_loc}, {c.d_pad}] on the rank, set-up "
+          f"{time.perf_counter() - t0:.3f} s; K2 regime "
+          f"{'staged' if k2.sweep_shape(g3.n, p.n_colors).staged else 'L2'}")
+    c.run(seed=seed)  # warm-up: the run is timed warm, as phase 26's
+    _sharded_run(c, g3, "sharded 1x1 config 3", 27, seed, (cs, ls))
+    del c
+    torch.cuda.empty_cache()
+    chain_rows = cs.check(27)
+    k2_rows, k3_rows, _, _, err3 = ls.check(27, plain_runs=1)
+    torch.cuda.empty_cache()
+    return chain_rows, k2_rows, k3_rows, err3
+
+
+def phase_sharded_resume(device, g, ckpt, seed=5):
+    """Slice 9, phase 28: on the 1x1 mesh with 2 chains (full sweeps,
+    tailcut), runs in segments of 4 sweeps with a checkpoint each, and a
+    fresh colorer resumed from a checkpoint written after 3 sweeps, each
+    equal to the uninterrupted run (colours, iterations, trace, summaries).
+    Leaves that checkpoint at ``ckpt`` and returns the uninterrupted run's
+    digest and every chain's colours at the end of its chain phase, for
+    phase 29's other geometries."""
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.parallel.mesh import make_mesh
+    from mcmc_colorer_tpu_torch.parallel.sharded import ShardedMCMCColorer
+
+    mesh = make_mesh(1, 1)
+    p = MCMCParams(n_colors=g.max_degree, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
+    make = lambda: ShardedMCMCColorer(g, p, mesh, n_chains=2, backend="pallas")  # noqa: E731
+    ref = _sharded_digest(make().run(seed=seed))
+    seg = _sharded_digest(make().run(seed=seed, segment=4, checkpoint_path=ckpt))
+    _require(seg == ref, "phase 28: the segmented run differs from the uninterrupted one")
+    c1 = make()
+    c1.save_checkpoint(c1._run_sharded_segment(c1.init_state(seed), 3), ckpt)
+    res = _sharded_digest(make().run(seed=seed, resume_from=ckpt))
+    _require(res == ref, "phase 28: the resumed run differs from the uninterrupted one")
+    print(f"phase 28 sharded 1x1, 2 chains: segments of 4 with checkpoints, and a resume from "
+          f"the checkpoint after 3 sweeps, both equal to the uninterrupted run ({ref[1]} sweeps, "
+          f"conflicts {[r['conflicts'] for r in ref[4]]})")
+    return ref, _chain_colors(make(), seed)
+
+
+def _gloo_rank(rank, world, port, graph_npz, ckpt, out, seed):
+    """Phase 29's spawned rank: joins a gloo group of ``world`` ranks on
+    the one card and runs the 2-chain full-sweep ensemble at (2, 1), also
+    resumed from phase 28's 1x1 checkpoint, and at (1, 2); rank 0 writes
+    the digests and every chain's colours where its chain phase ends."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.graph.container import Graph
+    from mcmc_colorer_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from mcmc_colorer_tpu_torch.parallel.sharded import ShardedMCMCColorer
+
+    torch.cuda.set_device(0)
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+                           backend="gloo")
+    d = np.load(graph_npz)
+    g = Graph(n=int(d["n"]), row_ptr=d["row_ptr"], cols=d["cols"], name="er100k")
+    p = MCMCParams(n_colors=g.max_degree, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
+    got = {}
+    for geometry in ((2, 1), (1, 2)):
+        mesh = make_mesh(*geometry)
+        c = ShardedMCMCColorer(g, p, mesh, n_chains=2, backend="pallas")
+        t0 = time.perf_counter()
+        got[geometry] = (_sharded_digest(c.run(seed=seed)), time.perf_counter() - t0,
+                         str(mesh.device), _chain_colors(c, seed))
+        if geometry == (2, 1):
+            got["resume"] = (_sharded_digest(c.run(seed=seed, resume_from=ckpt)), 0.0, "",
+                             None)
+    if rank == 0:
+        with open(out, "wb") as f:
+            pickle.dump(got, f)
+    dist.destroy_process_group()
+
+
+def phase_two_ranks(device, g, ckpt, ref, ref_chains, seed=5, deadline_s=300.0):
+    """Slice 9, phase 29: two gloo ranks spawned on the one card (NCCL
+    refuses two ranks on one device), with CUDA tensors in their
+    collectives: (2, 1) and (1, 2) at 2 chains on ER(100k, 0.01), full
+    sweeps, each equal to the 1x1 run ``ref`` (a chain's full sweeps draw
+    the same on every geometry) and chain by chain to its chain phase's
+    colours ``ref_chains``, and (2, 1) resumed from phase 28's 1x1
+    checkpoint equal to it too; then the CLI under torchrun with
+    --mesh-shards 2.  The ranks are killed if they outlive
+    ``deadline_s``."""
+    import pickle
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as td:
+        graph_npz, out = os.path.join(td, "g.npz"), os.path.join(td, "out.pkl")
+        np.savez(graph_npz, n=g.n, row_ptr=g.row_ptr, cols=g.cols)
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_gloo_rank, args=(2, _free_port(), graph_npz, ckpt, out, seed),
+                                 nprocs=2, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=1.0):
+                _require(time.perf_counter() - t0 < deadline_s,
+                         f"phase 29: the ranks still run after {deadline_s} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        with open(out, "rb") as f:
+            got = pickle.load(f)
+    wall = time.perf_counter() - t0
+    for key, (dig, run_s, dev, chains) in got.items():
+        _require(dig == ref, f"phase 29: {key} differs from the 1x1 run")
+        _require(chains is None or np.array_equal(chains, ref_chains),
+                 f"phase 29: {key}'s chains end in other colours than the 1x1 run's")
+        print(f"phase 29 two gloo ranks on {dev or 'the card'}, {key}: equal to the 1x1 run "
+              f"({dig[1]} sweeps)" + ("" if chains is None else
+                                       f", each of its {len(chains)} chains' colours too")
+              + f", run {run_s:.3f} s")
+    print(f"phase 29 spawn of two ranks, three runs: {wall:.3f} s")
+    _cli_run(["--simulate", "0.01", "-n", "20000", "--mcmcgpu", "--mesh-shards", "2",
+              "--tailcut", "--check", "--seed", "5"], 20_000, ("MCMC_GPU",), phase=29,
+             launcher=("-m", "torch.distributed.run", "--nproc-per-node", "2",
+                       "--master-addr", "127.0.0.1", "--master-port", str(_free_port())))
+
+
+def phase_sharded_offsets(device, g, seed=5):
+    """Slice 9, phase 30: K2 and K3 at the sharded call sites on shard 1
+    of a (1, 2) layout (its rows laid out on their own, own ids from
+    ``row0 = n_loc``, the colour vector whole), as ``_full_branch`` (8
+    chains, at the largest ε the path gives K2) and ``_tailcut_round``
+    launch them, against their plain versions: K2 under the CDF-boundary
+    rule with exact conflicts, K3 exactly.  These launches are checks, not
+    the main path's."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.models.mcmc import _p_eff
+    from mcmc_colorer_tpu_torch.ops import firstfit as k3
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+    from mcmc_colorer_tpu_torch.parallel.mesh import Mesh
+    from mcmc_colorer_tpu_torch.parallel.sharded import ShardedMCMCColorer
+
+    # the largest ε the sharded sweep hands K2: ``_eps_eff`` caps ε·scale
+    # at 0.4 / (nCol − 1), so a kept colour's q, 1 − (nCol − 1)·ε, is at
+    # least 0.6 (at (nCol − 1)·ε ≥ 1 it would be negative and the q row
+    # no distribution)
+    p = MCMCParams(n_colors=g.max_degree, proposal=ProposalKind.BALANCE_DYNAMIC,
+                   taboo_iterations=2, epsilon=0.4 / (g.max_degree - 1))
+    c = ShardedMCMCColorer(g, p, Mesh(1, 2, 0, 1, device), n_chains=SHARDED_CHAINS,
+                           backend="pallas")
+    off, nr = c.offset, c.n_real
+    flat = g.to_ell(pad_nodes_to=c.n_pad, pad_degree_to=c.d_pad, device=device).neighbors
+    _require(off > 0 and torch.equal(c.neighbors, flat[off:off + c.n_loc]),
+             "phase 30: shard 1's rows differ from the flat ELL's")
+    del flat
+    gen = torch.Generator(device=device).manual_seed(seed)
+    colors = torch.randint(0, p.n_colors, (SHARDED_CHAINS, c.n_pad), generator=gen,
+                           device=device, dtype=torch.int32)
+    colors[:, g.n:] = p.n_colors
+    taboo = torch.randint(0, 3, (SHARDED_CHAINS, nr), generator=gen, device=device,
+                          dtype=torch.int32)
+    unif = torch.rand((SHARDED_CHAINS, nr), generator=gen, device=device)
+    p_eff = _p_eff(colors, p, g.n, torch.arange(c.n_pad, device=device) < g.n)
+    args = (c.neighbors[:nr], colors[:, :g.n].contiguous(), colors[:, off:off + nr].contiguous(),
+            taboo, off, unif, p_eff, torch.full((), p.epsilon, device=device), p)
+    row = _k2_batched(k2, args, f"sharded shard 1 of (1, 2) rows [{nr}, {c.d_pad}] row0 {off}",
+                      30)
+    allow = torch.ones((p.n_colors,), dtype=torch.int32, device=device)
+    e3 = _k3_check(k3, c.neighbors[:nr], colors[0].contiguous(), allow, p.n_colors, None,
+                   f"sharded shard 1 of (1, 2) rows [{nr}, {c.d_pad}]", phase=30)
+    del c, colors
+    torch.cuda.empty_cache()
+    return row["frac"], row["qerr"], e3
+
+
+def phase_cli_slice9():
+    """Slice 9's CLI calls at ER(20k, 0.01), --tailcut --check --seed 5:
+    --active --chains 4 (the sharded colorer on a 1x1 mesh), also with
+    --anneal."""
+    base = ["--simulate", "0.01", "-n", "20000", "--mcmcgpu", "--tailcut", "--check", "--seed",
+            "5", "--active", "--chains", "4"]
+    _cli_run(base, 20_000, ("MCMC_GPU",), phase=31)
+    _cli_run(base + ["--anneal"], 20_000, ("MCMC_GPU",), phase=31)
+
+
 def main() -> int:
     import torch
 
@@ -2477,6 +2858,11 @@ def main() -> int:
     fr3_full, k2_fr3, f2, e2 = phase_frontier_mcmc_config3(device, g3, full_mcmc)
     frac2, err2 = max(frac2, f2), max(err2, e2)
     slice6_s = time.perf_counter() - t_slice6
+    torch.cuda.empty_cache()
+    t_slice9 = time.perf_counter()
+    sh3_chain, sh3_k2, sh3_k3, e3 = phase_sharded_config3(device, g3)
+    err3 = max(err3, e3)
+    slice9_s = time.perf_counter() - t_slice9
     del g3
     torch.cuda.empty_cache()
     g4, r4, gff4 = phase_config4(device)
@@ -2512,13 +2898,29 @@ def main() -> int:
     slice8_s = time.perf_counter() - t_slice8
     del c
     torch.cuda.empty_cache()
+    t_slice9 = time.perf_counter()
+    sh_chain, sh_k2, sh_k3, f2, e2, e3 = phase_sharded(device, g_bench)
+    frac2, err2, err3 = max(frac2, f2, sh_chain["frac"], sh3_chain["frac"]), max(
+        err2, e2, sh_chain["qerr"], sh3_chain["qerr"]), max(err3, e3)
+    with tempfile.TemporaryDirectory() as td:
+        ckpt = os.path.join(td, "sharded.npz")
+        ref, ref_chains = phase_sharded_resume(device, g_bench, ckpt)
+        phase_two_ranks(device, g_bench, ckpt, ref, ref_chains)
+    f2, e2, e3 = phase_sharded_offsets(device, g_bench)
+    frac2, err2, err3 = max(frac2, f2), max(err2, e2), max(err3, e3)
+    slice9_s += time.perf_counter() - t_slice9
+    torch.cuda.empty_cache()
     t_slice6 = time.perf_counter()
     phase_cli()
     t_cli8 = time.perf_counter()
     phase_cli_slice8()
+    t_cli9 = time.perf_counter()
+    phase_cli_slice9()
     print(f"phase 15 CLI: {t_cli8 - t_slice6:.3f} s; phases 16-19 (slice 6) "
           f"{slice6_s:.3f} s; phases 20-21 (slice 7) {slice7_s:.3f} s; phases 22-24 (slice 8) "
-          f"{slice8_s:.3f} s, its CLI calls (phase 25) {time.perf_counter() - t_cli8:.3f} s")
+          f"{slice8_s:.3f} s, its CLI calls (phase 25) {t_cli9 - t_cli8:.3f} s; phases 26-30 "
+          f"(slice 9) {slice9_s:.3f} s, its CLI calls (phase 31) "
+          f"{time.perf_counter() - t_cli9:.3f} s")
 
     # no single PyTorch call computes what K1, K2 or K3 compute from their
     # inputs (PERF.md): library_ms is null
@@ -2564,9 +2966,12 @@ def main() -> int:
     k2_rows = []
     # slice 8: the stepped and traced chains' shapes (phase 22), and K2 with
     # a chain axis at each shape of phase 23's ensembles
+    # slice 9: the sharded ensemble's K2 at its call sites (phases 26 and
+    # 27): the full sweep with a chain axis, the frontier's rows
     for row in ([{**k2_config3, "launches": launches2 + fr3_full},
                  {**k2_bench, "launches": l2_bench + hast_k2}] + k2_fr3 + res["k2_rows"]
-                + k2_b4 + k2_b1m + k2_st + ens["K2"] + res_ens["K2"]):
+                + k2_b4 + k2_b1m + k2_st + ens["K2"] + res_ens["K2"]
+                + sh_chain["K2"] + sh_k2 + sh3_chain["K2"] + sh3_k2):
         b_ms, b_by = _bound(row["bytes"], row["ops"], FP32_OPS_PER_S)
         k2_rows.append({**row, "bound_ms": b_ms, "bound_by": b_by,
                         "bound_share": b_ms / row["ms"]})
@@ -2577,7 +2982,8 @@ def main() -> int:
     k3_rows = []
     for row in ([{"shape": "config-3 band", "launches": launches3, "max_abs_err": err3,
                   "ms": k3_ms, "plain_ms": p3_ms, "bytes": k3_bytes, "ops": k3_slots}]
-                + k3_b4 + k3_b1m + k3_st + ens["K3"] + res_ens["K3"]):
+                + k3_b4 + k3_b1m + k3_st + ens["K3"] + res_ens["K3"]
+                + sh_chain["K3"] + sh_k3 + sh3_chain["K3"] + sh3_k3):
         b_ms, b_by = _bound(row["bytes"], row["ops"], INT32_OPS_PER_S)
         k3_rows.append({**row, "bound_ms": b_ms, "bound_by": b_by,
                         "bound_share": b_ms / row["ms"]})
@@ -2635,6 +3041,10 @@ def main() -> int:
             "shapes": k3_rows,
         },
     ]}))
+    import torch.distributed as dist
+
+    if dist.is_initialized():  # phase 26's one-rank NCCL group
+        dist.destroy_process_group()
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

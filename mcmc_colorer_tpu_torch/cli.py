@@ -24,12 +24,20 @@ colorer, the stepped chain), as in JAX: for any other ``--resume`` exits
 2 and ``--ckpt`` is ignored with a message; ``-v 1`` or more turns the
 TRACE output on (the device chain's free-colour lines among it).
 
-The multi-device paths (ROADMAP.md Queue 1 item 12) print a message
-naming the item and exit 2: ``--mesh-chains``, ``--mesh-shards``,
-``--anneal`` and ``--active --chains`` (JAX runs frontier ensembles on
-its sharded colorer).  The JAX CLI's refusals of ``--active
---hastings``, of ``--resident --active`` with checkpoints or
-``--chains`` and of ``--resident --dbg`` exit 2 with its messages.
+``--mesh-chains``/``--mesh-shards`` run ``ShardedMCMCColorer`` over a
+host graph on a (chains, shards) mesh of ``torch.distributed`` ranks
+(``--anneal``: pooled annealing; ``--active``: frontier sweeps, cap
+``max(128, n // 8)``), and ``--active --chains N`` runs it on a 1x1 mesh
+in this process, as JAX runs frontier ensembles.  More than one rank is
+started by ``torchrun --nproc-per-node N`` (one card each under NCCL,
+gloo where ranks share a card); a mesh larger than the world exits 2
+naming ``torchrun``, and rank 0 alone prints and writes the ``.log`` and
+``-colors.txt``.  The sharded strip backend (``--backend matmul|packed``
+on a sharded route) and ``--resident`` with a mesh are ROADMAP.md Queue 1
+item 12b: they print a message naming it and exit 2.  The JAX CLI's
+refusals of ``--active --hastings``, of ``--resident --active`` with
+checkpoints or ``--chains`` and of ``--resident --dbg`` exit 2 with its
+messages.
 
 Run ``python -m mcmc_colorer_tpu_torch.cli --help``.
 """
@@ -181,8 +189,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     dev = p.add_argument_group("Device scaling (no reference counterpart)")
     dev.add_argument("--chains", type=int, default=1, help="independent chains (ensemble)")
-    dev.add_argument("--mesh-chains", type=int, default=0, help="not ported yet (item 12)")
-    dev.add_argument("--mesh-shards", type=int, default=0, help="not ported yet (item 12)")
+    dev.add_argument("--mesh-chains", type=int, default=0,
+                     help="chains axis of the rank mesh (start ranks with torchrun)")
+    dev.add_argument("--mesh-shards", type=int, default=0,
+                     help="shards axis of the rank mesh (start ranks with torchrun)")
     dev.add_argument(
         "--backend",
         choices=["auto", "pallas", "xla", "matmul", "packed"],
@@ -200,7 +210,8 @@ def build_parser() -> argparse.ArgumentParser:
         "skewed-degree graphs)",
     )
     dev.add_argument(
-        "--anneal", action="store_true", help="pooled epsilon annealing (item 12)"
+        "--anneal", action="store_true",
+        help="pooled epsilon annealing (the sharded colorer's routes)"
     )
     dev.add_argument(
         "--resident",
@@ -249,14 +260,44 @@ def _check_unported(args) -> None:
                 "--mesh-shards.")
     if args.resident and args.dbg:
         _refuse("--resident is incompatible with --dbg.")
-    for flag, on in (("--mesh-chains", args.mesh_chains), ("--mesh-shards", args.mesh_shards),
-                     ("--anneal", args.anneal)):
-        if on:
-            _refuse(f"{flag}: multi-device meshes and annealing {item} 12).")
-    if args.mcmcgpu and args.active and args.chains > 1:
-        # JAX runs frontier ensembles on its sharded colorer (cli.py:386-411)
-        _refuse(f"--active --chains {args.chains}: frontier ensembles run on the sharded "
-                f"colorer, which {item} 12).")
+    if args.resident and _on_mesh(args):
+        _refuse(f"--resident with --mesh-chains/--mesh-shards (sharded hash strips) "
+                f"{item} 12b).")
+    if args.mcmcgpu and _sharded_route(args) and args.backend in ("matmul", "packed"):
+        _refuse(f"--backend {args.backend} on the sharded colorer (adjacency strips) "
+                f"{item} 12b).")
+
+
+def _on_mesh(args) -> bool:
+    return bool(args.mesh_chains or args.mesh_shards)
+
+
+def _sharded_route(args) -> bool:
+    """The MCMC routes that run ``ShardedMCMCColorer``: a mesh, or a
+    frontier ensemble (JAX runs those on a 1x1 mesh, cli.py:386-411)."""
+    return not args.resident and (_on_mesh(args) or (args.active and args.chains > 1))
+
+
+def _make_mesh(args, device):
+    """The rank mesh of ``--mesh-chains``/``--mesh-shards`` (joining the
+    ranks ``torchrun`` started), or a 1x1 mesh for a frontier ensemble;
+    exits 2 when the mesh does not match the world."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    mesh_dev = "cpu" if device.type == "cpu" else None  # None: this rank's card
+    if not _on_mesh(args):
+        return make_mesh(1, 1, device=device)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        initialize_distributed()
+    try:
+        mesh = make_mesh(args.mesh_chains or None, args.mesh_shards or None, device=mesh_dev)
+    except ValueError as e:
+        _refuse(f"--mesh-chains {args.mesh_chains} --mesh-shards {args.mesh_shards}: {e}")
+    if mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
+    return mesh
 
 
 def _load_graph(args, seed: int) -> tuple[Graph, float | None]:
@@ -355,11 +396,21 @@ def _device_backend(args) -> str:
     return args.backend
 
 
-def _make_colorer(kind: ColorerKind, g: Graph, args, params: MCMCParams, device):
+def _make_colorer(kind: ColorerKind, g: Graph, args, params: MCMCParams, device, mesh=None):
     if kind == ColorerKind.MCMC_SEQ:
         from mcmc_colorer_tpu_torch.models.mcmc_sequential import SequentialMCMCColorer
 
         return SequentialMCMCColorer(g, params)
+    if kind == ColorerKind.MCMC and mesh is not None:
+        from mcmc_colorer_tpu_torch.parallel.sharded import AnnealConfig, ShardedMCMCColorer
+
+        # frontier capacity: per chain, resample at most ~n/8 vertices
+        # once the conflict set fits (rounded up to 128 by the colorer)
+        active_cap = max(128, g.n // 8) if args.active else None
+        return _BestOfWrapper(ShardedMCMCColorer(
+            g, params, mesh, n_chains=max(args.chains, mesh.chains),
+            anneal=AnnealConfig(enabled=args.anneal), active_cap=active_cap,
+            backend=args.backend))
     if kind == ColorerKind.MCMC and args.chains > 1:
         from mcmc_colorer_tpu_torch.parallel.chains import EnsembleMCMCColorer
 
@@ -475,6 +526,9 @@ def main(argv=None) -> int:
         device = colorer_device(args.device)
     except RuntimeError as e:  # no card: refuse, never run on the CPU instead
         _refuse(f"--device {args.device}: {e}")
+    mesh = _make_mesh(args, device) if args.mcmcgpu and _sharded_route(args) else None
+    if mesh is not None and mesh.rank != 0:
+        args.quiet = True  # rank 0 alone prints and writes the run's files
     if not args.quiet:
         print(_LOGO)
         print(_CITATION)
@@ -570,11 +624,13 @@ def main(argv=None) -> int:
         elif resident_luby is not None and kind == ColorerKind.LUBY:
             colorer = resident_luby
         else:
-            colorer = _make_colorer(kind, g, args, params, device)
+            colorer = _make_colorer(kind, g, args, params, device, mesh)
         tag = _ALGO_TAG[kind]
         for rep in range(args.repet):
             result = colorer.run(seed, repetition=rep,
                                  **_checkpoint_kwargs(colorer, args, tag, rep))
+            if mesh is not None and mesh.rank != 0:
+                continue  # every rank holds the same result
             log_path, _ = save_run(
                 out_dir,
                 graph_name,
@@ -623,6 +679,10 @@ def main(argv=None) -> int:
                             f"min {int(lo)} max {int(hi)} avg {avg:.2f}"
                         )
                 term.trace(result.ascii_histogram())
+    if mesh is not None and mesh.distributed:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return rc
 
 

@@ -35,6 +35,14 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def _layout_device(device) -> torch.device:
+    """A layout's device: ``models/base.colorer_device`` (the current card
+    for ``"cuda"`` or None, raising without one)."""
+    from mcmc_colorer_tpu_torch.models.base import colorer_device
+
+    return colorer_device(device)
+
+
 def degree_pad_for(graph: "Graph", backend: str) -> int:
     """Degree-axis padding: 128 on the kernel path for high-degree graphs
     (whole 512-byte rows, so a warp's reads of a row stay aligned), 8
@@ -175,11 +183,13 @@ class Graph:
         pad_nodes_to: int = 8,
         pad_degree_to: int = 8,
         min_degree_pad: int = 1,
-        device="cpu",
+        device="cuda",
         device_build: bool | None = None,
         build_stats: dict | None = None,
     ) -> "EllGraph":
-        """Pack the CSR into the padded ELL layout on ``device``.
+        """Pack the CSR into the padded ELL layout on ``device``: the
+        current card by default (``models/base.colorer_device``, which
+        raises without one); the CPU when asked for.
 
         ``device_build`` picks where the rectangle is made: True scatters
         it on ``device`` from the CSR (``ops/ell_build.py``), False builds
@@ -192,7 +202,7 @@ class Graph:
         rectangle is kept, and a smaller-or-equal cached one is evicted
         BEFORE the new one is built, so two never coexist on the device.
         """
-        device = torch.device(device)
+        device = _layout_device(device)
         n_pad = _round_up(max(self.n, 1), pad_nodes_to)
         d_pad = _round_up(max(self.max_degree, min_degree_pad), pad_degree_to)
         key = (n_pad, d_pad, str(device))
@@ -239,9 +249,10 @@ class Graph:
         block: int = 128,
         min_lane: int = 8,
         lane_factor: int = 4,
-        device="cpu",
+        device="cuda",
     ) -> "BucketedEll":
-        """Pack the CSR into degree-bucketed ELL rectangles on ``device``.
+        """Pack the CSR into degree-bucketed ELL rectangles on ``device``
+        (the current card by default, as ``to_ell``).
 
         The graph must be degree-monotonic, ascending or descending (call
         ``degree_relabel`` first).  Vertices are grouped into contiguous
@@ -300,7 +311,7 @@ class Graph:
             pos[a:b] = s + np.arange(b - a, dtype=np.int64)
         degrees = np.zeros(n_pad, dtype=np.int32)
         degrees[pos] = degs
-        device = torch.device(device)
+        device = _layout_device(device)
         slices = []
         for (a, b, w), s, h_pad in zip(folded, starts, heights):
             seg_degs = degs[a:b]

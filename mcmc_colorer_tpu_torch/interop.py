@@ -18,6 +18,9 @@
   layout of either package reads back as numpy (``bucketed_to_numpy``),
   and a JAX one becomes the port's (``bucketed_from_jax``), so both sides
   can run on one layout.
+- The sharded ensemble: JAX's sharded state (a JAX checkpoint's fields)
+  becomes the port's on any mesh (``sharded_state_from_numpy``), so a JAX
+  segment can be resumed by the port.
 """
 
 from __future__ import annotations
@@ -148,3 +151,14 @@ def bucketed_from_jax(jax_bell, device="cpu") -> BucketedEll:
         slices=slices, degrees=torch.from_numpy(np.array(d["degrees"], np.int32)).to(device),
         n_nodes=d["n_nodes"], n_edges=d["n_edges"], max_degree=d["max_degree"],
     )
+
+
+def sharded_state_from_numpy(colorer, fields: dict, sources):
+    """The port's sharded ensemble state on ``colorer``'s mesh
+    (``parallel/sharded.ShardedMCMCColorer``) from JAX's sharded state:
+    the 11 fields of its ``_STATE_FIELDS``
+    (``mcmc_colorer_tpu/parallel/sharded.py:377``) as numpy arrays (a JAX
+    checkpoint ``.npz``), re-padded to the port's geometry.  The keys
+    (``keydata``) are left out: ``sources`` are this rank's chains' sources,
+    positioned where those keys were."""
+    return colorer.state_from_numpy(dict(fields), sources)

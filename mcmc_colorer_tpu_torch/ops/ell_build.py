@@ -32,9 +32,12 @@ def ell_neighbors_from_csr_device(
     device="cpu",
     stats: dict | None = None,
     band_edges: int = ELL_BUILD_BAND_EDGES,
+    sentinel: int | None = None,
 ) -> torch.Tensor:
-    """[n_pad, d_pad] int32 neighbour rectangle on ``device`` (sentinel
-    ``n_pad`` in padding slots), scattered from the CSR."""
+    """[n_pad, d_pad] int32 neighbour rectangle on ``device`` (``sentinel``,
+    by default ``n_pad``, in padding slots), scattered from the CSR.  A
+    shard's rows (``parallel/sharded.py``) pass their slice of the CSR,
+    rebased to 0, with the global padding id as ``sentinel``."""
     device = torch.device(device)
     m2 = int(cols.shape[0])
     if n_pad * d_pad >= 2**63 or n_pad > 2**31 - 1:
@@ -42,7 +45,8 @@ def ell_neighbors_from_csr_device(
     stats = {} if stats is None else stats
     t0 = time.perf_counter()
     cum = torch.from_numpy(np.ascontiguousarray(row_ptr, dtype=np.int64)).to(device)
-    ell = torch.full((n_pad, d_pad), n_pad, dtype=torch.int32, device=device)
+    fill = n_pad if sentinel is None else sentinel
+    ell = torch.full((n_pad, d_pad), fill, dtype=torch.int32, device=device)
     flat = ell.view(-1)
     cols_c = np.ascontiguousarray(cols, dtype=np.int32)
     bands = 0

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mcmc_colorer_tpu_torch.models.base import colorer_device
 from mcmc_colorer_tpu_torch.ops.dense_adj import PACKED_K_CHUNK, packed_adj_words
 
 # murmur3 fmix32 constants (public domain)
@@ -107,10 +108,13 @@ def _gen_packed_rows(
 
 def er_packed_on_device(
     n: int, p: float, seed: int, n_pad: int, row_chunk: int = 2048,
-    device="cpu",
+    device="cuda",
 ) -> torch.Tensor:
     """[n_pad, words] int32 bit-packed adjacency of the hash graph, built
-    on ``device`` in bands of ``row_chunk`` rows written in place."""
+    on ``device`` (the current card by default, raising without one:
+    ``models/base.colorer_device``) in bands of ``row_chunk`` rows
+    written in place."""
+    device = colorer_device(device)
     if n_pad % row_chunk:
         raise ValueError(f"row_chunk must divide n_pad ({n_pad})")
     if n > n_pad:
@@ -130,11 +134,13 @@ _PACKED_CACHE: dict = {}
 
 def er_packed_on_device_cached(
     n: int, p: float, seed: int, n_pad: int, row_chunk: int = 2048,
-    device="cpu",
+    device="cuda",
 ) -> torch.Tensor:
-    """Single-slot cache over :func:`er_packed_on_device`, so colorers of
-    the same hash graph share one device adjacency."""
-    ck = (n, float(p), int(seed), n_pad, str(torch.device(device)))
+    """Single-slot cache over :func:`er_packed_on_device` (on the same
+    default device), so colorers of the same hash graph share one device
+    adjacency."""
+    device = colorer_device(device)
+    ck = (n, float(p), int(seed), n_pad, str(device))
     if ck in _PACKED_CACHE:
         return _PACKED_CACHE[ck]
     _PACKED_CACHE.clear()  # free the old graph before building the new one

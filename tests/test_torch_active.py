@@ -108,7 +108,7 @@ def frontier_state(jg, n_colors, seed, pad=128, last_conflicts=False):
     """(JAX ELL, port ELL, colours, taboo, cnt by JAX): random colours in
     a tight palette, taboo counters in {0, 1, 2}."""
     je = jg.to_ell(pad_nodes_to=pad)
-    te = interop.graph_from_jax(jg).to_ell(pad_nodes_to=pad)
+    te = interop.graph_from_jax(jg).to_ell(pad_nodes_to=pad, device="cpu")
     rng = np.random.default_rng(seed)
     colors = rng.integers(0, n_colors, je.n_pad).astype(np.int32)
     colors[jg.n:] = n_colors

@@ -127,7 +127,7 @@ def test_to_ell_bucketed_matches_jax(request, fixture, descending, min_lane):
     tg2, tperm = interop.graph_from_jax(jg).degree_relabel(descending=descending)
     assert np.array_equal(tperm, jperm)
     jb = jg2.to_ell_bucketed(block=128, min_lane=min_lane)
-    tb = tg2.to_ell_bucketed(block=128, min_lane=min_lane)
+    tb = tg2.to_ell_bucketed(block=128, min_lane=min_lane, device="cpu")
     assert_same_layout(tb, jb)
     assert_same_layout(interop.bucketed_from_jax(jb), jb)
     assert int(tb.node_mask.sum()) == jg.n
@@ -158,7 +158,7 @@ def test_bucketed_fold_rules(ba, descending, block):
     (tests/test_graph.py:220)."""
     g2 = interop.graph_from_jax(ba).degree_relabel(descending=descending)[0]
     jb = ba.degree_relabel(descending=descending)[0].to_ell_bucketed(block=block, min_lane=8)
-    tb = g2.to_ell_bucketed(block=block, min_lane=8)
+    tb = g2.to_ell_bucketed(block=block, min_lane=8, device="cpu")
     assert_same_layout(tb, jb)
     widths = [8, 32, 128, 216]  # 8 · 4^k up to the max degree, 210, rounded up to 8
     assert ba.max_degree == 210
@@ -171,10 +171,10 @@ def test_bucketed_fold_rules(ba, descending, block):
     rest = tb.slices if descending else tb.slices[:-1]
     assert len(tb.slices) == 1 or all(s.n_real >= block for s in rest)
     if block == 32:
-        flat = interop.graph_from_jax(ba).to_ell()
+        flat = interop.graph_from_jax(ba).to_ell(device="cpu")
         assert tb.gather_elements < flat.n_pad * flat.d_pad / 3
     with pytest.raises(ValueError, match="degree-monotonic"):
-        interop.graph_from_jax(ba).to_ell_bucketed()
+        interop.graph_from_jax(ba).to_ell_bucketed(device="cpu")
 
 
 @pytest.mark.parametrize("min_lane", [8, 128])

@@ -71,7 +71,8 @@ def test_stepped_body_matches_jax(medium_er, case):
     jp = JParams(n_colors=medium_er.max_degree // 2, tailcut=True, **kw)
     ja = JStepped(medium_er, jp)  # 'auto' is XLA's plain sweep on the CPU
     pt = port_params(jp)
-    te = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=ja.block, pad_degree_to=8)
+    te = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=ja.block, pad_degree_to=8,
+                                                  device="cpu")
     assert te.n_pad == ja.ell.n_pad
     z = jp.tailcut_threshold(medium_er.n)
     st = ja.init_state(seed=4)

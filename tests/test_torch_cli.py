@@ -2,7 +2,8 @@
 
 Ports of the JAX CLI's tests (``tests/test_cli_analysis.py``), run with
 ``--device cpu``; the refusals of the paths the port lacks (exit 2,
-naming their ROADMAP.md item) and the JAX CLI's own refusals; the
+naming their ROADMAP.md item, or ``torchrun`` for a mesh larger than the
+world) and the JAX CLI's own refusals; the
 refusal to run without a card unless asked for the CPU; and the JAX
 package's ``log_parser`` reading the port's logs with the same fields
 as the JAX CLI's.
@@ -160,32 +161,39 @@ def test_cli_resident_errors():
         assert e.value.code == 2
 
 
-# what is left is ROADMAP.md item 12's (meshes, annealing, and frontier
-# ensembles, which JAX runs on its sharded colorer)
+# what is left is ROADMAP.md item 12b (the sharded colorer's adjacency
+# strips and resident hash strips); a mesh larger than the world (one
+# process here) names torchrun, which starts the ranks
 UNPORTED = {
-    "mesh_chains": (["--mcmcgpu", "--mesh-chains", "2"], 12),
-    "mesh_shards": (["--mcmcgpu", "--mesh-shards", "2"], 12),
-    "anneal": (["--mcmcgpu", "--anneal"], 12),
-    "active_chains": (["--mcmcgpu", "--active", "--chains", "2"], 12),
+    "mesh_chains": (["--mcmcgpu", "--mesh-chains", "2"], "torchrun --nproc-per-node 2"),
+    "mesh_shards": (["--mcmcgpu", "--mesh-shards", "2"], "torchrun --nproc-per-node 2"),
+    "mesh_backend_matmul": (["--mcmcgpu", "--mesh-shards", "1", "--backend", "matmul"],
+                            "ROADMAP.md Queue 1 item 12b)"),
+    "active_chains_backend_packed": (["--mcmcgpu", "--active", "--chains", "2", "--backend",
+                                      "packed"], "ROADMAP.md Queue 1 item 12b)"),
+    "resident_mesh": (["--mcmcgpu", "--resident", "--mesh-shards", "2"],
+                      "ROADMAP.md Queue 1 item 12b)"),
 }
 
 
 @pytest.mark.parametrize("case", list(UNPORTED))
 def test_unported_flags_exit_2(tmp_path, capsys, case):
-    flags, item = UNPORTED[case]
+    flags, msg = UNPORTED[case]
     out = tmp_path / "out"
     with pytest.raises(SystemExit) as e:
         cli_main(["--simulate", "0.1", "-n", "60", "--quiet", "--outDir", str(out),
                   *flags, *CPU])
     assert e.value.code == 2
-    assert f"ROADMAP.md Queue 1 item {item})" in capsys.readouterr().err
+    assert msg in capsys.readouterr().err
     assert not out.exists()
 
 
 # the flag sets that exited 2 until the frontier chain, the packed backend
 # over a host graph, the bucketed layout, the ensembles, the debugger,
-# checkpoints and TRACE were ported; Luby ignores --backend, as in JAX,
-# and MCMCColorer ignores --ckpt with a message, as in JAX
+# checkpoints, TRACE and the sharded colorer (frontier ensembles on a 1x1
+# mesh, annealing, a one-rank mesh, its checkpoints) were ported; Luby
+# ignores --backend, as in JAX, and MCMCColorer ignores --ckpt with a
+# message, as in JAX
 PORTED = {
     "layout_bucketed": (["--grdffgpu", "--layout", "bucketed"], {"GFF"}),
     "backend_matmul": (["--mcmcgpu", "--backend", "matmul"], {"MCMC_GPU"}),
@@ -199,6 +207,10 @@ PORTED = {
     "resident_trace": (["--mcmcgpu", "--resident", "-v", "2"], {"MCMC_GPU"}),
     "resident_chains_ckpt": (["--mcmcgpu", "--resident", "--chains", "2", "--ckpt", "e.npz"],
                              {"MCMC_GPU"}),
+    "active_chains": (["--mcmcgpu", "--active", "--chains", "2"], {"MCMC_GPU"}),
+    "anneal": (["--mcmcgpu", "--active", "--chains", "2", "--anneal"], {"MCMC_GPU"}),
+    "mesh_one_rank": (["--mcmcgpu", "--mesh-shards", "1", "--chains", "2", "--ckpt", "m.npz"],
+                      {"MCMC_GPU"}),
 }
 
 

@@ -122,7 +122,7 @@ def test_batched_plain_kernels_equal_single_calls(medium_er, chains):
     """K2, K3 and K1's plain versions with a chain axis against one call a
     chain: every output exact."""
     g = interop.graph_from_jax(medium_er)
-    ell = g.to_ell(pad_nodes_to=128)
+    ell = g.to_ell(pad_nodes_to=128, device="cpu")
     n_colors = medium_er.max_degree // 2
     gen = torch.Generator().manual_seed(chains)
     cols = torch.randint(0, n_colors, (chains, ell.n_pad), generator=gen, dtype=torch.int32)

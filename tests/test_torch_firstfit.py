@@ -46,7 +46,7 @@ def medium(medium_er):
     """medium_er's ELL in both packages and random partial colours."""
     g = graph_from_jax(medium_er)
     je = medium_er.to_ell(pad_nodes_to=128)
-    te = g.to_ell(pad_nodes_to=128)
+    te = g.to_ell(pad_nodes_to=128, device="cpu")
     max_colors = medium_er.max_degree + 1
     rng = np.random.default_rng(1)
     colors = rng.integers(-1, max_colors, te.n_pad).astype(np.int32)
@@ -160,7 +160,7 @@ def test_first_fit_ids_padding_and_isolated_vertex():
     dst = np.array([2, 3, 3, 4, 6, 7, 8, 8], np.int64)
     jg = JGraph.from_edges(10, src, dst)  # vertices 0 and 9 are isolated
     je = jg.to_ell(pad_nodes_to=128, pad_degree_to=8)
-    te = graph_from_jax(jg).to_ell(pad_nodes_to=128, pad_degree_to=8)
+    te = graph_from_jax(jg).to_ell(pad_nodes_to=128, pad_degree_to=8, device="cpu")
     neighbors = te.neighbors.numpy()
     assert np.array_equal(neighbors, np.asarray(je.neighbors))
     assert (neighbors == te.n_pad).any() and (neighbors[0] == te.n_pad).all()
@@ -251,3 +251,29 @@ def test_colorers_default_to_the_card(medium_er, monkeypatch, make):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build(**kw)
     assert build(device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("build", ["to_ell", "to_ell_bucketed", "er_packed_on_device",
+                                   "er_packed_on_device_cached"])
+def test_layout_builders_default_to_the_card(medium_er, monkeypatch, build):
+    """The public layout builders put their tensors on the card by
+    default, as JAX's put theirs on its default device: without CUDA they
+    raise and name the missing device (for the default, "cuda" and None);
+    asked for the CPU, they build there."""
+    from mcmc_colorer_tpu_torch.ops import hashgen
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = graph_from_jax(medium_er)
+    g_sorted = g.degree_relabel()[0]
+    make = {
+        "to_ell": lambda **kw: g.to_ell(pad_nodes_to=128, **kw).neighbors,
+        "to_ell_bucketed": lambda **kw: g_sorted.to_ell_bucketed(**kw).degrees,
+        "er_packed_on_device": lambda **kw: hashgen.er_packed_on_device(
+            300, 0.05, 1, 512, row_chunk=256, **kw),
+        "er_packed_on_device_cached": lambda **kw: hashgen.er_packed_on_device_cached(
+            300, 0.05, 1, 512, row_chunk=256, **kw),
+    }[build]
+    for kw in ({}, {"device": "cuda"}, {"device": None}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(**kw)
+    assert make(device="cpu").device == torch.device("cpu")

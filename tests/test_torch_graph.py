@@ -117,7 +117,7 @@ def test_to_ell_matches_jax(request, fixture, pad_degree):
     t = graph_from_jax(jg)
     assert_same_graph(t, jg)
     je = jg.to_ell(pad_nodes_to=128, pad_degree_to=pad_degree)
-    te = t.to_ell(pad_nodes_to=128, pad_degree_to=pad_degree)
+    te = t.to_ell(pad_nodes_to=128, pad_degree_to=pad_degree, device="cpu")
     for a, b in zip(ell_to_numpy(te), ell_to_numpy(je)):
         assert np.array_equal(a, b)
     assert (te.n_pad, te.d_pad, te.n_nodes, te.n_edges, te.max_degree) == (
@@ -163,11 +163,11 @@ def test_device_ell_build_bit_equal(g, band):
 
 def test_to_ell_cache_evicts_before_build():
     g = tgen.erdos_renyi(300, 0.05, seed=2)
-    a = g.to_ell(pad_nodes_to=128)
-    assert g.to_ell(pad_nodes_to=128) is a  # cached
-    b = g.to_ell(pad_nodes_to=512, device_build=True)
+    a = g.to_ell(pad_nodes_to=128, device="cpu")
+    assert g.to_ell(pad_nodes_to=128, device="cpu") is a  # cached
+    b = g.to_ell(pad_nodes_to=512, device_build=True, device="cpu")
     assert list(g._ell_cache) == [(512, b.d_pad, "cpu")]  # the larger one replaced it
-    c = g.to_ell(pad_nodes_to=128)  # smaller: built, not cached
+    c = g.to_ell(pad_nodes_to=128, device="cpu")  # smaller: built, not cached
     assert c is not a and list(g._ell_cache) == [(512, b.d_pad, "cpu")]
     assert np.array_equal(b.neighbors.numpy()[:300], np.where(
         c.neighbors.numpy()[:300] == 384, 512, c.neighbors.numpy()[:300]))

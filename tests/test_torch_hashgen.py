@@ -23,7 +23,7 @@ CASES = [(700, 0.03, 13, 768, 256), (4200, 0.01, 3, 4352, 256)]
 @pytest.mark.parametrize("n,p,seed,n_pad,row_chunk", CASES)
 def test_packed_words_match_jax(n, p, seed, n_pad, row_chunk):
     want = np.asarray(jh.er_packed_on_device(n, p, seed, n_pad, row_chunk=row_chunk))
-    adj = th.er_packed_on_device(n, p, seed, n_pad, row_chunk=row_chunk)
+    adj = th.er_packed_on_device(n, p, seed, n_pad, row_chunk=row_chunk, device="cpu")
     got = adjacency_to_jax(adj)
     assert got.dtype == np.uint32 and got.shape == want.shape
     assert np.array_equal(got, want)
@@ -64,6 +64,6 @@ def test_popcount_and_mix_on_edge_patterns():
 
 def test_generator_rejects_bad_bands():
     with pytest.raises(ValueError, match="row_chunk"):
-        th.er_packed_on_device(100, 0.1, 1, 768, row_chunk=500)
+        th.er_packed_on_device(100, 0.1, 1, 768, row_chunk=500, device="cpu")
     with pytest.raises(ValueError, match="exceeds"):
-        th.er_packed_on_device(1000, 0.1, 1, 768, row_chunk=256)
+        th.er_packed_on_device(1000, 0.1, 1, 768, row_chunk=256, device="cpu")

@@ -112,7 +112,7 @@ def test_frontier_ids_and_take_rows(request, fixture):
     ``take_rows`` on those ids."""
     jg = request.getfixturevalue(fixture)
     je = jg.to_ell(pad_nodes_to=128)
-    te = interop.graph_from_jax(jg).to_ell(pad_nodes_to=128)
+    te = interop.graph_from_jax(jg).to_ell(pad_nodes_to=128, device="cpu")
     rng = np.random.default_rng(4)
     mask = rng.random(je.n_pad) < 0.3
     for cap in (128, je.n_pad, int(mask.sum()) // 2):
@@ -153,7 +153,7 @@ def test_resident_luby_equals_gather_luby(resident_runs):
     """The NC formulation and the gather loop on the host graph of the
     same hash, padded to the same n_pad, with the same draws."""
     c, _, got = resident_runs
-    ell = c.host_graph().to_ell(pad_nodes_to=2048)
+    ell = c.host_graph().to_ell(pad_nodes_to=2048, device="cpu")
     assert ell.n_pad == c.n_pad
     colors, n_colors, rounds = tl._run_luby(ell, JaxKeySource(3))
     assert np.array_equal(colors[:RES_N].numpy(), got.colors)

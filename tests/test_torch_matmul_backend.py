@@ -76,7 +76,7 @@ def _dup_graphs():
 def test_packed_adj_build_matches_dense(medium_er):
     """Mirrors test_packed_adj_build_matches_dense: the port's A decodes
     to JAX's dense matrix and equals JAX's packed A word for word."""
-    ell = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=128)
+    ell = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=128, device="cpu")
     packed = interop.adjacency_to_jax(td.build_packed_adjacency_from_ell(ell))
     assert packed.shape == (ell.n_pad, td.packed_adj_words(ell.n_pad))
     dense = np.asarray(jd.build_dense_adjacency(medium_er, ell.n_pad))
@@ -89,7 +89,7 @@ def test_ell_builders_match_host_builds(medium_er, monkeypatch, chunks):
     """Mirrors test_ell_builders_match_host_builds, multi-window widths
     included, in one row chunk and in chunks of 8 rows."""
     for jg in (medium_er, j_er(jd.PACKED_K_CHUNK + 640, 0.002, seed=4)):
-        ell = interop.graph_from_jax(jg).to_ell(pad_nodes_to=128)
+        ell = interop.graph_from_jax(jg).to_ell(pad_nodes_to=128, device="cpu")
         words = td.packed_adj_words(ell.n_pad)
         if chunks == "many":
             monkeypatch.setattr(td, "PACK_STRIP_BYTES", 8 * words * 32)
@@ -105,7 +105,8 @@ def test_packed_duplicate_edges():
     """Mirrors test_packed_duplicate_edges and
     test_ell_builder_duplicate_edges: duplicate edges land once."""
     jg, g = _dup_graphs()
-    got = interop.adjacency_to_jax(td.build_packed_adjacency_from_ell(g.to_ell(pad_nodes_to=8)))
+    got = interop.adjacency_to_jax(
+        td.build_packed_adjacency_from_ell(g.to_ell(pad_nodes_to=8, device="cpu")))
     ref = np.zeros((8, 8), np.int8)
     ref[0, 1] = ref[0, 2] = ref[1, 0] = ref[2, 0] = 1
     assert np.array_equal(_unpack(got, 8), ref)
@@ -117,7 +118,7 @@ def test_packed_duplicate_edges():
 def test_matmul_refuses_duplicate_edges():
     """Mirrors test_matmul_refuses_duplicate_edges."""
     _, g = _dup_graphs()
-    ell = g.to_ell(pad_nodes_to=8)
+    ell = g.to_ell(pad_nodes_to=8, device="cpu")
     with pytest.raises(ValueError, match="duplicate edges"):
         td.get_adjacency(g, ell)
     with pytest.raises(ValueError, match="duplicate edges"):
@@ -129,14 +130,14 @@ def test_get_adjacency_cache(medium_er):
     device); a second call at the same n_pad, even with another ELL
     object, takes it; another n_pad builds its own."""
     g = interop.graph_from_jax(medium_er)
-    ell = g.to_ell(pad_nodes_to=128)
+    ell = g.to_ell(pad_nodes_to=128, device="cpu")
     stats = {}
     a1 = td.get_adjacency(g, ell, stats=stats)
     assert stats["cached"] is False and stats["total_s"] >= stats["build_s"] >= 0
     stats = {}
-    again = g.to_ell(pad_nodes_to=128)
+    again = g.to_ell(pad_nodes_to=128, device="cpu")
     assert td.get_adjacency(g, again, stats=stats) is a1 and stats["cached"]
-    a2 = td.get_adjacency(g, g.to_ell(pad_nodes_to=1024))
+    a2 = td.get_adjacency(g, g.to_ell(pad_nodes_to=1024, device="cpu"))
     assert a2 is not a1 and a2.shape[0] == 1024
     assert torch.equal(a2[: ell.n_pad, : a1.shape[1]], a1) and not a2[ell.n_pad:].any()
     assert set(g._adj_cache) == {(ell.n_pad, "cpu"), (1024, "cpu")}
@@ -149,7 +150,7 @@ def test_simple_certified_skips_nnz_check(small_er):
     certified pays the check."""
     g = interop.graph_from_jax(small_er)
     assert g.simple_certified
-    ell = g.to_ell(pad_nodes_to=8)
+    ell = g.to_ell(pad_nodes_to=8, device="cpu")
     with mock.patch.object(td, "check_adjacency_complete",
                            side_effect=AssertionError("must not be called")):
         td.get_adjacency(g, ell)
@@ -167,7 +168,7 @@ def test_sweep_matmul_packed_matches_jax(medium_er, kind):
     one state and one uniform vector."""
     g = interop.graph_from_jax(medium_er)
     je = medium_er.to_ell(pad_nodes_to=128)
-    te = g.to_ell(pad_nodes_to=128)
+    te = g.to_ell(pad_nodes_to=128, device="cpu")
     jp = JParams(n_colors=medium_er.max_degree, proposal=JKind(kind.value), taboo_iterations=3)
     pt = port_params(jp)
     adj_j = jd.build_packed_adjacency(medium_er, je.n_pad)

@@ -120,7 +120,8 @@ def test_teacher_forced_fused_chain(medium_er, case):
     jp = JParams(n_colors=n_colors, proposal=JKind.BALANCE_DYNAMIC, tailcut=True, **kw)
     c = jm.MCMCColorer(medium_er, jp, backend="pallas")
     pt = port_params(jp)
-    te = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=c.block, pad_degree_to=8)
+    te = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=c.block, pad_degree_to=8,
+                                                  device="cpu")
     assert te.n_pad == c.ell.n_pad
     key = rngu.for_repetition(rngu.root_key(3), 0)
     carry = c._jit_init(c.ell, key)
@@ -163,7 +164,8 @@ def test_teacher_forced_generic_chain(medium_er, case):
                  tailcut=True, max_iterations=3, **GENERIC[case])
     c = jm.MCMCColorer(medium_er, jp, backend="xla")
     pt = port_params(jp)
-    te = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=c.block, pad_degree_to=8)
+    te = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=c.block, pad_degree_to=8,
+                                                  device="cpu")
     key = rngu.for_repetition(rngu.root_key(4), 0)
     carry = c._jit_init(c.ell, key)
     _, k_init = jax.random.split(key)
@@ -204,7 +206,7 @@ def test_tailcut_rounds_match_jax(medium_er, n_colors):
     jp = JParams(n_colors=n_colors, proposal=JKind.BALANCE_DYNAMIC, tailcut=True)
     pt = port_params(jp)
     je = medium_er.to_ell(pad_nodes_to=128)
-    te = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=128)
+    te = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=128, device="cpu")
     rng = np.random.default_rng(9)
     colors = rng.integers(0, n_colors, je.n_pad).astype(np.int32)
     colors[medium_er.n:] = n_colors
@@ -236,7 +238,7 @@ def test_tailcut_rounds_match_jax(medium_er, n_colors):
 def test_super_blocks_do_not_change_the_sweep(medium_er, monkeypatch):
     """Mirrors test_fused_sweep_super_blocked_bitexact: row bands only
     bound memory."""
-    te = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=128)
+    te = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=128, device="cpu")
     p = MCMCParams(n_colors=medium_er.max_degree, taboo_iterations=2)
     rng = np.random.default_rng(3)
     colors = torch.from_numpy(rng.integers(0, p.n_colors, te.n_pad).astype(np.int32))
@@ -261,7 +263,7 @@ def test_ell_sweep_bands_or_one_piece(medium_er, monkeypatch, kind):
     """The plain sweep gives bit-equal results in row bands and in one
     piece (K2 runs in one piece on the card); phantom rows keep their
     colour, no taboo, log qstar 0."""
-    te = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=128)
+    te = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=128, device="cpu")
     p = MCMCParams(n_colors=medium_er.max_degree, proposal=kind, taboo_iterations=2)
     rng = np.random.default_rng(4)
     colors = rng.integers(0, p.n_colors, te.n_pad).astype(np.int32)
@@ -385,7 +387,7 @@ def test_checks_match_jax(medium_er, monkeypatch):
                     medium_er, colors, allow
                 )
     je = medium_er.to_ell(pad_nodes_to=128)
-    te = g.to_ell(pad_nodes_to=128)
+    te = g.to_ell(pad_nodes_to=128, device="cpu")
     for colors in (valid, bad):
         padded = np.full(te.n_pad, -1, np.int32)
         padded[: g.n] = colors

@@ -70,7 +70,7 @@ def run_both(jg, n_colors, kind, taboo_iters, eps, seed, ids_form=False):
     gathered band (``resample_sweep_reference``)."""
     g = graph_from_jax(jg)
     je = jg.to_ell(pad_nodes_to=128)
-    te = g.to_ell(pad_nodes_to=128)
+    te = g.to_ell(pad_nodes_to=128, device="cpu")
     n_pad = je.n_pad
     rng = np.random.default_rng(seed)
     colors = rng.integers(0, n_colors, n_pad).astype(np.int32)
@@ -169,7 +169,7 @@ def test_ids_form_matches_pallas_sweep(request, graph, kind, taboo_iters):
 def test_reference_blocks_do_not_change_the_sweep(medium_er):
     """Row blocks of the plain version only bound memory."""
     g = graph_from_jax(medium_er)
-    te = g.to_ell(pad_nodes_to=128)
+    te = g.to_ell(pad_nodes_to=128, device="cpu")
     p = MCMCParams(n_colors=g.max_degree, proposal=ProposalKind.DECREASE_LINE,
                    taboo_iterations=2)
     rng = np.random.default_rng(2)

@@ -45,7 +45,7 @@ def res700():
     the same n_pad, and its d_row."""
     c = ResidentMCMCColorer(700, 0.05, graph_seed=11, device="cpu")
     g = c.host_graph()
-    return c, g, g.to_ell(pad_nodes_to=c.n_pad, pad_degree_to=8), c.d_row
+    return c, g, g.to_ell(pad_nodes_to=c.n_pad, pad_degree_to=8, device="cpu"), c.d_row
 
 
 @pytest.mark.parametrize("blocks", ["one", "many"])

@@ -271,7 +271,7 @@ def test_resident_free_color_trace_matches_jax(monkeypatch, capsys):
 def test_flat_free_color_stats_match_jax(medium_er, n_colors):
     n_colors = n_colors or medium_er.max_degree
     je = medium_er.to_ell(pad_nodes_to=128)
-    te = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=128)
+    te = interop.graph_from_jax(medium_er).to_ell(pad_nodes_to=128, device="cpu")
     colors = np.random.default_rng(4).integers(0, n_colors, je.n_pad).astype(np.int32)
     colors[medium_er.n:] = n_colors
     want = [float(x) for x in jm._free_color_stats(je, jnp.asarray(colors), n_colors=n_colors,
