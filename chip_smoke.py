@@ -92,7 +92,25 @@ the card by default:
   K2 and K3 on shard 1's rows of a (1, 2) layout, at its row offset,
   against their plain versions; phase 31 the CLI's ``--active --chains
   4``, also with ``--anneal``.  Every K2 and K3 launch of phases 26 and
-  27 is recorded by shape, held against the plain version and timed.
+  27 is recorded by shape, held against the plain version and timed;
+- slice 10, the sharded colorer's adjacency strips, K1 at ``_strip_nc``:
+  phase 32 ``ShardedMCMCColorer(None, resident_spec=(100k, 0.01, 0))`` on
+  the 1x1 mesh with 8 chains at nCol 1150 (its strip phase 4's cached A):
+  full sweeps, the frontier (rows unpacked from the strip, K2), Hastings
+  and a run left to the strip tailcut, each valid against phase 4's C++
+  re-derivation; phase 33 ``backend="matmul"`` on phase 11's host graph
+  (its strips built from the ELL), whose first sweep equals the
+  ``pallas`` run's on the same sources but at CDF-boundary rows, and a
+  valid run; phase 34 two gloo ranks on the one card at (1, 2) on the
+  hash strips, each generating its own, equal to phase 32's 1x1 run, and
+  K1 held at a rank's strip shape; phase 35 the CLI's ``--resident
+  --mesh-shards 2 --check`` under torchrun and ``--backend packed
+  --mesh-shards 1``.  Every K1 launch of phases 32 and 33 is recorded by
+  strip and colours shape (``_K1Shapes``), held exactly against
+  ``packed_nc_reference`` on the run's own inputs and timed.
+
+The CLI phases (15, 25, 31 and 35) run last, as four concurrent lanes of
+subprocesses (``phase_clis``), each lane's calls in order.
 
 Every colouring is checked with ``check_coloring``.  Any failed check
 raises, so the exit code is non-zero.  Without CUDA, or outside a
@@ -104,7 +122,8 @@ that holds the kernels' launch counts, errors and times, each beside its
 bound: the least time the card could take for the same work, the larger
 of the bytes it must move (each input read once, each output written
 once) over the memory rate and its operations over their peak rate.
-K1 runs at four shapes on the main paths, K2 at two sweep shapes, at
+K1 runs at four shapes on the main paths (and at the strip shapes of
+phases 32-34, its rows under ``shapes``), K2 at two sweep shapes, at
 each (palette, cap) of the two frontiers and at each shape of the runs of
 phases 20 and 21, K3 at the config-3 band and at each shape of phases 20
 and 21; their times and bounds are means weighted by the launches at
@@ -1982,8 +2001,6 @@ def _k1_batched(k1, args, label, phase):
     plain version and against one launch a chain, exactly; then timed."""
     import torch
 
-    from mcmc_colorer_tpu_torch.ops.hashgen import degrees_from_packed
-
     adj, colors, ncp = args[:3]
     chains = colors.shape[0]
     got = k1.packed_nc_cuda(adj, colors, ncp)
@@ -2000,16 +2017,99 @@ def _k1_batched(k1, args, label, phase):
     t = _pair_times(lambda: k1.packed_nc_cuda(adj, colors, ncp),
                     lambda: [k1.packed_nc_cuda(adj, a, ncp) for a in per_chain],
                     f"K1 {label}", phase, plain_ms)
-    deg = degrees_from_packed(adj)
-    pad = torch.zeros((adj.shape[0],), dtype=torch.int64, device=adj.device)
-    adds = 0
-    for a in per_chain:  # an add a set bit of a coloured column
-        col_ok = pad.clone()
-        col_ok[: a.shape[0]] = (a >= 0) & (a < ncp)
-        adds += int((deg * col_ok).sum())
     n_bytes = _nbytes(adj, colors) + chains * adj.shape[0] * ncp * 4
     return {"shape": label, "n_col_pad": ncp, "chains": chains, "max_abs_err": err, **t,
-            "bytes": n_bytes, "ops": adds}
+            "bytes": n_bytes, "ops": _k1_adds(adj, colors, ncp)}
+
+
+def _k1_adds(adj, colors, ncp) -> int:
+    """K1's adds on these inputs: for each chain, the set bits of A (or of
+    a strip of A) in the columns whose colour counts (in [0, ncp))."""
+    from mcmc_colorer_tpu_torch.models.mcmc_resident import _pack_mask
+    from mcmc_colorer_tpu_torch.ops.hashgen import popcount32
+
+    adds = 0
+    for a in colors if colors.dim() == 2 else colors[None]:
+        mask = _pack_mask((a >= 0) & (a < ncp), adj.shape[1])
+        for r0 in range(0, adj.shape[0], 8192):
+            adds += int(popcount32(adj[r0:r0 + 8192] & mask).sum())
+    return adds
+
+
+def _k1_single(k1, args, label, phase):
+    """K1 on one colour vector of a run's inputs: exactly against its plain
+    version, then timed by CUDA events and by device time."""
+    from mcmc_colorer_tpu_torch.measure_kernels import _device_ms
+
+    adj, colors, ncp = args
+    got = k1.packed_nc_cuda(adj, colors, ncp)
+    want, plain_ms = _once_ms(lambda: k1.packed_nc_reference(adj, colors, ncp))
+    err = int((got - want).abs().max())
+    del got, want
+    _require(err == 0, f"K1 differs from its plain version at {label}: {err}")
+    ms = _median_ms(lambda: k1.packed_nc_cuda(adj, colors, ncp))
+    dev_ms = _device_ms(lambda: k1.packed_nc_cuda(adj, colors, ncp), TIMED_RUNS)
+    print(f"phase {phase} K1 {label}: exact against the plain version; {ms:.3f} ms, "
+          f"{dev_ms:.3f} device; plain {plain_ms:.3f} ms (median of {TIMED_RUNS}, plain of 1, "
+          f"CUDA events; device time under the profiler)")
+    return {"shape": label, "n_col_pad": ncp, "chains": 1, "max_abs_err": err, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bytes": _nbytes(adj, colors) + adj.shape[0] * ncp * 4,
+            "ops": _k1_adds(adj, colors, ncp)}
+
+
+class _K1Shapes:
+    """Counts K1's launches by (A or strip shape, colours shape) while the
+    runs of one path go, whatever their chain count, and keeps each
+    shape's first inputs (the colours cloned; A or the strip is shared and
+    never changes), so that each launch shape the path made is held
+    exactly against ``packed_nc_reference`` on its own data and timed
+    (``check``: ``_k1_batched`` with a chain axis, ``_k1_single``
+    without), once a shape: the plain version takes seconds there.  The
+    rows are labelled ``label``; the runs' ``tag`` (set by
+    ``_sharded_run``) does not split them.  A call's launches are the
+    rise of the wrapper's own count over it."""
+
+    def __init__(self, label: str):
+        from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+
+        self.k1, self.seen, self.label, self.tag = k1, {}, label, ""
+
+    def __enter__(self):
+        k1 = self.k1
+        self.orig = orig = k1.packed_nc_cuda
+
+        def call(packed, colors, n_col_pad, **kw):
+            before = k1.launches
+            out = orig(packed, colors, n_col_pad, **kw)
+            if k1.launches > before:
+                key = (tuple(packed.shape), tuple(colors.shape), n_col_pad)
+                rec = self.seen.setdefault(key, [0, None])
+                if rec[1] is None:
+                    rec[1] = (packed, colors.clone(), n_col_pad)
+                rec[0] += k1.launches - before
+            return out
+
+        k1.packed_nc_cuda = call
+        return self
+
+    def __exit__(self, *exc):
+        self.k1.packed_nc_cuda = self.orig
+
+    def launches(self) -> int:
+        return sum(n for n, _ in self.seen.values())
+
+    def check(self, phase: int) -> list:
+        rows = []
+        for (ashape, cshape, _), (n, args) in self.seen.items():
+            label = f"{self.label} {list(cshape)} x {list(ashape)}"
+            batched = len(cshape) == 2 and cshape[0] > 1
+            if len(cshape) == 2 and not batched:
+                # one chain's [1, K]: the chainless launch
+                args = (args[0], args[1][0], args[2])
+            row = (_k1_batched if batched else _k1_single)(self.k1, args, label, phase)
+            rows.append({**row, "launches": n})
+        return rows
 
 
 def _one_chain_syncs(graph, n_pad, n_nodes, params, block, sweep, label, phase, seed=5,
@@ -2473,18 +2573,20 @@ def _sharded_digest(result):
             {k: v for k, v in best.extra.items() if k not in times}, summ)
 
 
-def _sharded_run(c, g, label, phase, seed, shapes=(), tag=None):
+def _sharded_run(c, g, label, phase, seed, shapes=(), tag=None, need=("K2",)):
     """One timed run of a sharded colorer with its counts set to 0 just
     before and read just after, inside the launch recorders ``shapes``
     (tagged ``tag``, by default ``label``); prints ms a sweep of all chains, sweeps, frontier
     sweeps, tailcut rounds, launches and peak device bytes, and requires a
-    valid colouring.  Returns (result, K2 launches, K3 launches)."""
+    valid colouring and a launch of each kernel in ``need``.  Returns
+    (result, K2 launches, K3 launches)."""
     import contextlib
 
     import torch
 
     from mcmc_colorer_tpu_torch.models.base import check_coloring
     from mcmc_colorer_tpu_torch.ops import firstfit as k3
+    from mcmc_colorer_tpu_torch.ops import packed_nc as k1
     from mcmc_colorer_tpu_torch.ops import resample as k2
 
     torch.cuda.synchronize()
@@ -2492,13 +2594,13 @@ def _sharded_run(c, g, label, phase, seed, shapes=(), tag=None):
     torch.cuda.reset_peak_memory_stats()
     for rec in shapes:
         rec.tag = tag or label
-    k2.launches = k3.launches = 0
+    k1.launches = k2.launches = k3.launches = 0
     with contextlib.ExitStack() as stack:
         for rec in shapes:
             stack.enter_context(rec)
         best, summ = c.run(seed=seed)
     torch.cuda.synchronize()
-    l2, l3 = k2.launches, k3.launches
+    l1, l2, l3 = k1.launches, k2.launches, k3.launches
     peak = torch.cuda.max_memory_allocated() - base
     x = best.extra
     valid = check_coloring(g, best.colors)
@@ -2510,11 +2612,13 @@ def _sharded_run(c, g, label, phase, seed, shapes=(), tag=None):
           f"tailcut rounds {x['tailcut_rounds']} ({x['tailcut_seconds']:.3f} s); per chain "
           f"conflicts {[r['conflicts'] for r in summ]}, accepted/attempted "
           f"{[(r['accepted_sweeps'], r['attempted_sweeps']) for r in summ]}; best chain "
-          f"{x['best_chain']}, eps scale {x['final_eps_scale']}; K2 launches {l2}, K3 launches "
-          f"{l3}; peak device memory {peak} bytes above the {base} allocated before; valid "
-          f"{valid}, final conflicts {x['final_conflicts']}")
+          f"{x['best_chain']}, eps scale {x['final_eps_scale']}; K1 launches {l1}, K2 launches "
+          f"{l2}, K3 launches {l3}; peak device memory {peak} bytes above the {base} allocated "
+          f"before; valid {valid}, final conflicts {x['final_conflicts']}")
     _require(valid and x["final_conflicts"] == 0, f"phase {phase} {label}: invalid colouring")
-    _require(l2 > 0, f"phase {phase} {label}: K2 launched no time")
+    for kernel, n in (("K1", l1), ("K2", l2), ("K3", l3)):
+        _require(kernel not in need or n > 0,
+                 f"phase {phase} {label}: {kernel} launched no time")
     return (best, summ), l2, l3
 
 
@@ -2795,6 +2899,278 @@ def phase_sharded_offsets(device, g, seed=5):
     return row["frac"], row["qerr"], e3
 
 
+STRIP_SPEC = (BENCH_N, BENCH_P, 0)  # phase 4's hash graph
+# phase 32's run left to the strip tailcut stops after this many sweeps:
+# at nCol 1150 the chains reach the threshold at 4, the best one at 0
+# conflicts; after 3 they hold 75-98 (on an H100), which the strip tailcut
+# repairs in some tens of rounds
+STRIP_TAILCUT_SWEEPS = 3
+
+
+def phase_sharded_strips(device, g, seed=5):
+    """Slice 10, phase 32: ``ShardedMCMCColorer(None, resident_spec=(100k,
+    0.01, 0))`` on a 1x1 mesh under the one-rank NCCL group, phase 26's
+    cell on the hash strips: 8 chains at nCol = the max degree, tailcut
+    on; full sweeps (K1 for all chains twice a sweep: NC of the colouring
+    and of the star), the frontier (ε 5e-9, cap n // 8; rows unpacked from
+    the strip, K2 on them with ``self_ids``), Hastings (30 sweeps at
+    most), and a run stopped after
+    ``STRIP_TAILCUT_SWEEPS`` sweeps for the strip tailcut (K1 a round).
+    The 1x1 strip is phase 4's cached A where the n_pad agree.  Each run
+    warmed, then timed and valid against ``g``, phase 4's C++
+    re-derivation of the same hash graph (phase 35's CLI ``--check`` runs
+    the colorer's own ``host_graph()``).  Returns (K1 rows, K2 rows, the
+    K2 boundary fraction and qstar error, the full run's digest, its first
+    K1 inputs, ms a sweep)."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+    from mcmc_colorer_tpu_torch.ops.hashgen import _PACKED_CACHE
+    from mcmc_colorer_tpu_torch.parallel.mesh import make_mesh
+    from mcmc_colorer_tpu_torch.parallel.sharded import ShardedMCMCColorer
+
+    _init_nccl_world_of_one()
+    mesh = make_mesh(1, 1)
+    k1s, ls = _K1Shapes("resident strips 1x1"), _LaunchShapes()
+    base = dict(n_colors=g.max_degree, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
+    runs = (
+        ("full", {}, {}, ("K1",)),
+        ("frontier", dict(epsilon=SHARDED_FRONTIER_EPS), dict(active_cap=BENCH_N // 8),
+         ("K1", "K2")),
+        ("hastings", dict(hastings=True, lambda_=25.0, max_iterations=30), {}, ("K1",)),
+        (f"tailcut after {STRIP_TAILCUT_SWEEPS} sweeps",
+         dict(max_iterations=STRIP_TAILCUT_SWEEPS), {}, ("K1",)),
+    )
+    out, l1 = {}, 0
+    for name, pkw, ckw, need in runs:
+        t0 = time.perf_counter()
+        c = ShardedMCMCColorer(None, MCMCParams(**base, **pkw), mesh, n_chains=SHARDED_CHAINS,
+                               resident_spec=STRIP_SPEC, **ckw)
+        strip = ("phase 4's cached A" if any(c.strip is a for a in _PACKED_CACHE.values())
+                 else "built for it")
+        print(f"phase 32 resident strips {name}: strip {list(c.strip.shape)} ({strip}), n_pad "
+              f"{c.n_pad}, set-up {time.perf_counter() - t0:.3f} s")
+        c.run(seed=seed)  # warm-up: each run's paths are timed warm
+        (best, summ), _, _ = _sharded_run(c, g, f"resident strips 1x1 {name}", 32, seed,
+                                          (k1s, ls), tag=f"resident strips 1x1 {name}",
+                                          need=need)
+        l1 += k1.launches  # this run's, counted by the wrapper
+        x = best.extra
+        out[name] = (best, summ)
+        if name == "frontier":
+            _require(x["frontier_sweeps"] > 0, "phase 32: no frontier sweep ran")
+        if name.startswith("tailcut"):
+            _require(x["tailcut_rounds"] > 0, "phase 32: the strip tailcut ran no round")
+    del c
+    torch.cuda.empty_cache()
+    _require(k1s.launches() == l1, "phase 32: K1 launches by shape do not add up")
+    full, _ = out["full"]
+    ms_full = full.extra["chain_seconds"] / max(full.iterations, 1) * 1e3
+    # the full run's first launch: the initial counts of all chains
+    first = next(iter(k1s.seen.values()))[1]
+    k1_rows = k1s.check(32)
+    k2_rows, _, frac, qerr, _ = ls.check(32, plain_runs=3)
+    torch.cuda.empty_cache()
+    return k1_rows, k2_rows, frac, qerr, _sharded_digest(out["full"]), first, ms_full
+
+
+def phase_sharded_matmul(device, g, seed=5):
+    """Slice 10, phase 33: ``backend="matmul"`` on phase 11's ER(100k, 0.01)
+    host graph at 8 chains on the 1x1 mesh: each rank's strip built from
+    its ELL rows.  First the two backends on the same sources from the same
+    initial state (counts equal: NC at the own colours against the
+    gather): one full sweep's samples of the matmul run (the torch
+    proposal on K1's NC) equal the ``pallas`` run's (K2) but at CDF-boundary
+    rows (``_k2_compare``'s rule).  Then the matmul run with the tailcut
+    (rank-space, K3, where the best chain ends with conflicts), warmed,
+    timed and valid.  Returns (K1 rows, K3 rows, boundary fraction, K3
+    error, ms a sweep)."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.models.mcmc import _p_eff, _proposal_q
+    from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+    from mcmc_colorer_tpu_torch.ops.neighbor import neighbor_colors, occupancy_matrix
+    from mcmc_colorer_tpu_torch.parallel.mesh import make_mesh
+    from mcmc_colorer_tpu_torch.parallel.sharded import ShardedMCMCColorer
+    from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource
+
+    _init_nccl_world_of_one()
+    mesh = make_mesh(1, 1)
+    p = MCMCParams(n_colors=g.max_degree, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
+    t0 = time.perf_counter()
+    cm = ShardedMCMCColorer(g, p, mesh, n_chains=SHARDED_CHAINS, backend="matmul")
+    print(f"phase 33 matmul strip of the host graph {list(cm.strip.shape)}, set-up "
+          f"{time.perf_counter() - t0:.3f} s")
+    cp = ShardedMCMCColorer(g, p, mesh, n_chains=SHARDED_CHAINS, backend="pallas")
+    sm, sp = cm.init_state(seed), cp.init_state(seed)
+    _require(torch.equal(sm.colors, sp.colors) and torch.equal(sm.cnt, sp.cnt),
+             "phase 33: the strip's initial counts differ from the gather's")
+    eps_t = torch.full((), float(cm._eps_eff(sm)), dtype=torch.float32, device=device)
+    ks = list(range(SHARDED_CHAINS))
+    star_m = cm._full_branch(sm, ks, eps_t)[0]
+    star_p = cp._full_branch(sp, ks, eps_t)[0]
+    n, worst = g.n, 0
+    p_eff = _p_eff(sm.colors, p, n, cm._full_real)
+    for k in ks:
+        src = TorchUniformSource(seed, 0, device, chain=k)
+        src.next(n)  # the initial colouring's
+        u = src.next(n)
+        mism = (star_m[k, :n] != star_p[k, :n]).nonzero()[:, 0]
+        worst = max(worst, mism.numel())
+        _require(mism.numel() <= BOUNDARY_MAX_FRACTION * n,
+                 f"phase 33: chain {k}'s first sweep differs at {mism.numel()} rows")
+        if mism.numel():
+            cur = sm.colors[k, mism]
+            nbc = neighbor_colors(cm.neighbors[mism], sm.colors[k])
+            occ = occupancy_matrix(nbc, p.n_colors)
+            cdf = torch.cumsum(_proposal_q(cur, occ, p, p_eff[k], eps_t, p.n_colors), dim=1)
+            kk, uu = star_m[k, mism].to(torch.int64), u[mism]
+            near = (uu - cdf.gather(1, kk[:, None])[:, 0]).abs() <= BOUNDARY_RTOL * uu
+            before = cdf.gather(1, (kk - 1).clamp(min=0)[:, None])[:, 0]
+            near |= (kk >= 1) & ((uu - before).abs() <= BOUNDARY_RTOL * uu)
+            _require(bool(near.all()), f"phase 33: chain {k} differs off a CDF boundary")
+    print(f"phase 33 first sweep, matmul against pallas on the same sources: at most {worst} "
+          f"CDF-boundary rows of {n} a chain")
+    del cp, sm, sp, star_m, star_p
+    k1s, ls = _K1Shapes("matmul strips 1x1"), _LaunchShapes()
+    cm.run(seed=seed)  # warm-up
+    (best, _), _, _ = _sharded_run(cm, g, "matmul strips 1x1", 33, seed, (k1s, ls),
+                                   need=("K1",))
+    _require(k1s.launches() == k1.launches, "phase 33: K1 launches by shape do not add up")
+    ms = best.extra["chain_seconds"] / max(best.iterations, 1) * 1e3
+    del cm
+    torch.cuda.empty_cache()
+    k1_rows = k1s.check(33)
+    _, k3_rows, _, _, err3 = ls.check(33, plain_runs=3)
+    torch.cuda.empty_cache()
+    return k1_rows, k3_rows, worst / n, err3, ms
+
+
+def _gloo_strip_rank(rank, world, port, out, seed):
+    """Phase 34's spawned rank: joins a gloo group of ``world`` ranks on the
+    one card, runs phase 32's full-sweep resident strips at (1, 2) and
+    writes its digest, its strip's shape and its K1 launches."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+    from mcmc_colorer_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from mcmc_colorer_tpu_torch.parallel.sharded import ShardedMCMCColorer
+
+    torch.cuda.set_device(0)
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+                           backend="gloo")
+    mesh = make_mesh(1, 2)
+    t0 = time.perf_counter()
+    c = ShardedMCMCColorer(None, MCMCParams(n_colors=0, proposal=ProposalKind.BALANCE_DYNAMIC,
+                                            tailcut=True),
+                           mesh, n_chains=SHARDED_CHAINS, resident_spec=STRIP_SPEC)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    k1.launches = 0
+    t0 = time.perf_counter()
+    dig = _sharded_digest(c.run(seed=seed))
+    torch.cuda.synchronize()
+    got = {"digest": dig, "run_s": time.perf_counter() - t0, "setup_s": setup_s,
+           "strip": tuple(c.strip.shape), "colors": (SHARDED_CHAINS, c.n_pad),
+           "n_colors": c.params.n_colors, "k1": k1.launches, "device": str(mesh.device)}
+    with open(f"{out}.{rank}", "wb") as f:
+        pickle.dump(got, f)
+    dist.destroy_process_group()
+
+
+def phase_strips_two_ranks(device, ref, first, seed=5, deadline_s=300.0):
+    """Slice 10, phase 34: two gloo ranks spawned on the one card at (1, 2)
+    on phase 32's hash graph, full sweeps at 8 chains with the palette
+    from the banded degree pass over the mesh: each rank generates its own
+    strip [n_loc, words]; the run equals phase 32's 1x1 full run ``ref``.
+    Then K1 at the ranks' strip shape, on shard 1's strip built here
+    (``Mesh(1, 2, 0, 1, device)``) and phase 32's first K1 colours
+    (``first``, the colouring every rank starts from), held and timed.
+    Returns the K1 row, its launches the ranks' sum."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+    from mcmc_colorer_tpu_torch.ops.hashgen import er_packed_strips_on_device
+    from mcmc_colorer_tpu_torch.parallel.mesh import Mesh
+
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "out.pkl")
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_gloo_strip_rank, args=(2, _free_port(), out, seed), nprocs=2,
+                                 join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=1.0):
+                _require(time.perf_counter() - t0 < deadline_s,
+                         f"phase 34: the ranks still run after {deadline_s} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        got = []
+        for r in range(2):
+            with open(f"{out}.{r}", "rb") as f:
+                got.append(pickle.load(f))
+    wall = time.perf_counter() - t0
+    for r, x in enumerate(got):
+        _require(x["digest"] == ref, f"phase 34: rank {r}'s run differs from the 1x1 run")
+        print(f"phase 34 gloo rank {r} of (1, 2) on {x['device']}: strip {list(x['strip'])}, "
+              f"n_colors {x['n_colors']} from the degree pass, set-up {x['setup_s']:.3f} s, "
+              f"run {x['run_s']:.3f} s, K1 launches {x['k1']}: equal to the 1x1 run "
+              f"({ref[1]} sweeps)")
+    print(f"phase 34 spawn of two ranks: {wall:.3f} s")
+    _require(got[0]["strip"] == got[1]["strip"], "phase 34: the ranks' strips differ in shape")
+    n_pad = got[0]["colors"][1]
+    strip = er_packed_strips_on_device(*STRIP_SPEC, n_pad, Mesh(1, 2, 0, 1, device))
+    _require(tuple(strip.shape) == got[1]["strip"]
+             and tuple(first[1].shape) == got[1]["colors"],
+             "phase 34: shapes differ from the ranks'")
+    row = _k1_batched(k1, (strip, first[1], first[2]),
+                      f"resident strips (1, 2) shard 1 {list(first[1].shape)} x "
+                      f"{list(strip.shape)}", 34)
+    del strip
+    return {**row, "launches": got[0]["k1"] + got[1]["k1"]}
+
+
+def phase_cli_slice10():
+    """Slice 10's CLI calls at ER(20k, 0.01), --tailcut --check --seed 5:
+    the resident strips under torchrun at --mesh-shards 2, and the host
+    graph's strips (--backend packed) on a one-rank mesh."""
+    base = ["--simulate", "0.01", "-n", "20000", "--mcmcgpu", "--tailcut", "--check", "--seed",
+            "5"]
+    _cli_run(base + ["--resident", "--mesh-shards", "2"], 20_000, ("MCMC_GPU",), phase=35,
+             launcher=("-m", "torch.distributed.run", "--nproc-per-node", "2",
+                       "--master-addr", "127.0.0.1", "--master-port", str(_free_port())))
+    _cli_run(base + ["--backend", "packed", "--mesh-shards", "1"], 20_000, ("MCMC_GPU",),
+             phase=35)
+
+
+def phase_clis():
+    """Phases 15, 25, 31 and 35, the CLI calls, as four concurrent lanes:
+    each call is a subprocess of its own that pays ~8-10 s of imports and
+    CUDA start-up, so the lanes overlap that; within a lane the calls run
+    in order (phase 25's --resume follows its --ckpt).  Every call and
+    check of each phase stays.  Returns each lane's seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    lanes = (phase_cli, phase_cli_slice8, phase_cli_slice9, phase_cli_slice10)
+    with ThreadPoolExecutor(max_workers=len(lanes)) as pool:
+        futures = [pool.submit(timed, fn) for fn in lanes]
+        return [f.result() for f in futures]
+
+
 def phase_cli_slice9():
     """Slice 9's CLI calls at ER(20k, 0.01), --tailcut --check --seed 5:
     --active --chains 4 (the sharded colorer on a 1x1 mesh), also with
@@ -2910,17 +3286,22 @@ def main() -> int:
     frac2, err2, err3 = max(frac2, f2), max(err2, e2), max(err3, e3)
     slice9_s += time.perf_counter() - t_slice9
     torch.cuda.empty_cache()
-    t_slice6 = time.perf_counter()
-    phase_cli()
-    t_cli8 = time.perf_counter()
-    phase_cli_slice8()
-    t_cli9 = time.perf_counter()
-    phase_cli_slice9()
-    print(f"phase 15 CLI: {t_cli8 - t_slice6:.3f} s; phases 16-19 (slice 6) "
-          f"{slice6_s:.3f} s; phases 20-21 (slice 7) {slice7_s:.3f} s; phases 22-24 (slice 8) "
-          f"{slice8_s:.3f} s, its CLI calls (phase 25) {t_cli9 - t_cli8:.3f} s; phases 26-30 "
-          f"(slice 9) {slice9_s:.3f} s, its CLI calls (phase 31) "
-          f"{time.perf_counter() - t_cli9:.3f} s")
+    t_slice10 = time.perf_counter()
+    st_k1, st_k2, f2, e2, st_ref, st_first, _ = phase_sharded_strips(device, g_bench)
+    frac2, err2 = max(frac2, f2), max(err2, e2)
+    mm_k1, mm_k3, _, e3, _ = phase_sharded_matmul(device, g_bench)
+    err3 = max(err3, e3)
+    st2_k1 = phase_strips_two_ranks(device, st_ref, st_first)
+    del st_first
+    slice10_s = time.perf_counter() - t_slice10
+    torch.cuda.empty_cache()
+    t_cli = time.perf_counter()
+    cli15_s, cli25_s, cli31_s, cli35_s = phase_clis()
+    print(f"phases 15, 25, 31, 35 (the CLI lanes, concurrent) {time.perf_counter() - t_cli:.3f} "
+          f"s; lanes: phase 15 {cli15_s:.3f} s, 25 {cli25_s:.3f} s, 31 {cli31_s:.3f} s, 35 "
+          f"{cli35_s:.3f} s; phases 16-19 (slice 6) {slice6_s:.3f} s; phases 20-21 (slice 7) "
+          f"{slice7_s:.3f} s; phases 22-24 (slice 8) {slice8_s:.3f} s; phases 26-30 (slice 9) "
+          f"{slice9_s:.3f} s; phases 32-34 (slice 10) {slice10_s:.3f} s")
 
     # no single PyTorch call computes what K1, K2 or K3 compute from their
     # inputs (PERF.md): library_ms is null
@@ -2942,8 +3323,13 @@ def main() -> int:
         k1_rows.append({"shape": label, "n_col_pad": ncp, "launches": n, "max_abs_err": e,
                         "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by})
     # slice 8: K1 with a chain axis (phase 24's resident and matmul
-    # ensembles), one row a shape, timed beside its chains' single launches
-    for row in res_ens["K1"]:
+    # ensembles), one row a shape, timed beside its chains' single launches;
+    # slice 10: K1 at the sharded strips' call site, a row for each launch
+    # shape of phases 32 (resident strips, with the tailcut's one-chain
+    # launches) and 33 (the host graph's strips), and phase 34's shard of
+    # (1, 2), whose launches are the two ranks'
+    strip_k1 = st_k1 + mm_k1 + [st2_k1]
+    for row in res_ens["K1"] + strip_k1:
         b_ms, b_by = _bound(row["bytes"], row["ops"], INT32_OPS_PER_S)
         k1_rows.append({**row, "bound_ms": b_ms, "bound_by": b_by})
     k1_n = sum(x["launches"] for x in k1_rows)
@@ -2953,7 +3339,8 @@ def main() -> int:
 
     k1_ms, k1_bound = weighted(k1_rows, "ms"), weighted(k1_rows, "bound_ms")
     _require(k1_n == launches + luby_launches + res["k1"] + host_k1 + hast_k1 + trace_k1
-             + sum(x["launches"] for x in res_ens["K1"]), "K1 launches by shape do not add up")
+             + sum(x["launches"] for x in res_ens["K1"] + strip_k1),
+             "K1 launches by shape do not add up")
     # K2 ran on the main paths one launch a sweep at the config-3 sweep in
     # the L2 regime (phases 9 and 16) and the ER(100k, 0.01) sweep staged
     # (phases 11 and 19), one a frontier iteration at each (palette, cap)
@@ -2971,7 +3358,7 @@ def main() -> int:
     for row in ([{**k2_config3, "launches": launches2 + fr3_full},
                  {**k2_bench, "launches": l2_bench + hast_k2}] + k2_fr3 + res["k2_rows"]
                 + k2_b4 + k2_b1m + k2_st + ens["K2"] + res_ens["K2"]
-                + sh_chain["K2"] + sh_k2 + sh3_chain["K2"] + sh3_k2):
+                + sh_chain["K2"] + sh_k2 + sh3_chain["K2"] + sh3_k2 + st_k2):
         b_ms, b_by = _bound(row["bytes"], row["ops"], FP32_OPS_PER_S)
         k2_rows.append({**row, "bound_ms": b_ms, "bound_by": b_by,
                         "bound_share": b_ms / row["ms"]})
@@ -2983,7 +3370,7 @@ def main() -> int:
     for row in ([{"shape": "config-3 band", "launches": launches3, "max_abs_err": err3,
                   "ms": k3_ms, "plain_ms": p3_ms, "bytes": k3_bytes, "ops": k3_slots}]
                 + k3_b4 + k3_b1m + k3_st + ens["K3"] + res_ens["K3"]
-                + sh_chain["K3"] + sh_k3 + sh3_chain["K3"] + sh3_k3):
+                + sh_chain["K3"] + sh_k3 + sh3_chain["K3"] + sh3_k3 + mm_k3):
         b_ms, b_by = _bound(row["bytes"], row["ops"], INT32_OPS_PER_S)
         k3_rows.append({**row, "bound_ms": b_ms, "bound_by": b_by,
                         "bound_share": b_ms / row["ms"]})

@@ -24,20 +24,21 @@ colorer, the stepped chain), as in JAX: for any other ``--resume`` exits
 2 and ``--ckpt`` is ignored with a message; ``-v 1`` or more turns the
 TRACE output on (the device chain's free-colour lines among it).
 
-``--mesh-chains``/``--mesh-shards`` run ``ShardedMCMCColorer`` over a
-host graph on a (chains, shards) mesh of ``torch.distributed`` ranks
-(``--anneal``: pooled annealing; ``--active``: frontier sweeps, cap
-``max(128, n // 8)``), and ``--active --chains N`` runs it on a 1x1 mesh
-in this process, as JAX runs frontier ensembles.  More than one rank is
-started by ``torchrun --nproc-per-node N`` (one card each under NCCL,
-gloo where ranks share a card); a mesh larger than the world exits 2
-naming ``torchrun``, and rank 0 alone prints and writes the ``.log`` and
-``-colors.txt``.  The sharded strip backend (``--backend matmul|packed``
-on a sharded route) and ``--resident`` with a mesh are ROADMAP.md Queue 1
-item 12b: they print a message naming it and exit 2.  The JAX CLI's
-refusals of ``--active --hastings``, of ``--resident --active`` with
-checkpoints or ``--chains`` and of ``--resident --dbg`` exit 2 with its
-messages.
+``--mesh-chains``/``--mesh-shards`` run ``ShardedMCMCColorer`` on a
+(chains, shards) mesh of ``torch.distributed`` ranks (``--anneal``:
+pooled annealing; ``--active``: frontier sweeps, cap ``max(128, n //
+8)``): over a host graph, with ``--backend matmul|packed`` each rank's
+strip of the bit-packed adjacency (K1), or with ``--resident`` the hash
+graph's strips, each rank generating its own (no bytes uploaded).
+``--active --chains N`` runs it on a 1x1 mesh in this process, as JAX
+runs frontier ensembles.  More than one rank is started by ``torchrun
+--nproc-per-node N`` (one card each under NCCL, gloo where ranks share a
+card); a mesh larger than the world exits 2 naming ``torchrun``, and rank
+0 alone prints and writes the ``.log`` and ``-colors.txt``.  The JAX
+CLI's refusals (``--active --hastings``; with ``--resident``: other
+colorers, ``--lubygpu`` on a mesh, ``--active`` with checkpoints or
+``--chains`` without a mesh, ``--dbg``, ``--anneal`` without a mesh) exit
+2 with its messages.
 
 Run ``python -m mcmc_colorer_tpu_torch.cli --help``.
 """
@@ -243,29 +244,16 @@ def _refuse(msg: str) -> None:
     sys.exit(2)
 
 
-def _check_unported(args) -> None:
-    """Refuse, naming the ROADMAP.md item, every path the port lacks,
-    and the combinations the JAX CLI refuses."""
-    item = "is not ported yet (ROADMAP.md Queue 1 item"
+def _check_refusals(args) -> None:
+    """Refuse the combinations the JAX CLI refuses, with its messages,
+    before any device work."""
     if args.mcmcgpu and args.active and args.hastings:
         # the frontier sweep never forms the passive set's proposal
         # probability, so the Hastings ratio is undefined there
         _refuse("--active is incompatible with --hastings: frontier sweeps run the "
                 "shipped always-accept dynamics (use full sweeps for acceptance).")
-    if args.resident and args.active and (args.ckpt or args.resume):
-        _refuse("--resident --active does not checkpoint (the frontier loop's cnt "
-                "re-derives from colors); drop --ckpt/--resume or use full sweeps.")
-    if args.resident and args.active and args.chains > 1:
-        _refuse("--resident --active is single-chain (or mesh): drop --chains or add "
-                "--mesh-shards.")
-    if args.resident and args.dbg:
-        _refuse("--resident is incompatible with --dbg.")
-    if args.resident and _on_mesh(args):
-        _refuse(f"--resident with --mesh-chains/--mesh-shards (sharded hash strips) "
-                f"{item} 12b).")
-    if args.mcmcgpu and _sharded_route(args) and args.backend in ("matmul", "packed"):
-        _refuse(f"--backend {args.backend} on the sharded colorer (adjacency strips) "
-                f"{item} 12b).")
+    if args.resident:
+        _check_resident_args(args)
 
 
 def _on_mesh(args) -> bool:
@@ -273,9 +261,10 @@ def _on_mesh(args) -> bool:
 
 
 def _sharded_route(args) -> bool:
-    """The MCMC routes that run ``ShardedMCMCColorer``: a mesh, or a
-    frontier ensemble (JAX runs those on a 1x1 mesh, cli.py:386-411)."""
-    return not args.resident and (_on_mesh(args) or (args.active and args.chains > 1))
+    """The MCMC routes that run ``ShardedMCMCColorer``: a mesh (over a host
+    graph or, with ``--resident``, the hash strips), or a frontier
+    ensemble (JAX runs those on a 1x1 mesh, cli.py:386-411)."""
+    return _on_mesh(args) or (args.active and args.chains > 1)
 
 
 def _make_mesh(args, device):
@@ -355,18 +344,20 @@ _ALGO_TAG = {
 
 
 def _check_resident_args(args) -> None:
-    """--resident is the zero-upload hash-graph path: --mcmcgpu (single
-    chain) and/or the matmul Luby loop (--lubygpu) over a --simulate
-    graph."""
+    """--resident is the zero-upload hash-graph path (JAX
+    ``_check_resident_args``): full-sweep or frontier --mcmcgpu (one
+    chain, an ensemble, or a mesh) and/or the matmul Luby loop (--lubygpu,
+    no mesh) over a --simulate graph."""
     if args.graph or args.simulate is None:
         print("--resident requires --simulate (it IS the generator).",
               file=sys.stderr)
         sys.exit(2)
+    on_mesh = _on_mesh(args)
     others = (
         args.mcmccpu or args.grdffgpu or args.vffgpu
         or args.greedycpu or not (args.mcmcgpu or args.lubygpu)
     )
-    if others:
+    if others or (args.lubygpu and on_mesh):
         print(
             "--resident runs the NC-native colorers only: --mcmcgpu "
             "(any driver) and/or --lubygpu (no mesh); other colorers "
@@ -375,6 +366,16 @@ def _check_resident_args(args) -> None:
             file=sys.stderr,
         )
         sys.exit(2)
+    if args.active and (args.ckpt or args.resume) and not on_mesh:
+        _refuse("--resident --active does not checkpoint (the frontier loop's cnt "
+                "re-derives from colors); drop --ckpt/--resume or use full sweeps.")
+    if args.active and args.chains > 1 and not on_mesh:
+        _refuse("--resident --active is single-chain (or mesh): drop --chains or add "
+                "--mesh-shards.")
+    for flag, on in (("--dbg", args.dbg),
+                     ("--anneal without a mesh", args.anneal and not on_mesh)):
+        if on:
+            _refuse(f"--resident is incompatible with {flag}.")
     if args.backend not in ("auto", "matmul", "packed"):
         print(
             f"--resident implies the packed-MXU backend; ignoring "
@@ -521,7 +522,7 @@ def main(argv=None) -> int:
         args.verbose_level = 0
     if args.verbose_level >= 1:
         os.environ["MCMC_COLORER_TRACE"] = "1"
-    _check_unported(args)
+    _check_refusals(args)
     try:
         device = colorer_device(args.device)
     except RuntimeError as e:  # no card: refuse, never run on the CPU instead
@@ -540,7 +541,6 @@ def main(argv=None) -> int:
     resident = None
     resident_luby = None
     if args.resident:
-        _check_resident_args(args)
         if not (0.0 < args.simulate < 1.0) or args.nodes <= 0:
             print("Simulation: need 0 < P < 1 and -n N > 0.",
                   file=sys.stderr)
@@ -567,6 +567,24 @@ def main(argv=None) -> int:
             params = template.replace(
                 n_colors=args.n_col or default_n_colors(g.max_degree, ratio)
             )
+        elif mesh is not None:
+            # zero-upload sharded run: every rank hash-generates its own
+            # strip of the packed adjacency (parallel/sharded.py)
+            from mcmc_colorer_tpu_torch.parallel.sharded import AnnealConfig, ShardedMCMCColorer
+
+            inner = ShardedMCMCColorer(
+                None, template, mesh, n_chains=max(args.chains, mesh.chains),
+                anneal=AnnealConfig(enabled=args.anneal),
+                resident_spec=(args.nodes, args.simulate, seed), num_col_ratio=ratio,
+                active_cap=max(128, args.nodes // 8) if args.active else None,
+            )
+            resident = _BestOfWrapper(inner)
+            if not args.quiet:
+                print(f"Resident strips materialised per shard ({mesh.chains}x{mesh.shards} "
+                      f"mesh, zero bytes uploaded).")
+            # rank 0 alone checks the colouring against the host graph
+            g = inner.host_graph() if args.check and mesh.rank == 0 else inner.graph
+            params = inner.params
         else:
             from mcmc_colorer_tpu_torch.models.mcmc_resident import ResidentMCMCColorer
 

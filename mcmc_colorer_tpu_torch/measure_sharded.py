@@ -8,9 +8,11 @@ graph, graph seed 0; its host CSR), 8 chains, nCol = max degree,
 balance-dynamic, tailcut, seed 5, ``ShardedMCMCColorer(backend="pallas")``
 runs on a 1x1 mesh without a process group, with full sweeps and with
 the frontier (ε 5e-9, ``active_cap = n // 8``, as ``chip_smoke.py``
-phase 26): once to warm up, then once under ``torch.profiler``, which
-gives the run's device time by operation (the top 12) beside its sweeps
-and chain seconds.  Then two gloo ranks spawned on the card time the
+phase 26), and so does the colorer on the hash graph's strips
+(``resident_spec``, K1 and the proposal read from NC; ``chip_smoke.py``
+phase 32): each once to warm up, then once under ``torch.profiler``,
+which gives the run's device time by operation (the top 12) beside its
+sweeps and chain seconds.  Then two gloo ranks spawned on the card time the
 sharded colorer's collectives on CUDA tensors (medians of 20 calls): the
 shard all-gather of [8, 51,200] int32 (a (1, 2) full sweep's colours at
 8 chains), the all-reduce of the [100,352] int32 cnt delta (a frontier
@@ -55,11 +57,16 @@ def profile_runs() -> dict:
     g = _graph()
     mesh = make_mesh(1, 1)
     out = {}
-    for name, pkw, ckw in (("full", {}, {}),
-                           ("frontier", {"epsilon": FRONTIER_EPS}, {"active_cap": g.n // 8})):
+    frontier = ({"epsilon": FRONTIER_EPS}, {"active_cap": g.n // 8})
+    strips = {"resident_spec": GRAPH}
+    for name, pkw, ckw in (("full", {}, {"backend": "pallas"}),
+                           ("frontier", frontier[0], {**frontier[1], "backend": "pallas"}),
+                           ("resident strips full", {}, strips),
+                           ("resident strips frontier", frontier[0], {**frontier[1], **strips})):
         params = MCMCParams(n_colors=g.max_degree, proposal=ProposalKind.BALANCE_DYNAMIC,
                             tailcut=True, **pkw)
-        c = ShardedMCMCColorer(g, params, mesh, n_chains=CHAINS, backend="pallas", **ckw)
+        graph = None if "resident_spec" in ckw else g
+        c = ShardedMCMCColorer(graph, params, mesh, n_chains=CHAINS, **ckw)
         c.run(seed=SEED)  # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:

@@ -321,38 +321,50 @@ def _sweep_matmul(
 ):
     """One full proposal sweep of every chain (colours [C, n_pad]): one
     K1 launch gives each chain's NC [C, n_pad, n_col_pad], the proposal
-    runs a chain at a time in row blocks.  Returns (star, new_taboo, Σ log
-    qStar [C], conflict edges of ``colors`` [C], NC) — the reference's
-    selectStarColoringBalanceDynamic + conflictCounter pair
+    runs a chain at a time in row blocks (``_propose_nc``).  Returns (star,
+    new_taboo, Σ log qStar [C], conflict edges of ``colors`` [C], NC) — the
+    reference's selectStarColoringBalanceDynamic + conflictCounter pair
     (coloringMCMC_balance.cu:79-143, _utils.cu:103-119)."""
-    c, n_pad = colors.shape
-    n_colors = params.n_colors
+    n_pad = colors.shape[1]
     dev = colors.device
     real = torch.arange(n_pad, device=dev) < n_nodes
-    nc = neighbor_color_counts(adj, colors, n_colors, real)
-    n_col_pad = nc.shape[2]
+    nc = neighbor_color_counts(adj, colors, params.n_colors, real)
     # a fill on the card, not a copy of a host scalar (which waits for the stream)
     eps = torch.full((), params.epsilon, dtype=torch.float32, device=dev)
     # conflict edges touch each endpoint once: Σ_i NC[i, c_i] = 2 E_conf
     conf2 = _at_color(nc, colors).sum(1)
-    star = torch.empty_like(colors)
+    star, new_taboo, logq = _propose_nc(nc, colors, taboo, unif, real, p_eff, eps, params, block)
+    return star, new_taboo, logq, conf2 // 2, nc
+
+
+def _propose_nc(nc, cur, taboo, unif, real, p_eff, eps, params: MCMCParams, block: int):
+    """The proposal of C chains' rows from their NC [C, rows, n_col_pad]
+    (``cur``, ``taboo``, ``unif`` [C, rows], ``real`` [rows], ``p_eff`` [C,
+    n_colors] or None): a chain at a time in row blocks, ``_propose`` on the
+    occupancy NC > 0 with ``p_eff`` zero-padded to the NC's width; rows
+    outside ``real`` keep their colour with qstar 1.  The rows are a whole
+    A's or a rank's strip's (``parallel/sharded.py``).  Returns (star,
+    new_taboo, Σ log qstar [C])."""
+    c, rows, n_col_pad = nc.shape
+    dev = nc.device
+    star = torch.empty_like(cur)
     new_taboo = torch.empty_like(taboo)
     logq = torch.zeros((c,), dtype=torch.float32, device=dev)
     for k in range(c):
         p_eff_pad = None
         if p_eff is not None:
             p_eff_pad = torch.zeros((n_col_pad,), dtype=torch.float32, device=dev)
-            p_eff_pad[:n_colors] = p_eff[k]
-        for s in range(0, n_pad, block):
-            e = min(s + block, n_pad)
-            cur, real_b = colors[k, s:e], real[s:e]
+            p_eff_pad[:params.n_colors] = p_eff[k]
+        for s in range(0, rows, block):
+            e = min(s + block, rows)
+            cur_b, real_b = cur[k, s:e], real[s:e]
             chosen, qstar, new_taboo[k, s:e] = _propose(
-                cur, nc[k, s:e] > 0, taboo[k, s:e], unif[k, s:e], params, p_eff_pad, eps
+                cur_b, nc[k, s:e] > 0, taboo[k, s:e], unif[k, s:e], params, p_eff_pad, eps
             )
-            star[k, s:e] = torch.where(real_b, chosen, cur)
+            star[k, s:e] = torch.where(real_b, chosen, cur_b)
             qstar = torch.where(real_b, qstar, 1.0)
             logq[k] += torch.log(qstar.clamp(min=1e-30)).sum()
-    return star, new_taboo, logq, conf2 // 2, nc
+    return star, new_taboo, logq
 
 
 def _reverse_logq_matmul(
@@ -365,16 +377,24 @@ def _reverse_logq_matmul(
 ) -> torch.Tensor:
     """Σ log q(colors | star) for Hastings, read from NC(star)
     (``_reverse_logq_matmul``)."""
-    n_pad = colors.shape[0]
     dev = colors.device
     eps = torch.full((), params.epsilon, dtype=torch.float32, device=dev)
+    real = torch.arange(colors.shape[0], device=dev) < n_nodes
+    return _reverse_logq_nc(nc_star, colors, star, real, params, block, eps)
+
+
+def _reverse_logq_nc(nc_star, cur, star, real, params: MCMCParams, block: int, eps):
+    """Σ log q(cur | star) over the rows of NC(star) [rows, n_col_pad]
+    (``cur``, ``star`` and ``real`` [rows]: a whole A's rows or a rank's
+    strip's), in row blocks; rows outside ``real`` count q = 1."""
+    rows = cur.shape[0]
+    dev = cur.device
     col_valid = torch.arange(nc_star.shape[1], device=dev)[None, :] < params.n_colors
-    real = torch.arange(n_pad, device=dev) < n_nodes
     total = torch.zeros((), dtype=torch.float32, device=dev)
-    for s in range(0, n_pad, block):
-        e = min(s + block, n_pad)
+    for s in range(0, rows, block):
+        e = min(s + block, rows)
         occ = (nc_star[s:e] > 0) & col_valid
-        q_old = _reverse_q(occ, colors[s:e], star[s:e], params.n_colors, eps)
+        q_old = _reverse_q(occ, cur[s:e], star[s:e], params.n_colors, eps)
         q_old = torch.where(real[s:e], q_old, 1.0)
         total += torch.log(q_old.clamp(min=1e-30)).sum()
     return total

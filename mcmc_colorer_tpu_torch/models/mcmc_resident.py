@@ -107,6 +107,17 @@ def _any_neighbor_in(adj: torch.Tensor, bits: torch.Tensor, row_chunk: int = 819
     return out
 
 
+def _first_free(nc: torch.Tensor, n_colors: int) -> torch.Tensor:
+    """[rows] int32: each row's smallest colour with NC 0, the least
+    occupied one where none is (argmax/argmin take the first index among
+    ties, as jnp's do)."""
+    col_ok = torch.arange(nc.shape[-1], device=nc.device)[None, :] < n_colors
+    free = (nc == 0) & col_ok
+    first_free = torch.argmax(free.to(torch.int32), dim=1).to(torch.int32)
+    fallback = torch.argmin(torch.where(col_ok, nc, 2**30), dim=1).to(torch.int32)
+    return torch.where(free.any(1), first_free, fallback)
+
+
 def _tailcut_nc_round(adj, colors, coin_unif, node_mask, nc_prev=None, running=None, *,
                       n_colors):
     """One independent-set repair round of C chains (colours and coins
@@ -123,7 +134,6 @@ def _tailcut_nc_round(adj, colors, coin_unif, node_mask, nc_prev=None, running=N
         if nc_prev is not None
         else neighbor_color_counts(adj, colors, n_colors, node_mask)
     )
-    col_ok = torch.arange(nc.shape[2], device=nc.device)[None, :] < n_colors
     new = []
     for k in range(colors.shape[0]):
         if running is not None and not running[k]:
@@ -132,12 +142,7 @@ def _tailcut_nc_round(adj, colors, coin_unif, node_mask, nc_prev=None, running=N
         conflicted = (_at_color(nc[k], colors[k]) > 0) & node_mask
         heads = conflicted & (coin_unif[k] < 0.5)
         movers = heads & ~_any_neighbor_in(adj, _pack_mask(heads, words))
-        free = (nc[k] == 0) & col_ok
-        # argmax/argmin return the first index among ties, as jnp's do
-        first_free = torch.argmax(free.to(torch.int32), dim=1).to(torch.int32)
-        fallback = torch.argmin(torch.where(col_ok, nc[k], 2**30), dim=1).to(torch.int32)
-        newc = torch.where(free.any(1), first_free, fallback)
-        new.append(torch.where(movers, newc, colors[k]))
+        new.append(torch.where(movers, _first_free(nc[k], n_colors), colors[k]))
     del nc  # the entry NC, unless the caller threads it
     colors = torch.stack(new)
     nc_new = neighbor_color_counts(adj, colors, n_colors, node_mask)

@@ -43,6 +43,13 @@ def packed_adj_bytes(n_pad: int) -> int:
     return n_pad * packed_adj_words(n_pad) * 4
 
 
+# A sharded colorer's strip (``parallel/sharded.py``: a rank's rows of A,
+# [n_loc, packed_adj_words(n_pad)]) is held to the bytes of the largest A
+# the resident budget admits above, ~58.5 GB: the rest of that budget
+# then still holds the strip's NC and sweep temporaries
+STRIP_MAX_BYTES = packed_adj_bytes(PACKED_ADJ_MAX_N)
+
+
 def n_col_pad_of(n_colors: int) -> int:
     """Colour axis padded to a multiple of 128 (padded columns stay 0)."""
     return (n_colors + 127) // 128 * 128
@@ -120,16 +127,24 @@ def pack_ell_rows(neigh: torch.Tensor, n_pad: int) -> torch.Tensor:
     return out.view(rows_n, words)
 
 
-def build_packed_adjacency_from_ell(ell) -> torch.Tensor:
-    """[n_pad, words] int32 packed adjacency built on the ELL's device from
-    its rectangle, ``pack_ell_rows`` a row chunk at a time."""
-    n_pad = ell.n_pad
+def build_packed_rows(neighbors: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """[rows, words] int32 packed rows of the ELL rows ``neighbors`` (ids
+    below ``n_pad``; ``n_pad`` itself is the padding), built on their
+    device by ``pack_ell_rows`` a row chunk at a time: the whole A of an
+    ELL, or one rank's strip of it (``parallel/sharded.py``)."""
+    rows = neighbors.shape[0]
     words = packed_adj_words(n_pad)
     chunk = max(1, PACK_STRIP_BYTES // (words * 32))
-    a = torch.empty((n_pad, words), dtype=torch.int32, device=ell.neighbors.device)
-    for r0 in range(0, n_pad, chunk):
-        a[r0:r0 + chunk] = pack_ell_rows(ell.neighbors[r0:r0 + chunk], n_pad)
+    a = torch.empty((rows, words), dtype=torch.int32, device=neighbors.device)
+    for r0 in range(0, rows, chunk):
+        a[r0:r0 + chunk] = pack_ell_rows(neighbors[r0:r0 + chunk], n_pad)
     return a
+
+
+def build_packed_adjacency_from_ell(ell) -> torch.Tensor:
+    """[n_pad, words] int32 packed adjacency built on the ELL's device from
+    its rectangle."""
+    return build_packed_rows(ell.neighbors, ell.n_pad)
 
 
 def adjacency_nnz(adj: torch.Tensor) -> int:
@@ -145,10 +160,15 @@ def check_adjacency_complete(adj: torch.Tensor, graph) -> None:
     (kept by graph/io.py, as the reference does) collapse to one bit, and
     its conflict counts would then leave the gather paths'.  Refuse unless
     A holds exactly 2m entries."""
-    nnz = adjacency_nnz(adj)
-    if nnz != 2 * graph.n_edges:
+    refuse_multigraph(2 * graph.n_edges - adjacency_nnz(adj))
+
+
+def refuse_multigraph(extra: int) -> None:
+    """Raise where ``extra`` adjacency slots of the graph (its CSR entries
+    less the packed rows' set bits) collapsed into bits already set."""
+    if extra:
         raise ValueError(
-            f"graph has duplicate edges ({2 * graph.n_edges - nnz} extra ELL "
+            f"graph has duplicate edges ({extra} extra ELL "
             "slots): the packed backend's 0/1 adjacency cannot represent "
             "multigraphs; dedupe the edge list or use backend='pallas'/'xla'"
         )

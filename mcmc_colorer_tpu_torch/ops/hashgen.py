@@ -8,6 +8,9 @@ function of (seed, i, j):
 so the device builds A without any upload, and the host's C++ enumerator
 (``native/importer.cpp:mc_generate_er_hash``) derives the same graph for
 checking.  The words equal the JAX package's uint32 words bit for bit.
+On a mesh (``parallel/mesh.py``) each rank builds only its own rows, its
+strip of A (``er_packed_strips_on_device``), and the degrees come from a
+banded pass that never holds A (``er_degrees_on_device``).
 
 torch has no logical right shift and no unsigned compare for 32-bit
 integers, so the mixer works on ``int32`` tensors holding uint32 bit
@@ -147,6 +150,60 @@ def er_packed_on_device_cached(
     a = er_packed_on_device(n, p, seed, n_pad, row_chunk, device=device)
     _PACKED_CACHE[ck] = a
     return a
+
+
+def er_packed_strips_on_device(
+    n: int, p: float, seed: int, n_pad: int, mesh, row_chunk: int = 2048,
+) -> torch.Tensor:
+    """This rank's strip of the hash graph's packed adjacency: rows
+    ``[s·n_loc, (s+1)·n_loc)`` of the [n_pad, words] A, ``n_loc = n_pad /
+    shards`` and s the rank's shard, built on the mesh's device in bands of
+    ``row_chunk`` rows, so nothing is uploaded and nothing crosses the
+    mesh (JAX ``er_packed_strips_on_device``, whose shard s holds the same
+    words)."""
+    ms = mesh.shards
+    if n_pad % ms:
+        raise ValueError(f"shards must divide n_pad ({n_pad})")
+    if n > n_pad:
+        raise ValueError(f"n={n} exceeds n_pad={n_pad}")
+    n_loc = n_pad // ms
+    words = packed_adj_words(n_pad)
+    strip = torch.empty((n_loc, words), dtype=torch.int32, device=mesh.device)
+    t, seed32 = er_threshold(p), seed & 0xFFFFFFFF
+    r_base = mesh.shard_index * n_loc
+    for r0 in range(0, n_loc, row_chunk):
+        rows = min(row_chunk, n_loc - r0)
+        _gen_packed_rows(r_base + r0, n, t, seed32, rows, words, strip[r0:r0 + rows])
+    return strip
+
+
+def er_degrees_on_device(
+    n: int, p: float, seed: int, row_chunk: int = 2048, mesh=None, device="cuda",
+) -> torch.Tensor:
+    """[n] int32 degrees of the hash graph from [row_chunk, words] bands
+    that are popcounted and thrown away, so the adjacency is never held
+    (JAX ``er_degrees_on_device``: how a sharded colorer resolves ``n_colors
+    = max degree`` before it builds its strips).  With ``mesh`` each rank
+    takes its share of the rows, as JAX's shards do, on the mesh's device,
+    and one all-gather over its shard group puts every degree on every
+    rank; without, ``device`` (the current card by default) takes them
+    all."""
+    words = packed_adj_words(n)
+    t, seed32 = er_threshold(p), seed & 0xFFFFFFFF
+    if mesh is None:
+        dev, r_base, rows_total = colorer_device(device), 0, n
+    else:
+        rows_total = -(-n // (mesh.shards * row_chunk)) * row_chunk  # rows a shard
+        dev, r_base = mesh.device, mesh.shard_index * rows_total
+    deg = torch.empty((rows_total,), dtype=torch.int32, device=dev)
+    band = torch.empty((min(row_chunk, rows_total), words), dtype=torch.int32, device=dev)
+    for r0 in range(0, rows_total, row_chunk):
+        rows = min(row_chunk, rows_total - r0)
+        _gen_packed_rows(r_base + r0, n, t, seed32, rows, words, band[:rows])
+        deg[r0:r0 + rows] = popcount32(band[:rows]).sum(1, dtype=torch.int32)
+    if mesh is not None:
+        deg = mesh.all_gather_shards(deg)
+    return deg[:n]
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:

@@ -1,40 +1,60 @@
 """Vertex-sharded, lock-step multi-chain MCMC over a (chains, shards) mesh.
 
-Counterpart of ``mcmc_colorer_tpu/parallel/sharded.py`` over a host
-graph's ELL (the gather backends ``pallas`` and ``xla``).  JAX runs one
+Counterpart of ``mcmc_colorer_tpu/parallel/sharded.py``.  JAX runs one
 SPMD program over the mesh inside ``shard_map``; here each
 ``torch.distributed`` rank (``parallel/mesh.py``) runs the same loop on
 its own rows:
 
 * rank ``(g, s)`` owns chains ``[g·cl, (g+1)·cl)`` (``cl = n_chains /
-  mesh chains``) and ELL rows ``[s·n_loc, (s+1)·n_loc)`` of each, and keeps
-  only those rows of the neighbour lists on its device;
+  mesh chains``) and rows ``[s·n_loc, (s+1)·n_loc)`` of each, and keeps
+  only those rows of the adjacency on its device: ELL neighbour lists
+  (backends ``pallas``, ``xla``) or its strip of the bit-packed A,
+  [n_loc, words(n_pad)] (backend ``matmul``, spelt ``packed`` too);
 * every chain's colour vector [n_pad] is whole on each rank of its chain
-  group; a full sweep resamples the rank's rows with kernel K2
-  (``ops/resample.resample_sweep``, one launch for the rank's chains, own
-  ids from ``row0 = s·n_loc``) and one all-gather over the shard group
-  rebuilds the vector (JAX's tiled ``all_gather``);
+  group; a full sweep resamples the rank's rows and one all-gather over
+  the shard group rebuilds the vector (JAX's tiled ``all_gather``).  On
+  the ELL, kernel K2 (``ops/resample.resample_sweep``, one launch for the
+  rank's chains, own ids from ``row0 = s·n_loc``) gathers the colours
+  itself; on the strip, kernel K1 (``ops/packed_nc.packed_nc``, one launch
+  for the rank's chains) gives NC = strip·onehot(colours) [cl, n_loc,
+  n_col_pad] (``_strip_nc``), whose occupancy feeds the proposal of
+  ``models/mcmc.py:_propose_nc``;
 * per-vertex same-colour counts ``cnt`` [n_loc] are recounted from the new
-  vector (``cnt_of``); conflicts are Σ cnt over the shards / 2 (each
-  conflict edge counted by both owners);
+  vector (``cnt_of``: a gather, or NC(star) at each row's own colour);
+  conflicts are Σ cnt over the shards / 2 (each conflict edge counted by
+  both owners);
 * with ``active_cap`` a chain switches, sweep by sweep, to a frontier
   sweep once every shard's frontier (cnt > 0, taboo 0) fits in the cap:
-  K2 on the ≤ cap frontier rows with their global ids as ``self_ids``, at
-  most one ε-flip of a passive vertex, one all-gather of ``colour << 1 |
-  changed`` and one all-reduce of the ``cnt`` delta (``active_branch``);
+  K2 on the ≤ cap frontier rows (ELL rows, or strip rows unpacked to ids)
+  with their global ids as ``self_ids``, at most one ε-flip of a passive
+  vertex, one all-gather of ``colour << 1 | changed`` and one all-reduce
+  of the ``cnt`` delta (``active_branch``);
 * Hastings (full sweeps only) gates each chain's swap on the
-  shard-summed λ-weighted ratio; pooled annealing boosts ε when the mean
-  conflict count over all chains stalls;
-* the tailcut repairs the best chain in rank space over each shard's rows,
-  K3 (``ops/firstfit.first_fit``) giving each row's first free colour.
+  shard-summed λ-weighted ratio (on the strip, q(old | star) is read from
+  NC(star)); pooled annealing boosts ε when the mean conflict count over
+  all chains stalls;
+* the tailcut repairs the best chain: over ELL rows in rank space, K3
+  (``ops/firstfit.first_fit``) giving each row's first free colour; on
+  the resident hash strips (``resident_spec``), which hold no neighbour
+  lists, by the strip-native independent-set rounds
+  (``_tailcut_strips_round``: coins, one all-gather of the heads, one
+  ``strip & head_bits`` pass, first NC-free colours, one all-gather of
+  the colours, the exit NC by K1 carried into the next round).
+
+``resident_spec=(n, p, graph_seed)`` with ``graph=None`` is the hash
+graph of ``ops/hashgen.py``: each rank generates its own strip on its
+device (zero bytes uploaded), a ``_StatsShim`` carries the degrees for
+the logs, and ``host_graph()`` re-derives the graph on the host for
+checks.
 
 The loop reads the host once a sweep: every rank's per-chain statistics
 (Σ cnt, the frontier's size, the passive counts, acceptance) travel in one
 ``Mesh.gather_ranks``, from which every rank forms the same global
 conflicts, branch decisions, trace and annealing state; these live on the
-host, replicated, as the counterpart of JAX's replicated scalars.  All
-chains and shards run to the globally last convergence; converged chains
-freeze in place and stop drawing.
+host, replicated, as the counterpart of JAX's replicated scalars, so every
+rank issues the same collectives.  All chains and shards run to the
+globally last convergence; converged chains freeze in place and stop
+drawing.
 
 Draws (``utils/rng.py`` sources, one a chain, the same on every rank of
 its chain group):
@@ -48,13 +68,11 @@ its chain group):
   ``randint(1, n)`` and colour offset ``randint(1, max(nCol, 2), low=1)``;
 - the tailcut draws from its own source (``TorchUniformSource(seed,
   repetition)``, the run's, as JAX's ``for_iteration(root, 999_999)``):
-  one ``randint(n, nCol)`` a round, of which a rank keeps its rows.
+  in rank space one ``randint(n, nCol)`` a round, on the strips one
+  ``next(n_pad)`` of coins a round; a rank keeps its rows of either.
 
 JAX draws a shard's uniforms from ``fold_in(key, shard)``; tests replay
 those by concatenating the shards' draws in this order.
-
-Left for ROADMAP item 12b: the adjacency-strip backend (``matmul``, K1)
-and the resident hash strips (``resident_spec``), with their tailcut.
 """
 
 from __future__ import annotations
@@ -67,10 +85,41 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from mcmc_colorer_tpu_torch.config import MCMCParams
+from mcmc_colorer_tpu_torch.config import MCMCParams, default_n_colors
 from mcmc_colorer_tpu_torch.graph.container import DEVICE_BUILD_MIN_BYTES, Graph, degree_pad_for
 from mcmc_colorer_tpu_torch.models.base import Coloring
-from mcmc_colorer_tpu_torch.models.mcmc import _bands, _p_eff, _reverse_q
+from mcmc_colorer_tpu_torch.models.mcmc import (
+    _at_color,
+    _bands,
+    _p_eff,
+    _propose_nc,
+    _reverse_logq_nc,
+    _reverse_q,
+    choose_block_size,
+)
+from mcmc_colorer_tpu_torch.models.mcmc_resident import (
+    _any_neighbor_in,
+    _first_free,
+    _pack_mask,
+    _round_up,
+    _StatsShim,
+)
+from mcmc_colorer_tpu_torch.ops.dense_adj import (
+    STRIP_MAX_BYTES,
+    adjacency_nnz,
+    build_packed_rows,
+    n_col_pad_of,
+    packed_adj_words,
+    packed_rows_to_ids,
+    refuse_multigraph,
+)
+from mcmc_colorer_tpu_torch.ops.hashgen import (
+    degrees_from_packed,
+    er_degrees_on_device,
+    er_packed_on_device_cached,
+    er_packed_strips_on_device,
+    er_threshold,
+)
 from mcmc_colorer_tpu_torch.ops.neighbor import (
     color_histogram,
     frontier_ids,
@@ -78,10 +127,10 @@ from mcmc_colorer_tpu_torch.ops.neighbor import (
     occupancy_matrix,
     scatter_drop,
 )
+from mcmc_colorer_tpu_torch.ops.packed_nc import packed_nc
 from mcmc_colorer_tpu_torch.parallel.mesh import Mesh
 from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource
 
-_ITEM_12B = "is ROADMAP.md Queue 1 item 12b, not ported yet"
 # JAX's sweep-block target (models/mcmc.py:_BLOCK_BYTES_TARGET): here it
 # only fixes the shard geometry (n_loc, n_pad), which checkpoints and
 # JAX's per-shard draws share with the JAX package
@@ -98,6 +147,78 @@ def shard_block_size(n: int, n_colors: int) -> int:
     if n <= b:
         return max(128, 1 << int(math.ceil(math.log2(max(n, 8)))))
     return b
+
+
+def _check_strip_bytes(n_loc: int, n_pad: int, shards: int, hint: str = "",
+                       bound: str = "") -> None:
+    """Refuse a geometry whose [n_loc, words(n_pad)] strip exceeds
+    ``STRIP_MAX_BYTES`` (``ops/dense_adj.py``: the card's resident budget
+    behind ``PACKED_ADJ_MAX_N``; JAX's 12 GB is a TPU v5e's figure)."""
+    strip_bytes = n_loc * packed_adj_words(n_pad) * 4
+    if strip_bytes > STRIP_MAX_BYTES:
+        raise ValueError(
+            f"packed adjacency strip needs {strip_bytes / 1e9:.1f} GB per shard at "
+            f"n_pad={n_pad} over {shards} shards{bound} (at most "
+            f"{STRIP_MAX_BYTES / 1e9:.1f} GB); add shards{hint}"
+        )
+
+
+def _resident_palette(spec: tuple, params: MCMCParams, mesh: Mesh, n_chains: int | None,
+                      num_col_ratio: float) -> MCMCParams:
+    """JAX :159-215, before any device work: refuse a hash graph whose
+    strip cannot fit a shard (the strip's rows from the block the palette
+    fixes, or, before the palette is known, from the bound n_loc < per-shard
+    rows + block), then resolve ``n_colors <= 0`` to ``max_degree /
+    num_col_ratio`` from the banded degree pass over the mesh."""
+    n, p, seed = spec
+    ms = mesh.shards
+    per_shard = ((-(-n // ms) + 127) // 128) * 128
+    if params.n_colors > 0:
+        cl = max(1, (n_chains or mesh.chains) // mesh.chains)
+        block = min(shard_block_size(n, params.n_colors * cl), per_shard)
+        n_loc = -(-per_shard // block) * block
+    else:
+        n_loc = per_shard + min(per_shard, 1 << 16)
+    _check_strip_bytes(n_loc, ms * n_loc, ms, ", or pass n_colors to tighten the bound",
+                       f" (n={n}, n_loc bound {n_loc})")
+    if params.n_colors <= 0:
+        deg = er_degrees_on_device(n, p, seed, mesh=mesh)
+        params = params.replace(n_colors=default_n_colors(int(deg.max()), num_col_ratio))
+    return params
+
+
+# the hash strips have no host graph to hang a cache on: one slot, keyed
+# by (spec, n_pad, geometry), cleared before a new build, so sweeping many
+# graphs in one process never holds more than one strip
+_RESIDENT_STRIP_CACHE: dict = {}
+
+
+def _resident_strips(spec: tuple, n_pad: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's strip of the hash graph (JAX ``_resident_strips``).  On
+    one shard at the resident colorers' n_pad (n rounded up to 2048) the
+    strip is their whole A: the same cache slot
+    (``er_packed_on_device_cached``) serves both, one copy on the card."""
+    n, p, seed = spec
+    if mesh.shards == 1 and n_pad == _round_up(n, 2048):
+        return er_packed_on_device_cached(n, p, seed, n_pad, device=mesh.device)
+    key = (n, float(p), int(seed), n_pad, mesh.shards, mesh.shard_index, str(mesh.device))
+    if key not in _RESIDENT_STRIP_CACHE:
+        _RESIDENT_STRIP_CACHE.clear()
+        _RESIDENT_STRIP_CACHE[key] = er_packed_strips_on_device(n, p, seed, n_pad, mesh)
+    return _RESIDENT_STRIP_CACHE[key]
+
+
+def _strip_nc(strip: torch.Tensor, colors: torch.Tensor, full_real: torch.Tensor,
+              n_colors: int) -> torch.Tensor:
+    """[..., n_loc, n_col_pad] neighbour-colour counts of a strip's rows for
+    whole colour vectors ``colors`` ([n_pad] or [C, n_pad]), padding
+    vertices (outside ``full_real``) recoloured -1 so they count nowhere:
+    kernel K1 (``ops/packed_nc.packed_nc``, one launch for all chains) on
+    CUDA tensors, its plain version on CPU tensors (JAX ``_strip_nc``,
+    sharded.py:784-803).  A row's own-colour count NC[i, colour_i] is
+    ``_at_color`` (JAX ``_nc_own_count``)."""
+    masked = torch.where(full_real, colors, -1)
+    return packed_nc(strip, masked, n_col_pad_of(n_colors))
 
 
 @dataclass(frozen=True)
@@ -137,15 +258,19 @@ class ShardedState:
 class ShardedMCMCColorer:
     """MCMC ensemble over a ``(chains, shards)`` mesh (``parallel/mesh.py``).
 
-    ``backend``: ``pallas`` (kernel K2 on the card; ``auto`` is it) or
-    ``xla`` (K2's plain version).  ``active_cap``: per-shard frontier
-    capacity (rounded up to a multiple of 128); None runs full sweeps
-    only.  The adjacency-strip backend (``matmul``/``packed``) and
-    ``resident_spec`` raise ``NotImplementedError`` (ROADMAP item 12b)."""
+    ``backend``: ``pallas`` (kernel K2 on the card; ``auto`` is it over a
+    host graph), ``xla`` (K2's plain version) or ``matmul`` (``packed``:
+    each rank's strip of the bit-packed A, built on its device from its
+    ELL rows, and NC by kernel K1).  ``resident_spec=(n, p, graph_seed)``
+    with ``graph=None``: the hash graph, each rank's strip generated on
+    its device (``matmul`` only; ``params.n_colors <= 0`` resolves to
+    ``max_degree / num_col_ratio`` through a banded degree pass first).
+    ``active_cap``: per-shard frontier capacity (rounded up to a multiple
+    of 128); None runs full sweeps only."""
 
     def __init__(
         self,
-        graph: Graph,
+        graph: Graph | None,
         params: MCMCParams,
         mesh: Mesh,
         n_chains: int | None = None,
@@ -153,19 +278,27 @@ class ShardedMCMCColorer:
         backend: str = "auto",
         active_cap: int | None = None,
         resident_spec: tuple | None = None,
+        num_col_ratio: float = 1.0,
     ) -> None:
         if params.hastings and active_cap is not None:
             # the frontier sweep never forms the passive set's proposal
             # probability, so the Hastings ratio is undefined there
             raise NotImplementedError("hastings=True requires full sweeps (active_cap=None)")
+        if backend == "packed":  # the CLI's spelling of the strip layout (JAX cli.py:358)
+            backend = "matmul"
+        self.resident_spec = resident_spec
         if resident_spec is not None:
-            raise NotImplementedError(f"resident_spec (sharded hash strips) {_ITEM_12B}")
+            if graph is not None:
+                raise ValueError("pass graph=None with resident_spec")
+            if backend == "auto":
+                backend = "matmul"
+            if backend != "matmul":
+                raise ValueError("resident_spec implies the adjacency-strip backend "
+                                 f"(matmul); got {backend!r}")
+            params = _resident_palette(resident_spec, params, mesh, n_chains, num_col_ratio)
         if backend == "auto":
             backend = "pallas"
-        if backend in ("matmul", "packed"):
-            raise NotImplementedError(f"backend={backend!r} (sharded adjacency strips) "
-                                      f"{_ITEM_12B}")
-        if backend not in ("pallas", "xla"):
+        if backend not in ("pallas", "xla", "matmul"):
             raise ValueError(f"unknown sharded backend {backend!r}")
         self.backend, self.graph, self.params, self.mesh = backend, graph, params, mesh
         mc, ms = mesh.chains, mesh.shards
@@ -175,18 +308,34 @@ class ShardedMCMCColorer:
         self.cl = cl = self.n_chains // mc
         self.anneal = anneal or AnnealConfig()
         self.device = mesh.device
+        g_n = graph.n if resident_spec is None else resident_spec[0]
         # size the per-shard slice so every shard owns real vertices
-        per_shard = -(-graph.n // ms)
+        per_shard = -(-g_n // ms)
         per_shard = ((per_shard + 127) // 128) * 128
-        self.block = min(shard_block_size(graph.n, params.n_colors * cl), per_shard)
+        self.block = min(shard_block_size(g_n, params.n_colors * cl), per_shard)
         self.n_loc = n_loc = ((per_shard + self.block - 1) // self.block) * self.block
         self.n_pad = ms * n_loc
-        pad_deg = degree_pad_for(graph, backend)
-        self.d_pad = ((max(graph.max_degree, 1) + pad_deg - 1) // pad_deg) * pad_deg
         self.offset = mesh.shard_index * n_loc
-        self.n_real = min(max(graph.n - self.offset, 0), n_loc)  # this rank's real rows
+        self.n_real = min(max(g_n - self.offset, 0), n_loc)  # this rank's real rows
+        # the strip proposal's row blocks: the port's sweep blocks
+        # (models/mcmc.py), sized for the card's launch overhead
+        self._prop_block = choose_block_size(g_n, params.n_colors)
         t0 = time.perf_counter()
-        self.neighbors = self._shard_neighbors()
+        self.neighbors = self.strip = self.d_pad = None
+        if resident_spec is not None:
+            _check_strip_bytes(n_loc, self.n_pad, ms)
+            self.strip = _resident_strips(resident_spec, self.n_pad, mesh)
+            self.graph = self._stats_shim()
+            # the frontier's rows unpacked from the strip: every real row
+            # fits this many ids (JAX rows_from_strip)
+            self.d_row = _round_up(max(self.graph.max_degree, 1), 8)
+        else:
+            pad_deg = degree_pad_for(graph, backend)
+            self.d_pad = ((max(graph.max_degree, 1) + pad_deg - 1) // pad_deg) * pad_deg
+            self.neighbors = self._shard_neighbors()
+            if backend == "matmul":
+                _check_strip_bytes(n_loc, self.n_pad, ms, " or use backend='pallas'")
+                self.strip = self._build_packed_strips()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.setup_seconds = time.perf_counter() - t0
@@ -195,8 +344,51 @@ class ShardedMCMCColorer:
         self.active_cap = active_cap
         dev = self.device
         self._gids = self.offset + torch.arange(n_loc, dtype=torch.int32, device=dev)
-        self._real_loc = self._gids < graph.n
-        self._full_real = torch.arange(self.n_pad, device=dev) < graph.n
+        self._real_loc = self._gids < g_n
+        self._full_real = torch.arange(self.n_pad, device=dev) < g_n
+
+    def _stats_shim(self) -> _StatsShim:
+        """The hash graph's stats for the logs (JAX :267-289): each row's
+        degree is its strip row's popcount, the other ranks' rows come
+        from one all-gather over the shard group."""
+        n, p, _ = self.resident_spec
+        degrees = self.mesh.all_gather_shards(degrees_from_packed(self.strip))
+        host = degrees[:n].cpu().numpy()
+        max_degree = int(host.max()) if n else 0
+        return _StatsShim(n, int(host.astype(np.int64).sum() // 2), host, max_degree,
+                          f"er_hash_{n}_{p}")
+
+    def host_graph(self) -> Graph:
+        """Resident specs only: host CSR of the same hash graph (threaded
+        C++ enumeration), for validation (``--check``)."""
+        if self.resident_spec is None:
+            raise ValueError("host_graph() is for resident_spec colorers")
+        from mcmc_colorer_tpu_torch.graph.native import generate_er_hash
+
+        n, p, seed = self.resident_spec
+        return generate_er_hash(n, er_threshold(p), seed & 0xFFFFFFFF, name=self.graph.name)
+
+    def _build_packed_strips(self) -> torch.Tensor:
+        """This rank's [n_loc, words] strip of the host graph's packed A
+        (JAX ``_build_packed_strips``), built on its device from its ELL
+        rows (padding id ``n_pad``) and cached on the graph like
+        ``get_adjacency``, by (n_pad, shards, shard, device).  Unless the
+        generator certifies the graph simple, the strip's set bits must
+        be its rows' CSR entries: a duplicate edge collapses to one bit;
+        the shortfall is summed over the shard group, so every rank
+        refuses alike instead of leaving the others in a collective."""
+        g, mesh = self.graph, self.mesh
+        cache = g.__dict__.setdefault("_adj_cache", {})
+        key = (self.n_pad, "strips", mesh.shards, mesh.shard_index, str(self.device))
+        if key not in cache:
+            strip = build_packed_rows(self.neighbors, self.n_pad)
+            if not g.simple_certified:
+                r0, r1 = self.offset, self.offset + self.n_real
+                entries = int(g.row_ptr[r1] - g.row_ptr[r0]) if r1 > r0 else 0
+                extra = torch.tensor([entries - adjacency_nnz(strip)], device=self.device)
+                refuse_multigraph(int(mesh.all_reduce_shards(extra)[0]))
+            cache[key] = strip
+        return cache[key]
 
     def _shard_neighbors(self) -> torch.Tensor:
         """This rank's [n_loc, d_pad] ELL rows, padding ids ``n_pad``: the
@@ -413,7 +605,11 @@ class ShardedMCMCColorer:
         t1 = time.perf_counter()
         if p.tailcut and conflicts[best] > 0:
             src = tailcut_source or TorchUniformSource(seed, repetition, self.device)
-            best_full, conflicts[best], tc_rounds = self._tailcut(best_full, src)
+            if self.neighbors is None:  # the resident strips hold no neighbour lists
+                best_full, conflicts[best], tc_rounds = self._tailcut_strips(
+                    best_full, int(conflicts[best]), src)
+            else:
+                best_full, conflicts[best], tc_rounds = self._tailcut(best_full, src)
         best_colors = best_full[:n].cpu().numpy()
         tailcut_s = time.perf_counter() - t1
         acc = state.accstats
@@ -450,11 +646,16 @@ class ShardedMCMCColorer:
 
     def _cnt_of(self, colors: torch.Tensor) -> torch.Tensor:
         """[k, n_loc] same-colour neighbours of this rank's rows for the
-        chains' whole vectors ``colors`` [k, n_pad] (JAX's ``cnt_of``): one
-        gather a row band, of int16 colours where the palette fits them;
-        the compare's bytes summed as uint8 over slot groups of at most 128
-        (no count exceeds the group) before the int32 sum, so no widened
-        copy of the band is made.  Phantom rows 0."""
+        chains' whole vectors ``colors`` [k, n_pad] (JAX's ``cnt_of``).  On
+        the strip: NC (one K1 launch) at each row's own colour (JAX's
+        ``cnt_of_nc``).  On the ELL: one gather a row band, of int16
+        colours where the palette fits them; the compare's bytes summed as
+        uint8 over slot groups of at most 128 (no count exceeds the group)
+        before the int32 sum, so no widened copy of the band is made.
+        Phantom rows 0."""
+        if self.strip is not None:
+            own = colors[:, self.offset:self.offset + self.n_loc]
+            return _at_color(self._nc(colors), own)
         k = colors.shape[0]
         dev = colors.device
         out = torch.zeros((k, self.n_loc), dtype=torch.int32, device=dev)
@@ -561,17 +762,25 @@ class ShardedMCMCColorer:
         return st
 
     def _sweep_fn(self):
+        """K2 (``pallas``, and the frontier rows of ``matmul``), or its
+        plain version (``xla``)."""
         from mcmc_colorer_tpu_torch.ops.resample import resample_sweep, resample_sweep_plain
 
-        return resample_sweep if self.backend == "pallas" else resample_sweep_plain
+        return resample_sweep_plain if self.backend == "xla" else resample_sweep
+
+    def _nc(self, colors: torch.Tensor) -> torch.Tensor:
+        """NC of this rank's strip rows for whole vectors ``colors``."""
+        return _strip_nc(self.strip, colors, self._full_real, self.params.n_colors)
 
     def _full_branch(self, st: ShardedState, ks: list, eps_t: torch.Tensor):
         """Full synchronous sweep of the local chains ``ks`` (JAX's
         ``chain_sweep`` + ``full_branch``): K2 over the rank's real rows
-        for all of them in one launch, the shard all-gather, the cnt
-        recount and, under Hastings, the shard-summed acceptance test.
-        Returns (colours [k, n_pad], taboo, cnt [k, n_loc], accepted [k])."""
-        p, n, off, nr = self.params, self.graph.n, self.offset, self.n_real
+        for all of them in one launch (or, on the strip, K1's NC for all
+        of them and the proposal read from it), the shard all-gather, the
+        cnt recount (on the strip from NC(star), one more K1 launch) and,
+        under Hastings, the shard-summed acceptance test.  Returns
+        (colours [k, n_pad], taboo, cnt [k, n_loc], accepted [k])."""
+        p, n, off, nr, n_loc = self.params, self.graph.n, self.offset, self.n_real, self.n_loc
         dev = self.device
         idx = torch.tensor(ks, dtype=torch.int64, device=dev)
         cf = st.colors.index_select(0, idx)
@@ -580,22 +789,35 @@ class ShardedMCMCColorer:
         unif = torch.stack([s.next(n).to(dev) for s in srcs])[:, off:off + nr].contiguous()
         u_acc = torch.stack([s.next(1).to(dev) for s in srcs])[:, 0] if p.hastings else None
         p_eff = _p_eff(cf, p, n, self._full_real)
-        cur = cf[:, off:off + nr].contiguous()
-        star_r, qstar, new_tb_r, _ = self._sweep_fn()(
-            self.neighbors[:nr], cf[:, :n].contiguous(), cur, tb[:, :nr].contiguous(), off,
-            unif, p_eff, eps_t, p)
-        star_loc = cf[:, off:off + self.n_loc].clone()   # phantom rows keep nCol
-        star_loc[:, :nr] = star_r
-        new_tb = torch.zeros_like(tb)                   # and taboo 0
-        new_tb[:, :nr] = new_tb_r
+        if self.strip is not None:
+            # phantom rows draw nothing: they keep their colour (nCol)
+            unif_loc = torch.zeros(tb.shape, dtype=torch.float32, device=dev)
+            unif_loc[:, :nr] = unif
+            nc = self._nc(cf)
+            star_loc, new_tb, logq_star = _propose_nc(
+                nc, cf[:, off:off + n_loc], tb, unif_loc, self._real_loc, p_eff, eps_t, p,
+                self._prop_block)
+            del nc  # one NC at a time: each is [k, n_loc, n_col_pad] int32
+        else:
+            cur = cf[:, off:off + nr].contiguous()
+            star_r, qstar, new_tb_r, _ = self._sweep_fn()(
+                self.neighbors[:nr], cf[:, :n].contiguous(), cur, tb[:, :nr].contiguous(), off,
+                unif, p_eff, eps_t, p)
+            star_loc = cf[:, off:off + n_loc].clone()   # phantom rows keep nCol
+            star_loc[:, :nr] = star_r
+            new_tb = torch.zeros_like(tb)               # and taboo 0
+            new_tb[:, :nr] = new_tb_r
+            logq_star = torch.log(qstar.clamp(min=1e-30)).sum(1) if p.hastings else None
         star = self.mesh.all_gather_shards(star_loc)
-        cnt_star = self._cnt_of(star)
+        nc_star = self._nc(star) if self.strip is not None else None
+        cnt_star = (_at_color(nc_star, star[:, off:off + n_loc]) if nc_star is not None
+                    else self._cnt_of(star))
         accepted = torch.ones(len(ks), dtype=torch.bool, device=dev)
         if p.hastings:
             cnt_c = st.cnt.index_select(0, idx)
-            logq_star = torch.log(qstar.clamp(min=1e-30)).sum(1)
-            logq_old = torch.stack([self._reverse_logq(cf[j], star[j], eps_t)
-                                    for j in range(len(ks))])
+            logq_old = torch.stack([
+                self._reverse_logq(cf[j], star[j], eps_t, None if nc_star is None else nc_star[j])
+                for j in range(len(ks))])
             mine = torch.stack([logq_star.double(), logq_old.double(),
                                 cnt_star.sum(1, dtype=torch.int64).double(),
                                 cnt_c.sum(1, dtype=torch.int64).double(),
@@ -614,11 +836,17 @@ class ShardedMCMCColorer:
             cnt_star = torch.where(accepted[:, None], cnt_star, cnt_c)
         return star, new_tb, cnt_star, accepted
 
-    def _reverse_logq(self, cf: torch.Tensor, star: torch.Tensor, eps_t) -> torch.Tensor:
+    def _reverse_logq(self, cf: torch.Tensor, star: torch.Tensor, eps_t,
+                      nc_star: torch.Tensor | None = None) -> torch.Tensor:
         """Σ log q(old | star) over the rank's rows (JAX's
         ``reverse_logq_loc``): the occupancy of the STAR colouring, one
-        gather a row band."""
+        gather a row band, or read from the strip's NC(star) (JAX's
+        ``reverse_logq_nc``)."""
         off = self.offset
+        if nc_star is not None:
+            return _reverse_logq_nc(nc_star, cf[off:off + self.n_loc],
+                                    star[off:off + self.n_loc], self._real_loc, self.params,
+                                    self._prop_block, eps_t)
         total = torch.zeros((), dtype=torch.float32, device=cf.device)
         for s, e in _bands(self.n_real, self.d_pad):
             occ = occupancy_matrix(neighbor_colors(self.neighbors[s:e], star), self.params.n_colors)
@@ -642,7 +870,9 @@ class ShardedMCMCColorer:
         lids, lvalid = frontier_ids((cnt_c > 0) & (tb == 0) & real, cap)  # sentinel n_loc
         lids_l = lids.clamp(max=n_loc - 1).to(torch.int64)
         gids = torch.where(lvalid, off + lids, n_pad)
-        rows = torch.where(lvalid[:, None], self.neighbors.index_select(0, lids_l), n_pad)
+        # the valid ids come first: at most the frontier's size over the
+        # shards, which the host read with the last sweep's statistics
+        rows = self._rows(lids_l, lvalid, int(st.stats[self._local_chains()[k], 0]))
         cur = torch.where(lvalid, cf[gids.clamp(max=n_pad - 1).to(torch.int64)], n_colors)
         p_eff = _p_eff(cf[None], p, n, self._full_real)
         s = self.mesh.shard_index
@@ -669,7 +899,7 @@ class ShardedMCMCColorer:
         fv_old = cf[fv.to(torch.int64)]
         fv_new = torch.remainder(fv_old + offs, n_colors).to(torch.int32)
         x_lid = torch.where(x_valid, fv_lid_c.to(torch.int32), n_loc)
-        x_row = torch.where(x_valid[:, None], self.neighbors.index_select(0, fv_lid_c), n_pad)
+        x_row = self._rows(fv_lid_c, x_valid)
 
         # the changed slots: the frontier and the flip slot
         lids2 = torch.cat([lids, x_lid])
@@ -709,6 +939,25 @@ class ShardedMCMCColorer:
                              accumulate=True)
         delta = self.mesh.all_reduce_shards(delta)
         return star, tb_next, cnt_c + delta[off:off + n_loc]
+
+    def _rows(self, lids: torch.Tensor, valid: torch.Tensor, n_valid: int | None = None
+              ) -> torch.Tensor:
+        """Neighbour ids of this rank's rows ``lids`` (local, int64), the
+        padding id ``n_pad`` in every slot of an invalid row: the ELL's
+        rows, or on the resident graph the strip's rows unpacked to
+        ascending ids (JAX ``rows_from_strip``; every consumer is
+        order-invariant).  ``n_valid`` bounds the valid rows, which come
+        first: the strip unpacks only those (the unpack of a strip row
+        writes n_pad ints; JAX unpacks all ``cap``)."""
+        if self.neighbors is not None:
+            rows = self.neighbors.index_select(0, lids)
+        else:
+            m = lids.shape[0] if n_valid is None else min(n_valid, lids.shape[0])
+            rows = torch.full((lids.shape[0], self.d_row), self.n_pad, dtype=torch.int32,
+                              device=lids.device)
+            rows[:m] = packed_rows_to_ids(self.strip.index_select(0, lids[:m]), self.d_row,
+                                          self.n_pad)
+        return torch.where(valid[:, None], rows, self.n_pad)
 
     # ---- the sharded tailcut (JAX's _run_tailcut_sharded) ------------------
 
@@ -773,6 +1022,48 @@ class ShardedMCMCColorer:
         if stalled:
             new_loc[:nr] = torch.where(flags[:nr], rnd, new_loc[:nr])
         return self.mesh.all_gather_shards(new_loc), conf_h
+
+
+    # ---- the strip-native tailcut (JAX's _tailcut_strips_round) -------------
+
+    def _tailcut_strips(self, colors_full: torch.Tensor, conflicts: int, source):
+        """Independent-set repair rounds of one colouring (replicated
+        [n_pad]) over the strips while conflicts remain, at most 16 + 2 ·
+        the entry conflicts (JAX ``run``, sharded.py:575-616), each round's
+        exit NC the next round's entry NC.  Returns (colours, conflicts
+        after the last round, rounds)."""
+        cap, rounds, nc = 16 + 2 * conflicts, 0, None
+        while conflicts > 0 and rounds < cap:
+            colors_full, conflicts, nc = self._tailcut_strips_round(
+                colors_full, source.next(self.n_pad), nc)
+            rounds += 1
+        return colors_full, conflicts, rounds
+
+    def _tailcut_strips_round(self, cols: torch.Tensor, coins: torch.Tensor,
+                              nc_prev: torch.Tensor | None = None):
+        """One round over this rank's strip rows (JAX
+        ``_tailcut_strips_round``): its conflicted rows flip ``coins`` (its
+        rows of the round's [n_pad] uniforms) and the heads go round the
+        shard group in one all-gather; a head with no head neighbour (one
+        ``strip & head_bits`` pass) moves to its first NC-free colour (the
+        least occupied where none is free), and a second all-gather
+        publishes the colours.  Movers are pairwise non-adjacent and land
+        on colours free in their whole neighbourhood, so conflicts never
+        rise while free colours exist.  ``nc_prev``: the previous round's
+        exit NC of ``cols`` (skips the entry K1 launch).  Returns (colours
+        [n_pad], global conflicts, exit NC)."""
+        p, off, n_loc, real = self.params, self.offset, self.n_loc, self._real_loc
+        nc = self._nc(cols) if nc_prev is None else nc_prev
+        own = cols[off:off + n_loc]
+        heads = (_at_color(nc, own) > 0) & real & (coins.to(cols.device)[off:off + n_loc] < 0.5)
+        heads_full = self.mesh.all_gather_shards(heads.to(torch.int32)) > 0
+        movers = heads & ~_any_neighbor_in(self.strip, _pack_mask(heads_full, self.strip.shape[1]))
+        newc = _first_free(nc, p.n_colors)
+        cols_new = self.mesh.all_gather_shards(torch.where(movers, newc, own))
+        del nc
+        nc2 = self._nc(cols_new)
+        cnt2 = torch.where(real, _at_color(nc2, cols_new[off:off + n_loc]), 0).sum()
+        return cols_new, int(self.mesh.gather_shards_host(cnt2).sum()) // 2, nc2
 
 
 # the delta's zero terms (most of a frontier's slots) are added into this

@@ -1,9 +1,8 @@
 """The port's command-line interface (``mcmc_colorer_tpu_torch/cli.py``).
 
 Ports of the JAX CLI's tests (``tests/test_cli_analysis.py``), run with
-``--device cpu``; the refusals of the paths the port lacks (exit 2,
-naming their ROADMAP.md item, or ``torchrun`` for a mesh larger than the
-world) and the JAX CLI's own refusals; the
+``--device cpu``; the refusal of a mesh larger than the world (exit 2,
+naming ``torchrun``) and the JAX CLI's own refusals; the
 refusal to run without a card unless asked for the CPU; and the JAX
 package's ``log_parser`` reading the port's logs with the same fields
 as the JAX CLI's.
@@ -161,18 +160,13 @@ def test_cli_resident_errors():
         assert e.value.code == 2
 
 
-# what is left is ROADMAP.md item 12b (the sharded colorer's adjacency
-# strips and resident hash strips); a mesh larger than the world (one
+# every path of the JAX CLI is ported; a mesh larger than the world (one
 # process here) names torchrun, which starts the ranks
 UNPORTED = {
     "mesh_chains": (["--mcmcgpu", "--mesh-chains", "2"], "torchrun --nproc-per-node 2"),
     "mesh_shards": (["--mcmcgpu", "--mesh-shards", "2"], "torchrun --nproc-per-node 2"),
-    "mesh_backend_matmul": (["--mcmcgpu", "--mesh-shards", "1", "--backend", "matmul"],
-                            "ROADMAP.md Queue 1 item 12b)"),
-    "active_chains_backend_packed": (["--mcmcgpu", "--active", "--chains", "2", "--backend",
-                                      "packed"], "ROADMAP.md Queue 1 item 12b)"),
-    "resident_mesh": (["--mcmcgpu", "--resident", "--mesh-shards", "2"],
-                      "ROADMAP.md Queue 1 item 12b)"),
+    "resident_mesh_shards": (["--mcmcgpu", "--resident", "--mesh-shards", "2"],
+                             "torchrun --nproc-per-node 2"),
 }
 
 
@@ -190,10 +184,12 @@ def test_unported_flags_exit_2(tmp_path, capsys, case):
 
 # the flag sets that exited 2 until the frontier chain, the packed backend
 # over a host graph, the bucketed layout, the ensembles, the debugger,
-# checkpoints, TRACE and the sharded colorer (frontier ensembles on a 1x1
-# mesh, annealing, a one-rank mesh, its checkpoints) were ported; Luby
-# ignores --backend, as in JAX, and MCMCColorer ignores --ckpt with a
-# message, as in JAX
+# checkpoints, TRACE, the sharded colorer (frontier ensembles on a 1x1
+# mesh, annealing, a one-rank mesh, its checkpoints) and its adjacency
+# strips (the matmul/packed backend on every sharded route, the resident
+# hash strips on a one-rank mesh; more ranks in
+# tests/test_torch_sharded_ranks.py) were ported; Luby ignores --backend,
+# as in JAX, and MCMCColorer ignores --ckpt with a message, as in JAX
 PORTED = {
     "layout_bucketed": (["--grdffgpu", "--layout", "bucketed"], {"GFF"}),
     "backend_matmul": (["--mcmcgpu", "--backend", "matmul"], {"MCMC_GPU"}),
@@ -211,6 +207,14 @@ PORTED = {
     "anneal": (["--mcmcgpu", "--active", "--chains", "2", "--anneal"], {"MCMC_GPU"}),
     "mesh_one_rank": (["--mcmcgpu", "--mesh-shards", "1", "--chains", "2", "--ckpt", "m.npz"],
                       {"MCMC_GPU"}),
+    "mesh_backend_matmul": (["--mcmcgpu", "--mesh-shards", "1", "--backend", "matmul"],
+                            {"MCMC_GPU"}),
+    "active_chains_backend_packed": (["--mcmcgpu", "--active", "--chains", "2", "--backend",
+                                      "packed"], {"MCMC_GPU"}),
+    "resident_mesh": (["--mcmcgpu", "--resident", "--mesh-shards", "1", "--chains", "2"],
+                      {"MCMC_GPU"}),
+    "resident_mesh_active_ckpt": (["--mcmcgpu", "--resident", "--mesh-chains", "1", "--active",
+                                   "--anneal", "--ckpt", "r.npz"], {"MCMC_GPU"}),
 }
 
 
@@ -241,13 +245,16 @@ REFUSED = {
                              "does not checkpoint"),
     "resident_active_chains": (["--mcmcgpu", "--active", "--resident", "--chains", "2"],
                                "single-chain"),
+    "resident_luby_mesh": (["--mcmcgpu", "--lubygpu", "--resident", "--mesh-shards", "1"],
+                           "(no mesh)"),
+    "resident_anneal": (["--mcmcgpu", "--resident", "--anneal"], "--anneal without a mesh"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_frontier_refusals_exit_2(tmp_path, capsys, case):
-    """The JAX CLI's refusals around --active (cli.py:305-315, 344-350) and
-    of --resume where nothing checkpoints (cli.py:676-700)."""
+    """The JAX CLI's refusals around --active and --resident (cli.py:291-327,
+    344-350) and of --resume where nothing checkpoints (cli.py:676-700)."""
     flags, msg = REFUSED[case]
     out = tmp_path / "out"
     with pytest.raises(SystemExit) as e:

@@ -21,10 +21,11 @@ package's ``ShardedMCMCColorer`` on a 1x1 mesh, on the CPU.
   vector) against JAX's Pallas kernels (interpret mode) on the same rows:
   K3 exact, K2's conflicts exact and its samples under the CDF-boundary
   rule of ``tests/test_torch_sweep.py``.
-- The refusals (Hastings with a frontier, item 12b's backends) and the
-  card as default device.
+- The refusals (Hastings with a frontier, JAX's refusals of the strip
+  paths) and the card as default device.
 
-Multi-rank meshes are ``tests/test_torch_sharded_ranks.py``.
+Multi-rank meshes are ``tests/test_torch_sharded_ranks.py``; the strip
+backend and the resident hash strips ``tests/test_torch_sharded_strips.py``.
 """
 
 import jax
@@ -334,19 +335,25 @@ def test_sharded_call_sites_of_k2_and_k3(medium_er):
 
 
 def test_refusals_and_default_device(medium_er, monkeypatch):
-    """Hastings with a frontier, and item 12b's strip backend and resident
-    strips, refuse; without a card the default mesh device raises and
-    names it; the mesh refuses a geometry larger than the world, naming
-    torchrun."""
+    """Hastings with a frontier refuses, and so do JAX's refusals of the
+    strip paths (a graph with ``resident_spec``, a backend other than
+    ``matmul`` with it, an unknown backend), each as JAX's colorer does;
+    without a card the default mesh device raises and names it; the mesh
+    refuses a geometry larger than the world, naming torchrun."""
     g = interop.graph_from_jax(medium_er)
     mesh = make_mesh(1, 1, device="cpu")
+    jmesh = j_make_mesh(1, 1, devices=jax.devices()[:1])
     with pytest.raises(NotImplementedError, match="full sweeps"):
         ShardedMCMCColorer(g, MCMCParams(n_colors=20, hastings=True), mesh, active_cap=128)
-    for kw in (dict(backend="matmul"), dict(backend="packed"),
-               dict(resident_spec=(500, 0.05, 1))):
-        with pytest.raises(NotImplementedError, match="12b"):
-            ShardedMCMCColorer(None if "resident_spec" in kw else g, MCMCParams(n_colors=20),
-                               mesh, **kw)
+    for kw, err in ((dict(graph=True, resident_spec=(500, 0.05, 1)), "graph=None"),
+                    (dict(backend="xla", resident_spec=(500, 0.05, 1)), "matmul"),
+                    (dict(graph=True, backend="dense"), "unknown sharded backend")):
+        kw = dict(kw)
+        with_graph = kw.pop("graph", False)
+        with pytest.raises(ValueError, match=err):
+            ShardedMCMCColorer(g if with_graph else None, MCMCParams(n_colors=20), mesh, **kw)
+        with pytest.raises(ValueError, match=err):
+            JSharded(medium_er if with_graph else None, JParams(n_colors=20), jmesh, **kw)
     with pytest.raises(ValueError, match="torchrun"):
         make_mesh(1, 2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
