@@ -107,7 +107,20 @@ the card by default:
   --mesh-shards 2 --check`` under torchrun and ``--backend packed
   --mesh-shards 1``.  Every K1 launch of phases 32 and 33 is recorded by
   strip and colours shape (``_K1Shapes``), held exactly against
-  ``packed_nc_reference`` on the run's own inputs and timed.
+  ``packed_nc_reference`` on the run's own inputs and timed;
+- slice 11, the baseline and validation scripts and the ensemble over a
+  mesh (the hash host graphs are now certified simple, so phase 18
+  skips the packed A's completeness check): phase 36
+  ``scripts/run_baseline_configs``'s configs 1, 2 and 5 at full size,
+  each valid (config 5: 64 chains on ER(20k, 0.002), its batched K2
+  launches held against the plain version), its config-3 and config-4
+  constants equal to this script's, the whole script with ``--small`` in
+  a subprocess, and ``estimate_run_bytes`` of config 3 beside phase 9's
+  chain peak; phase 37 ``scripts/validate_stats`` in full (its four
+  checks) and two ``validate_matrix`` cells (checks and the variants'
+  separation), their K2 and K3 launches held; phase 38
+  ``EnsembleMCMCColorer(mesh=)`` over two gloo ranks on the one card at
+  (2, 1), each rank equal to phase 23's one-rank 8-chain ensemble.
 
 The CLI phases (15, 25, 31 and 35) run last, as four concurrent lanes of
 subprocesses (``phase_clis``), each lane's calls in order.
@@ -155,6 +168,7 @@ TIMED_RUNS = 10
 # config 4 (:196-240)
 CONFIG3_N, CONFIG3_P, CONFIG3_SEED, CONFIG3_RATIOS = 1_000_000, 0.001, 3, (1.0, 2.0, 4.0)
 CONFIG4_N, CONFIG4_M, CONFIG4_SEED = 50_000, 8, 4
+CONFIG3_RUN_SEED, CONFIG4_RUN_SEED = 31, 41  # the chains' seeds (:178, :223)
 # phase 21: config 4's generator at a million vertices (max degree 4677)
 BA1M_N = 1_000_000
 # the frontier chains' palettes: ratio 1, and a tighter one whose chain
@@ -362,6 +376,7 @@ def phase_main(device, n=BENCH_N, p=BENCH_P, graph_seed=0, seed=5):
     t0 = time.perf_counter()
     g = c.host_graph()
     host_s = time.perf_counter() - t0
+    _require(g.simple_certified, "the hash host graph is not certified simple")
     _require(g.n_edges == c.n_edges, f"edges: host {g.n_edges} vs device {c.n_edges}")
     _require(g.max_degree == c.max_degree, "max degree: host vs device differ")
     _require(r.colors.shape == (n,), f"colours shape {r.colors.shape}")
@@ -722,7 +737,8 @@ def phase_config3(device, g):
     """The slice-2 main path at BASELINE config 3: MCMCColorer (K2 sweep,
     K3 tailcut) at numColRatio 1, 2, 4, then GreedyFF (K3).  Returns the
     K2 and K3 launches of these runs, GreedyFF's run with its K3
-    launches, and the MCMC runs by ratio."""
+    launches, the MCMC runs by ratio, and by ratio the chain's peak device
+    bytes (``_chain_peak``) with the colorer's row block."""
     from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
     from mcmc_colorer_tpu_torch.models.base import check_coloring
     from mcmc_colorer_tpu_torch.models.greedy_ff import GreedyFFColorer
@@ -733,7 +749,7 @@ def phase_config3(device, g):
     import torch
 
     k2_total = k3_total = 0
-    fulls = {}
+    fulls, peaks = {}, {}
     for ratio in CONFIG3_RATIOS:
         n_col = max(4, int(g.max_degree / ratio))
         params = MCMCParams(n_colors=n_col, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
@@ -741,10 +757,11 @@ def phase_config3(device, g):
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         k2.launches = k3.launches = 0
-        r = c.run(seed=31)
+        r = c.run(seed=CONFIG3_RUN_SEED)
         l2, l3 = k2.launches, k3.launches
         peak = torch.cuda.max_memory_allocated() - base
-        chain_peak = _chain_peak(c, 31)
+        chain_peak = _chain_peak(c, CONFIG3_RUN_SEED)
+        peaks[ratio] = (chain_peak, c.block)
         k2_total, k3_total = k2_total + l2, k3_total + l3
         x = r.extra
         t0 = time.perf_counter()
@@ -780,7 +797,7 @@ def phase_config3(device, g):
           f"{r.duration_ms / 1e3:.3f} s; K3 launches {l3}; valid {valid}")
     _require(l3 > 0, "GreedyFF launched K3 no time")
     _require(valid, "GreedyFF: invalid colouring")
-    return k2_total, k3_total, (r, l3), fulls
+    return k2_total, k3_total, (r, l3), fulls, peaks
 
 
 def phase_config4(device):
@@ -821,7 +838,7 @@ def phase_config4(device):
              "the loaded graph differs from the written one")
     params = MCMCParams(n_colors=g.max_degree, proposal=ProposalKind.BALANCE_DYNAMIC,
                         tailcut=True)
-    r = MCMCColorer(g, params, backend="pallas", device=device).run(seed=41)
+    r = MCMCColorer(g, params, backend="pallas", device=device).run(seed=CONFIG4_RUN_SEED)
     valid = check_coloring(g, r.colors)
     a = GreedyFFColorer(g, backend="pallas", device=device).run()
     b = GreedyFFColorer(g, backend="xla", device=device).run()
@@ -1422,7 +1439,10 @@ def phase_packed_host(device, g, c_res, r1, r2):
     print(
         f"phase 18 packed backend ER({BENCH_N}, {BENCH_P}) host graph: ELL "
         f"[{colorer.ell.n_pad}, {colorer.ell.d_pad}], A [{a.shape[0]}, {a.shape[1]}] built "
-        f"on the card from it in {st['build_s']:.3f} s (check {st['check_s']:.3f} s), "
+        f"on the card from it in {st['build_s']:.3f} s ("
+        + ("completeness check skipped: the hash host graph is certified simple"
+           if g.simple_certified else f"completeness check {st['check_s']:.3f} s")
+        + "), "
         f"setup {colorer.setup_seconds:.3f} s; equals the resident A [{nr}, {nw}] on the "
         f"real rows, 0 elsewhere; warm: {r.iterations} iterations, {r.extra['sweeps']} "
         f"sweeps, {per_sweep(r):.3f} ms/sweep (phase 11: K2 chain {per_sweep(r2):.3f}, "
@@ -2307,7 +2327,9 @@ def phase_ensembles(device, g, g4, seed=5):
     K2 once a rectangle a batched body, each chain equal to a one-chain
     run fed its source, and every batched K2 and K3 launch held against
     its plain version and C single launches and timed
-    (``_ChainShapes``).  Returns ``_ChainShapes.check``'s dict."""
+    (``_ChainShapes``).  Returns ``_ChainShapes.check``'s dict, with the
+    flat run's digest (``_ensemble_digest``) under ``"reference"`` for
+    phase 38."""
     import torch
 
     from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
@@ -2352,8 +2374,18 @@ def phase_ensembles(device, g, g4, seed=5):
         _chain_c_equals(lambda: MCMCColorer(graph, params, backend="pallas", layout=layout,
                                             device=device), summ, best, s, device,
                         f"phase 23 {name} {layout}")
+        if layout == "flat":
+            ref = _ensemble_digest((best, summ))
     torch.cuda.empty_cache()
-    return shapes.check(23)
+    return {**shapes.check(23), "reference": ref}
+
+
+def _ensemble_digest(result):
+    """What two ensemble runs must share: the best colours, iterations,
+    trace, the extra without its time, and the summaries."""
+    best, summ = result
+    return (best.colors.tolist(), best.iterations, best.conflict_trace.tolist(),
+            {k: v for k, v in best.extra.items() if k != "chain_seconds"}, summ)
 
 
 def phase_resident_ensemble(device, g, c_res, seed=5):
@@ -3181,6 +3213,230 @@ def phase_cli_slice9():
     _cli_run(base + ["--anneal"], 20_000, ("MCMC_GPU",), phase=31)
 
 
+# slice 11: BASELINE.md configs 1, 2 and 5 through the port's script, the
+# validation scripts, and the ensemble over a mesh
+VALIDATE_MATRIX_CELLS = ((0.005, 1.0), (0.04, 2.0))  # (p, numColRatio) at n = 4000
+VALIDATE_MATRIX_SEEDS = 3
+
+
+def phase_baseline_configs(device, config3_max_degree, config3_peaks):
+    """Slice 11, phase 36: ``scripts/run_baseline_configs``'s configs 1, 2
+    and 5 at full size on the card (the sequential chain on ER(1000, 0.1);
+    Luby on ER(100k, 0.01); 64 chains on ER(20k, 0.002), best-of-chains),
+    each valid; config 5's batched K2 launches recorded by shape
+    (``_ChainShapes``) and held against the plain version; configs 3 and 4
+    are phases 9 and 10, whose constants must equal the script's.  Then
+    the whole script with ``--small`` in a subprocess, every ``valid``
+    true, and ``estimate_run_bytes`` of config 3 at ratio 1 beside phase
+    9's measured chain peak.  Returns ``_ChainShapes.check``'s dict."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.ops import firstfit as k3
+    from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+    from mcmc_colorer_tpu_torch.scripts import run_baseline_configs as rbc
+    from mcmc_colorer_tpu_torch.utils.memtrack import estimate_run_bytes
+
+    ours = (CONFIG3_N, CONFIG3_P, CONFIG3_SEED, CONFIG3_RATIOS, CONFIG3_RUN_SEED,
+            CONFIG4_N, CONFIG4_M, CONFIG4_SEED, CONFIG4_RUN_SEED)
+    theirs = (rbc.CONFIG3_N, rbc.CONFIG3_P, rbc.CONFIG3_SEED, rbc.CONFIG3_RATIOS,
+              rbc.CONFIG3_RUN_SEED, rbc.CONFIG4_N, rbc.CONFIG4_M, rbc.CONFIG4_SEED,
+              rbc.CONFIG4_RUN_SEED)
+    _require(ours == theirs, f"phase 36: configs 3 and 4 differ from the script's: {ours} vs "
+             f"{theirs}")
+    t0 = time.perf_counter()
+    e1 = rbc.config1(False, device)["config1_sequential"]
+    _require(e1["valid"] is True, "phase 36: config 1 invalid")
+    k1.launches = k2.launches = k3.launches = 0
+    e2 = rbc.config2(False, device)["config2_luby"]
+    print(f"phase 36 config 2 Luby ER({rbc.CONFIG2_N}, {rbc.CONFIG2_P}): two runs, K1 launches "
+          f"{k1.launches}, K2 {k2.launches}, K3 {k3.launches} (the gather loop: torch ops)")
+    _require(e2["valid"] is True, "phase 36: config 2 invalid")
+    shapes = _ChainShapes()
+    shapes.tag = f"config 5 ER({rbc.CONFIG5_N}, {rbc.CONFIG5_P})"
+    k1.launches = k2.launches = k3.launches = 0
+    with shapes:
+        e5 = rbc.config5(False, device)["config5_ensemble"]
+    l1, l2, l3 = k1.launches, k2.launches, k3.launches
+    print(f"phase 36 config 5, {e5['chains']} chains: K2 launches {l2} (batched bodies), "
+          f"K1 {l1}, K3 {l3}; run {e5['seconds']:.3f} s, {e5['seconds'] / max(l2, 1) * 1e3:.3f} "
+          f"ms a batched body (run seconds over K2 launches); best chain {e5['best_chain']}, "
+          f"best conflicts {e5['best_conflicts']}")
+    _require(e5["valid"] is True and e5["best_conflicts"] == 0 and e5["chains"] == 64,
+             "phase 36: config 5's best chain invalid")
+    _require(l2 > 0 and shapes.launches("K2") == l2,
+             f"phase 36: config 5 launched K2 {l2} times, {shapes.launches('K2')} batched")
+    configs_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    rows = shapes.check(36)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "small.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "mcmc_colorer_tpu_torch.scripts.run_baseline_configs",
+             "--small", "--out", out], cwd=ROOT, capture_output=True, text=True, timeout=600,
+            stdin=subprocess.DEVNULL)
+        _require(proc.returncode == 0,
+                 f"phase 36: run_baseline_configs --small exited {proc.returncode}:\n"
+                 f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        with open(out) as f:
+            small = json.load(f)
+    valids = [e["valid"] for k, e in small.items() if k.startswith("config") and "valid" in e]
+    valids += [e["valid"] for e in small["config3_ratio_sweep"]["sweep"].values()]
+    _require(len(valids) == 8 and all(v is True for v in valids),
+             f"phase 36: --small report has valids {valids}")
+    print(f"phase 36 run_baseline_configs --small in a subprocess: exit 0, all {len(valids)} "
+          f"valid, on {small['device']}, {time.perf_counter() - t1:.3f} s")
+    ratio = CONFIG3_RATIOS[0]
+    peak, block = config3_peaks[ratio]
+    est = estimate_run_bytes(CONFIG3_N, config3_max_degree,
+                             max(4, int(config3_max_degree / ratio)), block=block)
+    print(f"phase 36 estimate_run_bytes config 3 ratio {ratio} (block {block}): "
+          + ", ".join(f"{k} {v}" for k, v in est.items())
+          + f"; phase 9's measured chain peak {peak} bytes above the graph's ELL")
+    print(f"phase 36 configs 1, 2, 5 at full size {configs_s:.3f} s")
+    return rows
+
+
+def phase_validation(device):
+    """Slice 11, phase 37: ``scripts/validate_stats`` in full (ER(1000,
+    0.1), 20 seeds, the sequential chain against K2's chain), its four
+    checks required; two ``validate_matrix`` cells through its functions,
+    each with ``VALIDATE_MATRIX_SEEDS`` seeds, their checks and the
+    variant separation required, printed beside the JAX record
+    (``docs/validate_matrix.json``).  The K2 and K3 launches of these runs
+    are recorded by shape (``_LaunchShapes``) and held against the plain
+    versions.  Returns ``_LaunchShapes.check``'s tuple."""
+    from mcmc_colorer_tpu_torch.graph.generate import erdos_renyi
+    from mcmc_colorer_tpu_torch.ops import firstfit as k3
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+    from mcmc_colorer_tpu_torch.scripts import validate_matrix as vm
+    from mcmc_colorer_tpu_torch.scripts import validate_stats as vs
+
+    ls = _LaunchShapes()
+    ls.tag = "validate_stats ER(1000, 0.1)"
+    t0 = time.perf_counter()
+    k2.launches = k3.launches = 0
+    with ls:
+        rep = vs.validate(device=device)
+    l2, l3 = k2.launches, k3.launches
+    s, d = rep["sequential"], rep["parallel"]
+    print(f"phase 37 validate_stats {rep['config']}: checks {rep['checks']}; used colours "
+          f"{s['used_colors']['mean']:.2f}/{d['used_colors']['mean']:.2f}, iterations "
+          f"{s['iterations']['mean']:.2f}/{d['iterations']['mean']:.2f}, balance index "
+          f"{s['balance_index']['mean']:.4f}±{s['balance_index']['std']:.4f}/"
+          f"{d['balance_index']['mean']:.4f}±{d['balance_index']['std']:.4f}, class std "
+          f"{s['class_std']['mean']:.3f}/{d['class_std']['mean']:.3f} (sequential/device); "
+          f"K2 launches {l2}, K3 {l3}; {time.perf_counter() - t0:.3f} s")
+    _require(all(rep["checks"].values()), f"phase 37: validate_stats checks {rep['checks']}")
+    _require(l2 > 0, "phase 37: validate_stats launched K2 no time")
+    with open(ROOT / "docs" / "validate_matrix.json") as f:
+        record = {(c["p"], c["ratio"]): c for c in json.load(f)["cells"]}
+    for p_edge, ratio in VALIDATE_MATRIX_CELLS:
+        t1 = time.perf_counter()
+        g = erdos_renyi(4000, p_edge, seed=777)
+        ls.tag = f"validate_matrix p={p_edge} ratio={ratio}"
+        k2.launches = k3.launches = 0
+        with ls:
+            c = vm.matrix_cell(g, p_edge, ratio, VALIDATE_MATRIX_SEEDS, device)
+        l2, l3 = k2.launches, k3.launches
+        jc = record[(p_edge, ratio)]
+
+        def line(x):
+            return (f"nCol {x['n_colors']}, BI seq/dev/dyn "
+                    f"{x['sequential_standard']['balance_index']:.3f}/"
+                    f"{x['device_standard']['balance_index']:.3f}/"
+                    f"{x['device_balance_dynamic']['balance_index']:.3f}, converged seq/dev "
+                    f"{x['sequential_standard']['converged']}/"
+                    f"{x['device_standard']['converged']}, class std standard/decrease_exp "
+                    f"{x['variant_effect']['standard']['class_std_mean']:.2f}/"
+                    f"{x['variant_effect']['decrease_exp']['class_std_mean']:.2f}, separates "
+                    f"{x['variants_separate']}, checks {all(x['checks'].values())}")
+
+        print(f"phase 37 validate_matrix cell p={p_edge} ratio={ratio}, "
+              f"{VALIDATE_MATRIX_SEEDS} seeds: {line(c)}; K2 launches {l2}, K3 {l3}; "
+              f"{time.perf_counter() - t1:.3f} s | JAX record (TPU v5e, 10 seeds): {line(jc)}")
+        _require(all(c["checks"].values()) and c["variant_effect"]["separates"],
+                 f"phase 37: matrix cell p={p_edge} ratio={ratio}: checks {c['checks']}, "
+                 f"separates {c['variant_effect']['separates']}")
+        _require(l2 > 0 and l3 > 0, f"phase 37: cell p={p_edge} launched K2 {l2}, K3 {l3}")
+    print(f"phase 37 validate_stats and two matrix cells {time.perf_counter() - t0:.3f} s")
+    return ls.check(37, plain_runs=3)
+
+
+def _gloo_ensemble_rank(rank, world, port, graph_npz, out_dir, seed):
+    """Phase 38's spawned rank: joins a gloo group of ``world`` ranks on
+    the one card and runs phase 23's 8-chain ensemble over a (2, 1) mesh,
+    its 4 chains; writes its digest and run seconds."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.graph.container import Graph
+    from mcmc_colorer_tpu_torch.parallel.chains import EnsembleMCMCColorer
+    from mcmc_colorer_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    torch.cuda.set_device(0)
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+                           backend="gloo")
+    d = np.load(graph_npz)
+    g = Graph(n=int(d["n"]), row_ptr=d["row_ptr"], cols=d["cols"], name="er100k")
+    p = MCMCParams(n_colors=g.max_degree, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
+    ens = EnsembleMCMCColorer(g, p, ENSEMBLE_CHAINS, mesh=make_mesh(2, 1), backend="pallas")
+    t0 = time.perf_counter()
+    result = ens.run(seed=seed)
+    run_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+        pickle.dump((_ensemble_digest(result), run_s, ens.first_chain, ens.local_chains,
+                     str(ens.device)), f)
+    dist.destroy_process_group()
+
+
+def phase_mesh_ensemble(device, g, ref, seed=5, deadline_s=300.0):
+    """Slice 11, phase 38: ``EnsembleMCMCColorer(g, params, 8, mesh=...)``
+    over two gloo ranks spawned on the one card at (2, 1), each running 4
+    of phase 23's 8 chains on phase 11's ER(100k, 0.01) host graph at nCol
+    = its max degree (1150): each rank's (best, summaries) must equal
+    phase 23's one-rank ensemble ``ref`` chain by chain, exactly, so both
+    ranks return the same best.  The ranks are killed if they outlive
+    ``deadline_s``.  Returns the spawn's seconds."""
+    import pickle
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as td:
+        graph_npz = os.path.join(td, "g.npz")
+        np.savez(graph_npz, n=g.n, row_ptr=g.row_ptr, cols=g.cols)
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_gloo_ensemble_rank,
+                                 args=(2, _free_port(), graph_npz, td, seed),
+                                 nprocs=2, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=1.0):
+                _require(time.perf_counter() - t0 < deadline_s,
+                         f"phase 38: the ranks still run after {deadline_s} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        got = []
+        for r in range(2):
+            with open(os.path.join(td, f"{r}.pkl"), "rb") as f:
+                got.append(pickle.load(f))
+    wall = time.perf_counter() - t0
+    for r, (dig, run_s, first, k, dev) in enumerate(got):
+        _require(dig == ref, f"phase 38: rank {r}'s ensemble differs from phase 23's one rank")
+        print(f"phase 38 rank {r} of a (2, 1) mesh on {dev}, chains {first}..{first + k - 1}: "
+              f"best chain {dig[3]['best_chain']}, summaries of all {len(dig[4])} chains and "
+              f"the best colours equal to phase 23's one-rank ensemble; run {run_s:.3f} s")
+    print(f"phase 38 spawn of two gloo ranks: {wall:.3f} s")
+    return wall
+
+
 def main() -> int:
     import torch
 
@@ -3224,7 +3480,8 @@ def main() -> int:
     err3, k3_ms, p3_ms, k3_bytes, k3_slots = phase_k3(device, ell3, sb)
     frac2, err2, k2_config3 = phase_k2(device, ell3, sb)
     torch.cuda.empty_cache()
-    launches2, launches3, full_gff, full_mcmc = phase_config3(device, g3)
+    launches2, launches3, full_gff, full_mcmc, peaks3 = phase_config3(device, g3)
+    config3_max_degree = g3.max_degree
     del ell3
     torch.cuda.empty_cache()
     l3, e3 = phase_frontier_config3(device, g3, full_gff)
@@ -3295,13 +3552,23 @@ def main() -> int:
     del st_first
     slice10_s = time.perf_counter() - t_slice10
     torch.cuda.empty_cache()
+    t_slice11 = time.perf_counter()
+    base_rows = phase_baseline_configs(device, config3_max_degree, peaks3)
+    torch.cuda.empty_cache()
+    val_k2, val_k3, f2, e2, e3 = phase_validation(device)
+    frac2 = max(frac2, f2, base_rows["frac"])
+    err2, err3 = max(err2, e2, base_rows["qerr"]), max(err3, e3)
+    torch.cuda.empty_cache()
+    mesh_s = phase_mesh_ensemble(device, g_bench, ens["reference"])
+    slice11_s = time.perf_counter() - t_slice11
     t_cli = time.perf_counter()
     cli15_s, cli25_s, cli31_s, cli35_s = phase_clis()
     print(f"phases 15, 25, 31, 35 (the CLI lanes, concurrent) {time.perf_counter() - t_cli:.3f} "
           f"s; lanes: phase 15 {cli15_s:.3f} s, 25 {cli25_s:.3f} s, 31 {cli31_s:.3f} s, 35 "
           f"{cli35_s:.3f} s; phases 16-19 (slice 6) {slice6_s:.3f} s; phases 20-21 (slice 7) "
           f"{slice7_s:.3f} s; phases 22-24 (slice 8) {slice8_s:.3f} s; phases 26-30 (slice 9) "
-          f"{slice9_s:.3f} s; phases 32-34 (slice 10) {slice10_s:.3f} s")
+          f"{slice9_s:.3f} s; phases 32-34 (slice 10) {slice10_s:.3f} s; phases 36-38 (slice 11) "
+          f"{slice11_s:.3f} s, of which phase 38's gloo spawn {mesh_s:.3f} s")
 
     # no single PyTorch call computes what K1, K2 or K3 compute from their
     # inputs (PERF.md): library_ms is null
@@ -3355,10 +3622,13 @@ def main() -> int:
     # a chain axis at each shape of phase 23's ensembles
     # slice 9: the sharded ensemble's K2 at its call sites (phases 26 and
     # 27): the full sweep with a chain axis, the frontier's rows
+    # slice 11: config 5's 64 chains (phase 36) and the validation
+    # scripts' one-chain runs (phase 37)
     for row in ([{**k2_config3, "launches": launches2 + fr3_full},
                  {**k2_bench, "launches": l2_bench + hast_k2}] + k2_fr3 + res["k2_rows"]
                 + k2_b4 + k2_b1m + k2_st + ens["K2"] + res_ens["K2"]
-                + sh_chain["K2"] + sh_k2 + sh3_chain["K2"] + sh3_k2 + st_k2):
+                + sh_chain["K2"] + sh_k2 + sh3_chain["K2"] + sh3_k2 + st_k2
+                + base_rows["K2"] + val_k2):
         b_ms, b_by = _bound(row["bytes"], row["ops"], FP32_OPS_PER_S)
         k2_rows.append({**row, "bound_ms": b_ms, "bound_by": b_by,
                         "bound_share": b_ms / row["ms"]})
@@ -3370,7 +3640,8 @@ def main() -> int:
     for row in ([{"shape": "config-3 band", "launches": launches3, "max_abs_err": err3,
                   "ms": k3_ms, "plain_ms": p3_ms, "bytes": k3_bytes, "ops": k3_slots}]
                 + k3_b4 + k3_b1m + k3_st + ens["K3"] + res_ens["K3"]
-                + sh_chain["K3"] + sh_k3 + sh3_chain["K3"] + sh3_k3 + mm_k3):
+                + sh_chain["K3"] + sh_k3 + sh3_chain["K3"] + sh3_k3 + mm_k3
+                + val_k3):  # slice 11: the matrix cells' tailcuts (phase 37)
         b_ms, b_by = _bound(row["bytes"], row["ops"], INT32_OPS_PER_S)
         k3_rows.append({**row, "bound_ms": b_ms, "bound_by": b_by,
                         "bound_share": b_ms / row["ms"]})

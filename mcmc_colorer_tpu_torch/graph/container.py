@@ -356,6 +356,11 @@ class EllGraph:
     def d_pad(self) -> int:
         return self.neighbors.shape[1]
 
+    @property
+    def neighbor_mask(self) -> torch.Tensor:
+        """(n_pad, d_pad) bool: True where a real neighbour is stored."""
+        return self.neighbors < self.n_pad
+
 
 @dataclass
 class EllSlice:

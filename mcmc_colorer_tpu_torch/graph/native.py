@@ -3,8 +3,8 @@
 Counterpart of ``graph/native.py``: the edge-list importer
 (``load_edge_list``, ``mc_import``), the ER and Barabási–Albert samplers
 (``generate_er``, ``generate_ba``), the dataset writer
-(``generate_dataset``) and the hash-graph enumerator
-(``generate_er_hash``).  The library ``native/build/libmcgraph.so`` is
+(``generate_dataset``), the hash-graph enumerator (``generate_er_hash``)
+and the compiled sequential chain (``run_mcmc_seq``).  The library ``native/build/libmcgraph.so`` is
 git-ignored, so it is built with ``make -C native`` at first use; a
 failed build raises (the port has no silent Python fallback; the pure
 Python importer ``graph/io.py:load_edge_list_py`` is the test oracle).
@@ -45,6 +45,16 @@ _SIGNATURES = {
     "mc_name": (ctypes.c_char_p, [ctypes.c_void_p, ctypes.c_int64]),
     "mc_error": (ctypes.c_char_p, [ctypes.c_void_p]),
     "mc_free": (None, [ctypes.c_void_p]),
+    "mc_from_csr": (
+        ctypes.c_void_p,
+        [ctypes.c_int64, np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+         np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")],
+    ),
+    "mc_mcmc_seq": (
+        ctypes.c_int64,
+        [ctypes.c_void_p, ctypes.c_int32, ctypes.c_double, ctypes.c_int32, ctypes.c_int32,
+         ctypes.c_int64, ctypes.c_uint64, np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")],
+    ),
 }
 
 
@@ -73,6 +83,17 @@ def _load() -> ctypes.CDLL:
             fn.restype, fn.argtypes = restype, argtypes
         _lib = lib
         return lib
+
+
+def available() -> bool:
+    """True when the library builds and loads, False when its build
+    raises.  For tests that skip without it; no entry point picks another
+    path by it."""
+    try:
+        _load()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def _take_graph(lib, h, name: str, with_names: bool = False,
@@ -138,3 +159,31 @@ def generate_dataset(path: str, n: int, p: float, seed: int = 10000,
     if m < 0:
         raise OSError(f"cannot write {path}")
     return int(m)
+
+
+def run_mcmc_seq(
+    graph: Graph,
+    n_colors: int,
+    epsilon: float = 1e-8,
+    taboo_iterations: int = 0,
+    max_iterations: int = 250,
+    z: int = 0,
+    seed: int = 0,
+) -> tuple[np.ndarray, int]:
+    """The compiled sequential MCMC chain (``native/importer.cpp:mc_mcmc_seq``
+    over ``mc_from_csr``): the C++ baseline at the reference CPU's speed.
+    Returns (colours int32 [n], iterations)."""
+    rp = np.ascontiguousarray(graph.row_ptr, dtype=np.int64)
+    cols = np.ascontiguousarray(graph.cols, dtype=np.int32)
+    if rp.shape != (graph.n + 1,) or cols.shape[0] < rp[-1]:
+        raise ValueError(f"not a CSR of {graph.n} vertices: row_ptr {rp.shape}, cols "
+                         f"{cols.shape}")
+    lib = _load()
+    h = lib.mc_from_csr(graph.n, rp, cols)
+    try:
+        out = np.empty(graph.n, dtype=np.int32)
+        iters = lib.mc_mcmc_seq(h, n_colors, float(epsilon), taboo_iterations, max_iterations,
+                                z, seed, out)
+    finally:
+        lib.mc_free(h)
+    return out, int(iters)

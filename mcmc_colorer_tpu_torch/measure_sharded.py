@@ -39,11 +39,9 @@ CALLS = 20
 
 
 def _graph():
-    from mcmc_colorer_tpu_torch.graph.native import generate_er_hash
-    from mcmc_colorer_tpu_torch.ops.hashgen import er_threshold
+    from mcmc_colorer_tpu_torch.ops.hashgen import hash_er_graph
 
-    n, p, graph_seed = GRAPH
-    return generate_er_hash(n, er_threshold(p), graph_seed)
+    return hash_er_graph(*GRAPH)
 
 
 def profile_runs() -> dict:

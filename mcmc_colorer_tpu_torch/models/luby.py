@@ -62,7 +62,7 @@ from mcmc_colorer_tpu_torch.ops.dense_adj import (
 from mcmc_colorer_tpu_torch.ops.hashgen import (
     degrees_from_packed,
     er_packed_on_device_cached,
-    er_threshold,
+    hash_er_graph,
 )
 from mcmc_colorer_tpu_torch.ops.neighbor import frontier_ids, scatter_drop, take_rows
 from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource
@@ -167,10 +167,8 @@ class LubyColorer:
         C++ enumeration), for validation."""
         if not hasattr(self, "resident_spec"):
             raise ValueError("host_graph() is for resident_spec colorers")
-        from mcmc_colorer_tpu_torch.graph.native import generate_er_hash
-
         n, p, seed = self.resident_spec
-        return generate_er_hash(n, er_threshold(p), seed & 0xFFFFFFFF, name=self.graph.name)
+        return hash_er_graph(n, p, seed, name=self.graph.name)
 
     def _run_active(self, source):
         """Host-driven frontier loop: (colours, colours used, rounds)."""

@@ -69,7 +69,7 @@ from mcmc_colorer_tpu_torch.ops.dense_adj import (
 from mcmc_colorer_tpu_torch.ops.hashgen import (
     degrees_from_packed,
     er_packed_on_device_cached,
-    er_threshold,
+    hash_er_graph,
 )
 from mcmc_colorer_tpu_torch.utils.rng import ChainSources, TorchUniformSource
 
@@ -273,12 +273,7 @@ class ResidentMCMCColorer:
     def host_graph(self):
         """Host CSR of the same graph (threaded C++ hash enumeration), for
         validation; not needed to run."""
-        from mcmc_colorer_tpu_torch.graph.native import generate_er_hash
-
-        return generate_er_hash(
-            self.n, er_threshold(self.p), self.graph_seed & 0xFFFFFFFF,
-            name=self.name,
-        )
+        return hash_er_graph(self.n, self.p, self.graph_seed, name=self.name)
 
     # ---- checkpoints: the chain state, never the graph (JAX :348-402) ----
 
@@ -527,7 +522,7 @@ class ResidentMCMCColorer:
         ``run``'s, with a leading chain axis.  The tailcut threads no NC
         between rounds (JAX :728-735).  ``sources`` (tests) replaces the
         chains' sources (``utils/rng.ChainSources``)."""
-        from mcmc_colorer_tpu_torch.parallel.chains import best_of_chains
+        from mcmc_colorer_tpu_torch.parallel.chains import class_stds, pick_best
 
         params, n = self.params, self.n
         sources = sources or ChainSources.seeded(seed, repetition, self.n_chains, self.device)
@@ -535,7 +530,7 @@ class ResidentMCMCColorer:
             sources, checkpoint_path, resume_from, trace=False, thread_nc=False)
         out = colors[:, :n].cpu().numpy()
         rips = state.rip
-        best, summaries = best_of_chains(out, conflicts, rips, params.n_colors)
+        best, summaries = pick_best(class_stds(out, params.n_colors), conflicts, rips)
         return Coloring(
             colors=out[best],
             n_colors=params.n_colors,

@@ -224,3 +224,17 @@ def degrees_from_packed(adj: torch.Tensor, row_chunk: int = 8192) -> torch.Tenso
         blk = adj[r0:r0 + row_chunk]
         out[r0:r0 + blk.shape[0]] = popcount32(blk).sum(1, dtype=torch.int32)
     return out
+
+
+def hash_er_graph(n: int, p: float, seed: int, name: str | None = None):
+    """Host CSR of the same hash graph from the threaded C++ enumerator
+    (JAX ``hash_er_graph``), certified simple: the enumerator emits each
+    pair (i < j) once, so ``get_adjacency`` and the strips skip their
+    completeness checks.  Unlike JAX there is no numpy fallback: a failed
+    native build raises (``graph/native.py``); ``hash_edges_reference``
+    stays the tests' oracle.  O(n²) hashes on the host."""
+    from mcmc_colorer_tpu_torch.graph.native import generate_er_hash
+
+    g = generate_er_hash(n, er_threshold(p), seed & 0xFFFFFFFF, name=name or f"er_hash_{n}_{p}")
+    g.simple_certified = True
+    return g

@@ -118,7 +118,7 @@ from mcmc_colorer_tpu_torch.ops.hashgen import (
     er_degrees_on_device,
     er_packed_on_device_cached,
     er_packed_strips_on_device,
-    er_threshold,
+    hash_er_graph,
 )
 from mcmc_colorer_tpu_torch.ops.neighbor import (
     color_histogram,
@@ -363,10 +363,8 @@ class ShardedMCMCColorer:
         C++ enumeration), for validation (``--check``)."""
         if self.resident_spec is None:
             raise ValueError("host_graph() is for resident_spec colorers")
-        from mcmc_colorer_tpu_torch.graph.native import generate_er_hash
-
         n, p, seed = self.resident_spec
-        return generate_er_hash(n, er_threshold(p), seed & 0xFFFFFFFF, name=self.graph.name)
+        return hash_er_graph(n, p, seed, name=self.graph.name)
 
     def _build_packed_strips(self) -> torch.Tensor:
         """This rank's [n_loc, words] strip of the host graph's packed A

@@ -128,11 +128,14 @@ class ChainSources:
         self.device = torch.device(device)
 
     @classmethod
-    def seeded(cls, seed: int, repetition: int, n_chains: int, device) -> "ChainSources":
-        """Chain c's source is ``TorchUniformSource(seed, repetition,
-        device, chain=c)``, whatever ``n_chains``."""
+    def seeded(cls, seed: int, repetition: int, n_chains: int, device,
+               first: int = 0) -> "ChainSources":
+        """The sources of chains ``first .. first + n_chains - 1``: chain
+        c's is ``TorchUniformSource(seed, repetition, device, chain=c)``,
+        whatever ``n_chains`` and ``first`` (a mesh's chain group runs its
+        share of the chains)."""
         return cls([TorchUniformSource(seed, repetition, device, chain=c)
-                    for c in range(n_chains)], device)
+                    for c in range(first, first + n_chains)], device)
 
     def __len__(self) -> int:
         return len(self.sources)
