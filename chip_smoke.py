@@ -120,7 +120,17 @@ the card by default:
   checks) and two ``validate_matrix`` cells (checks and the variants'
   separation), their K2 and K3 launches held; phase 38
   ``EnsembleMCMCColorer(mesh=)`` over two gloo ranks on the one card at
-  (2, 1), each rank equal to phase 23's one-rank 8-chain ensemble.
+  (2, 1), each rank equal to phase 23's one-rank 8-chain ensemble;
+- slice 12, the offline analysis: phase 39 the CLI, in this process,
+  writes logs of the host chain, the device chain and Luby at ER(2k and
+  4k, 0.005), twice each, and of the device chain at ER(20k, 0.005) with
+  three palettes; ``mcmc_colorer_tpu_torch.analysis`` reads them with no
+  jax module loaded and every record is checked (histogram against its
+  colour file, balance index against the log's), the speedups at both
+  sizes (printed beside the card's name and power limit), the var-col
+  surface's three cells, the JSON round trip, and the plots, drawn or
+  skipped where matplotlib is missing; the batch's K2 and K3 launches
+  held against the plain versions.
 
 The CLI phases (15, 25, 31 and 35) run last, as four concurrent lanes of
 subprocesses (``phase_clis``), each lane's calls in order.
@@ -3437,6 +3447,118 @@ def phase_mesh_ensemble(device, g, ref, seed=5, deadline_s=300.0):
     return wall
 
 
+# slice 12: the offline analysis of logs the port's CLI has just written on
+# the card: the host chain, the device chain and Luby at two sizes, and the
+# device chain at three palettes (the var-col surface's cells)
+ANALYSIS_P = 0.005
+ANALYSIS_SIZES = (2_000, 4_000)
+ANALYSIS_RATIO_N, ANALYSIS_RATIOS = 20_000, (1.0, 2.0, 4.0)
+
+
+def _jax_modules() -> list[str]:
+    return sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                  or m == "mcmc_colorer_tpu" or m.startswith("mcmc_colorer_tpu."))
+
+
+def phase_analysis(smi):
+    """Slice 12, phase 39: the port's CLI, in this process, writes a batch
+    of logs (``--simulate 0.005 --mcmccpu --mcmcgpu --lubygpu --tailcut
+    --check --repet 2 --seed 5`` at n = 2,000 and 4,000; ``--mcmcgpu`` at
+    ER(20k, 0.005) with ``-r`` 1, 2 and 4), which
+    ``mcmc_colorer_tpu_torch.analysis`` then reads with neither jax nor the
+    JAX package loaded: the tags and records a size, each histogram
+    against its colour file and the log's BalancingIndex, both speedup
+    kinds at both sizes, the var-col surface's three cells, the runs at
+    their cap, the JSON round trip, and the plots (drawn, or skipped where
+    matplotlib is missing: the reference's contract).  The speedups are
+    printed beside the card's name and power limit ``smi``.  The batch's K2
+    and K3 launches are recorded by shape (``_LaunchShapes``) and held
+    against the plain versions.  Returns ``_LaunchShapes.check``'s tuple."""
+    import numpy as np
+
+    from mcmc_colorer_tpu_torch import analysis
+    from mcmc_colorer_tpu_torch.analysis import log_parser
+    from mcmc_colorer_tpu_torch.cli import main as cli_main
+    from mcmc_colorer_tpu_torch.ops import firstfit as k3
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+
+    ls = _LaunchShapes()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        base = ["--simulate", str(ANALYSIS_P), "--tailcut", "--check", "--seed", "5", "--quiet",
+                "--outDir", td]
+        calls = [(f"n={n}", ["-n", str(n), "--mcmccpu", "--mcmcgpu", "--lubygpu", "--repet", "2"])
+                 for n in ANALYSIS_SIZES]
+        calls += [(f"n={ANALYSIS_RATIO_N} r={r}",
+                   ["-n", str(ANALYSIS_RATIO_N), "-r", str(r), "--mcmcgpu"])
+                  for r in ANALYSIS_RATIOS]
+        k2.launches = k3.launches = 0
+        with ls:
+            for tag, args in calls:
+                ls.tag = f"analysis batch {tag}"
+                rc = cli_main(base + args)
+                _require(rc == 0, f"phase 39: the CLI {' '.join(args)} returned {rc}")
+        l2, l3 = k2.launches, k3.launches
+        write_s = time.perf_counter() - t0
+        _require(l2 > 0 and l3 > 0, f"phase 39: the batch launched K2 {l2}, K3 {l3} times")
+        t1 = time.perf_counter()
+        res = analysis.parse_results_dir(td)
+        _require(not _jax_modules(), f"phase 39: the analysis loaded {_jax_modules()}")
+        _require(set(res) == {"MCMC_CPU", "MCMC_GPU", "LUBY"}, f"phase 39: tags {sorted(res)}")
+        want = {(t, n): 2 for t in res for n in ANALYSIS_SIZES}
+        want[("MCMC_GPU", ANALYSIS_RATIO_N)] = len(ANALYSIS_RATIOS)
+        got = {}
+        for tag, runs in res.items():
+            for r in runs:
+                got[(tag, r["nodes"])] = got.get((tag, r["nodes"]), 0) + 1
+                hist = r["histogram"]
+                colors = np.loadtxt(r["path"][:-4] + "-colors.txt", dtype=np.int64)[:, 1]
+                _require(sum(hist) == r["nodes"] == len(colors)
+                         and np.bincount(colors, minlength=len(hist)).tolist() == hist,
+                         f"phase 39: {r['path']}: histogram against its colour file")
+                bi = analysis.balance_index(hist, r["nodes"], r["prob"], r["n_colors"])
+                _require(abs(bi - r["balancing_index"]) <= 1e-9,
+                         f"phase 39: {r['path']}: balance index {bi} against the log's "
+                         f"{r['balancing_index']}")
+        _require(got == want, f"phase 39: records by (tag, n) {got}, expected {want}")
+        sp, psp = analysis.speedups(res), analysis.per_iteration_speedups(res)
+        for kind, table in (("speedups", sp), ("per-iteration speedups", psp)):
+            for pair in ("MCMC_CPU/MCMC_GPU", "LUBY/MCMC_GPU"):
+                row = table.get(pair, {})
+                _require(sorted(row) == list(ANALYSIS_SIZES)
+                         and all(np.isfinite(v) and v > 0 for v in row.values()),
+                         f"phase 39: {kind} {pair} {row}")
+                print(f"phase 39 {kind} {pair}: " + ", ".join(
+                    f"n={n} {row[n]!r}" for n in ANALYSIS_SIZES) + f" ({smi})")
+        surface = log_parser.var_col_surface(res)
+        _require(sorted(surface) == [(r, ANALYSIS_P) for r in ANALYSIS_RATIOS],
+                 f"phase 39: var-col surface cells {sorted(surface)}")
+        print("phase 39 var-col surface (MCMC_GPU, mean balance index by ratio, p): "
+              + ", ".join(f"{k} {v!r}" for k, v in sorted(surface.items())))
+        print("phase 39 runs at their iteration cap: " + ", ".join(
+            f"{t} {analysis.count_non_convergent(runs)} of {len(runs)}"
+            for t, runs in sorted(res.items())))
+        out = os.path.join(td, "results.json")
+        saved = log_parser.save_results_json(td, out)
+        with open(out) as f:
+            _require(json.load(f) == saved == res, "phase 39: the JSON round trip differs")
+        drawn = {
+            "speedup": log_parser.plot_speedup(res, os.path.join(td, "speedup.png")),
+            "speedup per iteration": log_parser.plot_speedup(
+                res, os.path.join(td, "speedup_iter.png"), per_iteration=True),
+            "var-col 3d": log_parser.plot_var_col_3d(res, os.path.join(td, "varcol.png")),
+            "balance index": log_parser.plot_balance_index(
+                res, os.path.join(td, "bi.png"), prob=ANALYSIS_P),
+        }
+        print("phase 39 plots: " + ", ".join(
+            f"{k} {'drawn' if v else 'skipped (no matplotlib)'}" for k, v in drawn.items()))
+        _require(not _jax_modules(), f"phase 39: the plots loaded {_jax_modules()}")
+        analyse_s = time.perf_counter() - t1
+    print(f"phase 39 the batch ({len(calls)} CLI calls, K2 launches {l2}, K3 {l3}) "
+          f"{write_s:.3f} s; its analysis {analyse_s:.3f} s; no jax module loaded")
+    return ls.check(39, plain_runs=3)
+
+
 def main() -> int:
     import torch
 
@@ -3561,6 +3683,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_s = phase_mesh_ensemble(device, g_bench, ens["reference"])
     slice11_s = time.perf_counter() - t_slice11
+    torch.cuda.empty_cache()
+    t_slice12 = time.perf_counter()
+    an_k2, an_k3, f2, e2, e3 = phase_analysis(smi)
+    frac2, err2, err3 = max(frac2, f2), max(err2, e2), max(err3, e3)
+    slice12_s = time.perf_counter() - t_slice12
     t_cli = time.perf_counter()
     cli15_s, cli25_s, cli31_s, cli35_s = phase_clis()
     print(f"phases 15, 25, 31, 35 (the CLI lanes, concurrent) {time.perf_counter() - t_cli:.3f} "
@@ -3568,7 +3695,8 @@ def main() -> int:
           f"{cli35_s:.3f} s; phases 16-19 (slice 6) {slice6_s:.3f} s; phases 20-21 (slice 7) "
           f"{slice7_s:.3f} s; phases 22-24 (slice 8) {slice8_s:.3f} s; phases 26-30 (slice 9) "
           f"{slice9_s:.3f} s; phases 32-34 (slice 10) {slice10_s:.3f} s; phases 36-38 (slice 11) "
-          f"{slice11_s:.3f} s, of which phase 38's gloo spawn {mesh_s:.3f} s")
+          f"{slice11_s:.3f} s, of which phase 38's gloo spawn {mesh_s:.3f} s; phase 39 (slice 12) "
+          f"{slice12_s:.3f} s")
 
     # no single PyTorch call computes what K1, K2 or K3 compute from their
     # inputs (PERF.md): library_ms is null
@@ -3623,12 +3751,13 @@ def main() -> int:
     # slice 9: the sharded ensemble's K2 at its call sites (phases 26 and
     # 27): the full sweep with a chain axis, the frontier's rows
     # slice 11: config 5's 64 chains (phase 36) and the validation
-    # scripts' one-chain runs (phase 37)
+    # scripts' one-chain runs (phase 37); slice 12: the analysis batch's
+    # device chains (phase 39)
     for row in ([{**k2_config3, "launches": launches2 + fr3_full},
                  {**k2_bench, "launches": l2_bench + hast_k2}] + k2_fr3 + res["k2_rows"]
                 + k2_b4 + k2_b1m + k2_st + ens["K2"] + res_ens["K2"]
                 + sh_chain["K2"] + sh_k2 + sh3_chain["K2"] + sh3_k2 + st_k2
-                + base_rows["K2"] + val_k2):
+                + base_rows["K2"] + val_k2 + an_k2):
         b_ms, b_by = _bound(row["bytes"], row["ops"], FP32_OPS_PER_S)
         k2_rows.append({**row, "bound_ms": b_ms, "bound_by": b_by,
                         "bound_share": b_ms / row["ms"]})
@@ -3641,7 +3770,7 @@ def main() -> int:
                   "ms": k3_ms, "plain_ms": p3_ms, "bytes": k3_bytes, "ops": k3_slots}]
                 + k3_b4 + k3_b1m + k3_st + ens["K3"] + res_ens["K3"]
                 + sh_chain["K3"] + sh_k3 + sh3_chain["K3"] + sh3_k3 + mm_k3
-                + val_k3):  # slice 11: the matrix cells' tailcuts (phase 37)
+                + val_k3 + an_k3):  # the matrix cells' (37) and the batch's (39) tailcuts
         b_ms, b_by = _bound(row["bytes"], row["ops"], INT32_OPS_PER_S)
         k3_rows.append({**row, "bound_ms": b_ms, "bound_by": b_by,
                         "bound_share": b_ms / row["ms"]})

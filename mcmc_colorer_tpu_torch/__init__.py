@@ -31,7 +31,8 @@ What is there:
   chains and vertex shards over ``parallel.mesh`` on
   ``torch.distributed``);
 - the command line (``cli``), the baseline and validation scripts
-  (``scripts``), and the card's measurements (``measure_*``).
+  (``scripts``), the offline analysis of run logs (``analysis``), and the
+  card's measurements (``measure_*``).
 
 Entry points::
 

@@ -2,8 +2,9 @@
 with the header naming the GPU framework).
 
 Keeps the reference's log field names verbatim so the offline analysis
-pipeline (pyScripts/logParser.py and this package's
-:mod:`mcmc_colorer_tpu.analysis.log_parser`) parses both implementations'
+pipeline (pyScripts/logParser.py, this package's
+:mod:`mcmc_colorer_tpu_torch.analysis.log_parser` and the JAX package's
+``mcmc_colorer_tpu.analysis.log_parser``) parses both implementations'
 logs interchangeably (SURVEY §6 observability: "Nodes:", "Execution time:",
 "Iteration performed:", "Max iteration reached:", "Color histogram:",
 "Number of colors:", "Used colors:", "Average number of nodes for each
