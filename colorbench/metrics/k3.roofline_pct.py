@@ -1,0 +1,11 @@
+"""K3's share of its roofline over the window: the least time its
+launches' inputs need (``roofline/k3.py``, each launch recorded by the
+benchmark's own wrapper) over its device time in the profiler's trace."""
+
+from colorbench.metrics_common import roofline_pct
+
+SOURCE, UNIT, LAYER, MOVES = "device_trace", "%", "kernel K3 (csrc/first_fit.cu)", "colorings_per_s.ell"
+
+
+def read(run):
+    return roofline_pct(run, "k3")
