@@ -328,11 +328,9 @@ def _colorer(label: str, make, top: int = 10) -> dict:
     device, rounds = [], {}
     for e in prof.key_averages():
         on_card = str(e.device_type).endswith("CUDA")
-        if ROUND_TAG in e.key:
-            # a range's row on the card repeats the time of its kernels
-            if not on_card:
-                ms = e.cpu_time_total / 1e3
-                rounds[e.key] = {"rounds": e.count, "ms": ms, "ms_a_round": ms / e.count}
+        if ROUND_TAG in e.key:  # a host range only: spans leave no row on the card
+            ms = e.cpu_time_total / 1e3
+            rounds[e.key] = {"rounds": e.count, "ms": ms, "ms_a_round": ms / e.count}
         elif on_card:
             device.append(e)
     device.sort(key=_device_us, reverse=True)

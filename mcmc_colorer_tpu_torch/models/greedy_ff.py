@@ -47,6 +47,7 @@ from mcmc_colorer_tpu_torch.ops.neighbor import (
     scatter_drop,
     take_rows,
 )
+from mcmc_colorer_tpu_torch.utils.spans import span
 
 
 class GreedyFFColorer:
@@ -118,14 +119,16 @@ class GreedyFFColorer:
         algorithm is deterministic; they keep the colorer interface)."""
         _sync(self.device)
         t0 = time.perf_counter()
-        if self.active:
-            colors, rounds = self._run_active()
-        else:
-            colors, rounds, _ = _gff_segment(
-                self.ell, _gff_init(self.ell), 2**30,
-                max_colors=self.max_colors, block=self.block, backend=self.backend,
-            )
-        colors = colors_in_input_order(colors, self.graph.n, self._perm, self._pos)
+        with span("mc.run.greedy_ff"):
+            if self.active:
+                colors, rounds = self._run_active()
+            else:
+                colors, rounds, _ = _gff_segment(
+                    self.ell, _gff_init(self.ell), 2**30,
+                    max_colors=self.max_colors, block=self.block, backend=self.backend,
+                )
+            with span("mc.readback"):
+                colors = colors_in_input_order(colors, self.graph.n, self._perm, self._pos)
         dur = (time.perf_counter() - t0) * 1e3
         return Coloring(
             colors=colors,
@@ -200,13 +203,16 @@ def _gff_init(ell):
 
 def _gff_segment(ell, carry, budget: int, *, max_colors: int,
                  block: int, backend: str = "pallas"):
-    """At most ``budget`` speculative rounds."""
+    """At most ``budget`` speculative rounds, each in the span
+    ``mc.greedy.round`` with its host read in ``mc.greedy.read``."""
     colors, rounds, done = carry
     limit = rounds + budget
     while not done and rounds < limit:
-        tentative = _first_fit_pass(ell, colors, max_colors, block, backend)
-        losers = _conflict_losers(ell, tentative)
-        colors = torch.where(losers, -1, tentative)
-        rounds += 1
-        done = not bool(((colors < 0) & ell.node_mask).any())  # host read
+        with span("mc.greedy.round"):
+            tentative = _first_fit_pass(ell, colors, max_colors, block, backend)
+            losers = _conflict_losers(ell, tentative)
+            colors = torch.where(losers, -1, tentative)
+            rounds += 1
+            with span("mc.greedy.read"):
+                done = not bool(((colors < 0) & ell.node_mask).any())  # host read
     return colors, rounds, done

@@ -91,6 +91,7 @@ from mcmc_colorer_tpu_torch.ops.neighbor import (
     occupancy_matrix,
 )
 from mcmc_colorer_tpu_torch.utils.rng import ChainSources, TorchUniformSource
+from mcmc_colorer_tpu_torch.utils.spans import span
 
 
 def choose_block_size(n: int, n_colors: int) -> int:
@@ -328,12 +329,15 @@ def _sweep_matmul(
     n_pad = colors.shape[1]
     dev = colors.device
     real = torch.arange(n_pad, device=dev) < n_nodes
-    nc = neighbor_color_counts(adj, colors, params.n_colors, real)
+    with span("mc.sweep.nc"):
+        nc = neighbor_color_counts(adj, colors, params.n_colors, real)
     # a fill on the card, not a copy of a host scalar (which waits for the stream)
     eps = torch.full((), params.epsilon, dtype=torch.float32, device=dev)
     # conflict edges touch each endpoint once: Σ_i NC[i, c_i] = 2 E_conf
     conf2 = _at_color(nc, colors).sum(1)
-    star, new_taboo, logq = _propose_nc(nc, colors, taboo, unif, real, p_eff, eps, params, block)
+    with span("mc.sweep.propose"):
+        star, new_taboo, logq = _propose_nc(nc, colors, taboo, unif, real, p_eff, eps, params,
+                                            block)
     return star, new_taboo, logq, conf2 // 2, nc
 
 
@@ -641,18 +645,23 @@ def _chain_body(graph, st: ChainState, running: np.ndarray, *, params: MCMCParam
     ``_sweep_pallas_fused`` (``graph`` an ``EllGraph`` or a
     ``BucketedEll``).  Hastings runs only on the packed chain:
     ``MCMCColorer`` sends Hastings on the ELL through the generic loop, as
-    JAX does.  One host read: the conflict counts."""
+    JAX does.  One host read: the conflict counts.  Its steps run in the
+    spans ``mc.body.draw``, ``.p_eff``, ``.sweep`` and ``.read``."""
     c, n_pad = st.colors.shape
     dev = st.colors.device
-    unif = sources.next(n_pad, running)
-    u_acc = sources.next(1, running) if params.hastings else None
-    real = (torch.arange(n_pad, device=dev) < n_nodes if sweep is _sweep_matmul
-            else graph.node_mask)
-    p_eff = _p_eff(st.colors, params, n_nodes, real)
-    star, new_taboo, logq_star, conf_t = sweep(
-        graph, params, block, st.colors, st.taboo, unif, p_eff, n_nodes
-    )[:4]
-    conf = conf_t.tolist()  # host read: the do-while's exit tests
+    with span("mc.body.draw"):
+        unif = sources.next(n_pad, running)
+        u_acc = sources.next(1, running) if params.hastings else None
+    with span("mc.body.p_eff"):
+        real = (torch.arange(n_pad, device=dev) < n_nodes if sweep is _sweep_matmul
+                else graph.node_mask)
+        p_eff = _p_eff(st.colors, params, n_nodes, real)
+    with span("mc.body.sweep"):
+        star, new_taboo, logq_star, conf_t = sweep(
+            graph, params, block, st.colors, st.taboo, unif, p_eff, n_nodes
+        )[:4]
+    with span("mc.body.read"):
+        conf = conf_t.tolist()  # host read: the do-while's exit tests
     z = params.tailcut_threshold(n_nodes)
     # a Python loop over the chains: cheaper on the host than numpy's
     # array operations at the few chains an ensemble has
@@ -744,13 +753,15 @@ def _chain_segment(graph, st: ChainState, budget: int, *, params: MCMCParams,
     chain at most ``budget`` more iterations, never past ``cap`` (by
     default the iteration cap; JAX's ``limit = rip + budget``).  Every
     running chain advances one iteration a body or finishes, so a segment
-    runs ``budget`` bodies unless every chain finishes first."""
+    runs ``budget`` bodies unless every chain finishes first.  Each body
+    runs in the span ``mc.body``."""
     limit = np.minimum(st.rip + budget, params.max_iterations if cap is None else cap)
     while True:
         running = _running(st, limit, params=params, n_nodes=n_nodes, fused=fused)
         if not running.any():
             return st
-        st = body(graph, st, running)
+        with span("mc.body"):
+            st = body(graph, st, running)
 
 
 def _chain_final_conflicts(ell, st: ChainState) -> np.ndarray:
@@ -870,7 +881,8 @@ def _tailcut_body(ell, tc: TailcutState, running: np.ndarray, sources, *,
     stalled = (conf > 0) & ~active.any(1)
     rnd = sources.randint(n_pad, n_colors, running=running)
     new_r = torch.where(active, cand, torch.where(stalled[:, None] & flags, rnd, cols_r))
-    conf_h = conf.cpu().numpy()  # host read: the loop's exit tests
+    with span("mc.tailcut.read"):
+        conf_h = conf.cpu().numpy()  # host read: the loop's exit tests
     return TailcutState(_select(running, new_r, cols_r), np.where(running, conf_h, tc.conflicts),
                         tc.rounds + running, tc.done | (running & (conf_h == 0)))
 
@@ -883,20 +895,23 @@ def _tailcut(ell, colors: torch.Tensor, conflicts, sources, *, params: MCMCParam
     """The flat or bucketed tailcut of C chains (JAX's ``_tailcut_init`` /
     ``_tailcut_segment`` / ``_tailcut_finish``, vmapped for an ensemble),
     every chain until it is done or at the round cap.  Returns (colours
-    [C, n_pad], conflicts [C], rounds [C])."""
-    c = colors.shape[0]
-    pairs = [_tailcut_init(ell, colors[k], params=params) for k in range(c)]
-    tc = TailcutState(torch.stack([p[0] for p in pairs]), np.asarray(conflicts).copy(),
-                      np.zeros(c, np.int64), np.zeros(c, bool))
-    cap = _tailcut_max_rounds(ell)
-    while True:
-        running = ~tc.done & (tc.rounds < cap)
-        if not running.any():
-            break
-        tc = _tailcut_body(ell, tc, running, sources, params=params)
-    out = torch.stack([_tailcut_finish(ell, tc.colors_r[k], pairs[k][1], params=params)
-                       for k in range(c)])
-    return out, tc.conflicts, tc.rounds
+    [C, n_pad], conflicts [C], rounds [C]).  Spans: ``mc.tailcut``, one
+    ``mc.tailcut.round`` a round."""
+    with span("mc.tailcut"):
+        c = colors.shape[0]
+        pairs = [_tailcut_init(ell, colors[k], params=params) for k in range(c)]
+        tc = TailcutState(torch.stack([p[0] for p in pairs]), np.asarray(conflicts).copy(),
+                          np.zeros(c, np.int64), np.zeros(c, bool))
+        cap = _tailcut_max_rounds(ell)
+        while True:
+            running = ~tc.done & (tc.rounds < cap)
+            if not running.any():
+                break
+            with span("mc.tailcut.round"):
+                tc = _tailcut_body(ell, tc, running, sources, params=params)
+        out = torch.stack([_tailcut_finish(ell, tc.colors_r[k], pairs[k][1], params=params)
+                           for k in range(c)])
+        return out, tc.conflicts, tc.rounds
 
 
 # ------------------------------ colorer ------------------------------
@@ -996,11 +1011,24 @@ class MCMCColorer:
         after each.  Returns (carry, colours [C, n_pad] in the layout's
         order, conflicts [C], tailcut rounds [C], chain seconds, start
         time)."""
-        from mcmc_colorer_tpu_torch.utils.segmented import drive_segments
-
         params, ell, dev = self.params, self.ell, self.device
         _sync(dev)
         t0 = time.perf_counter()
+        with span("mc.chain"):
+            state, conflicts = self._chain(sources, on_segment)
+            _sync(dev)
+        chain_s = time.perf_counter() - t0
+        colors, rounds = state.colors, np.zeros(len(sources), np.int64)
+        if params.tailcut:
+            colors, conflicts, rounds = _tailcut(ell, colors, conflicts, sources, params=params)
+        return state, colors, conflicts, rounds, chain_s, t0
+
+    def _chain(self, sources, on_segment):
+        """``run_chains``' chain: (carry, conflicts [C] of its final
+        colourings)."""
+        from mcmc_colorer_tpu_torch.utils.segmented import drive_segments
+
+        params, ell, dev = self.params, self.ell, self.device
         kw = dict(params=params, block=self.block, sources=sources)
         fused = self._adj is not None or self._fused
         if fused:
@@ -1023,12 +1051,7 @@ class MCMCColorer:
             on_segment=on_segment,
         )
         conflicts = _chain_final_conflicts(ell, state) if fused else state.conf_last.copy()
-        _sync(dev)
-        chain_s = time.perf_counter() - t0
-        colors, rounds = state.colors, np.zeros(len(sources), np.int64)
-        if params.tailcut:
-            colors, conflicts, rounds = _tailcut(ell, colors, conflicts, sources, params=params)
-        return state, colors, conflicts, rounds, chain_s, t0
+        return state, conflicts
 
     def run(self, seed: int, repetition: int = 0, source=None) -> Coloring:
         """Colour the graph: ``run_chains`` with one chain.  Under TRACE
@@ -1041,8 +1064,6 @@ class MCMCColorer:
         from mcmc_colorer_tpu_torch.utils import term
 
         params, ell = self.params, self.ell
-        sources = ChainSources(
-            [source or TorchUniformSource(seed, repetition, self.device)], self.device)
         fc_segments: list = []
 
         def on_segment(st, *_):
@@ -1050,10 +1071,14 @@ class MCMCColorer:
             trace_free_colors(fc_segments[-1])
 
         trace_free = term.trace_enabled() and isinstance(ell, EllGraph)
-        state, colors, conflicts, rounds, chain_s, t0 = self.run_chains(
-            sources, on_segment if trace_free else None)
-        out = colors_in_input_order(colors[0], self.graph.n, self._perm, self._pos)
-        total_s = time.perf_counter() - t0
+        with span("mc.run.ell"):
+            sources = ChainSources(
+                [source or TorchUniformSource(seed, repetition, self.device)], self.device)
+            state, colors, conflicts, rounds, chain_s, t0 = self.run_chains(
+                sources, on_segment if trace_free else None)
+            with span("mc.readback"):
+                out = colors_in_input_order(colors[0], self.graph.n, self._perm, self._pos)
+            total_s = time.perf_counter() - t0
         rip, conflicts = int(state.rip[0]), int(conflicts[0])
         return Coloring(
             colors=out,

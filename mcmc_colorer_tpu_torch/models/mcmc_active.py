@@ -50,7 +50,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from mcmc_colorer_tpu_torch.config import MCMCParams
 from mcmc_colorer_tpu_torch.graph.container import Graph, degree_pad_for
@@ -83,6 +82,7 @@ from mcmc_colorer_tpu_torch.ops.neighbor import (
 )
 from mcmc_colorer_tpu_torch.ops.resample import resample_sweep, resample_sweep_plain
 from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource
+from mcmc_colorer_tpu_torch.utils.spans import span
 
 DEFAULT_BUCKET_FACTOR = 4
 
@@ -108,8 +108,8 @@ def pick_cap(caps: list[int], count: int) -> int:
 def round_range(loop: str, cap: int):
     """A profiler range around one frontier round, named by its loop and
     its cap (``measure_kernels.py --colorers`` groups the rounds by the
-    name); without a profiler it records nothing."""
-    return record_function(f"{loop} round cap={cap}")
+    name); without a profiler the shared no-op span (``utils/spans.py``)."""
+    return span(f"{loop} round cap={cap}")
 
 
 # ------------------------- the frontier's rows -------------------------

@@ -72,6 +72,7 @@ from mcmc_colorer_tpu_torch.ops.hashgen import (
     hash_er_graph,
 )
 from mcmc_colorer_tpu_torch.utils.rng import ChainSources, TorchUniformSource
+from mcmc_colorer_tpu_torch.utils.spans import span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -163,17 +164,20 @@ def _tailcut_nc(adj, colors, conflicts, sources, node_mask, *, n_colors: int,
     cap = 16 + 2 * conflicts
     rounds = np.zeros(len(conflicts), np.int64)
     nc = None
-    while True:
-        running = (conflicts > 0) & (rounds < cap)
-        if not running.any():
-            return colors, conflicts, rounds
-        colors, fresh, nc = _tailcut_nc_round(
-            adj, colors, sources.next(colors.shape[1], running), node_mask, nc, running,
-            n_colors=n_colors)
-        if not thread_nc:
-            nc = None
-        conflicts = np.where(running, fresh.cpu().numpy(), conflicts)
-        rounds += running
+    with span("mc.tailcut"):
+        while True:
+            running = (conflicts > 0) & (rounds < cap)
+            if not running.any():
+                return colors, conflicts, rounds
+            with span("mc.tailcut.round"):
+                colors, fresh, nc = _tailcut_nc_round(
+                    adj, colors, sources.next(colors.shape[1], running), node_mask, nc, running,
+                    n_colors=n_colors)
+                if not thread_nc:
+                    nc = None
+                with span("mc.tailcut.read"):
+                    conflicts = np.where(running, fresh.cpu().numpy(), conflicts)
+            rounds += running
 
 
 class _StatsShim:
@@ -230,11 +234,12 @@ class ResidentMCMCColorer:
             )
         self.n_pad = n_pad
         t0 = time.perf_counter()
-        self.adj = er_packed_on_device_cached(
-            n, p, graph_seed, n_pad, row_chunk, device=self.device
-        )
-        degrees = degrees_from_packed(self.adj)
-        self.max_degree = int(degrees.max())  # host read: waits for generation
+        with span("mc.hashgen"):
+            self.adj = er_packed_on_device_cached(
+                n, p, graph_seed, n_pad, row_chunk, device=self.device
+            )
+            degrees = degrees_from_packed(self.adj)
+            self.max_degree = int(degrees.max())  # host read: waits for generation
         self.gen_seconds = time.perf_counter() - t0
         self.host_degrees = degrees[:n].cpu().numpy()
         self.n_edges = int(self.host_degrees.astype(np.int64).sum() // 2)
@@ -376,15 +381,6 @@ class ResidentMCMCColorer:
         from mcmc_colorer_tpu_torch.utils.segmented import drive_segments
 
         params, dev = self.params, self.device
-        _sync(dev)
-        t0 = time.perf_counter()
-        if resume_from:
-            state, gen = self.load_checkpoint(resume_from)
-            if state.colors.shape[0] != len(sources):
-                raise AssertionError("checkpoint chain count mismatch")
-            sources.set_state(gen)
-        else:
-            state = _chain_init(self.n_pad, self.n, params, sources, dev)
         fc_segments: list = []
 
         def on_segment(st, *_):
@@ -394,15 +390,26 @@ class ResidentMCMCColorer:
             if checkpoint_path:
                 self.save_checkpoint(st, checkpoint_path, sources)
 
-        segment, progress = self._segment(sources)
-        state = drive_segments(segment, state, progress, on_segment=on_segment)
-        # a converged chain measured its final colouring in its last body;
-        # a cap exit leaves conf_last describing the pre-swap colouring
-        conflicts = state.conf_last.copy()
-        if not state.done.all():
-            fresh = conflicts_from_packed(self.adj, state.colors, params.n_colors, self.node_mask)
-            conflicts = np.where(state.done, conflicts, fresh.cpu().numpy())
         _sync(dev)
+        t0 = time.perf_counter()
+        with span("mc.chain"):
+            if resume_from:
+                state, gen = self.load_checkpoint(resume_from)
+                if state.colors.shape[0] != len(sources):
+                    raise AssertionError("checkpoint chain count mismatch")
+                sources.set_state(gen)
+            else:
+                state = _chain_init(self.n_pad, self.n, params, sources, dev)
+            segment, progress = self._segment(sources)
+            state = drive_segments(segment, state, progress, on_segment=on_segment)
+            # a converged chain measured its final colouring in its last body;
+            # a cap exit leaves conf_last describing the pre-swap colouring
+            conflicts = state.conf_last.copy()
+            if not state.done.all():
+                fresh = conflicts_from_packed(self.adj, state.colors, params.n_colors,
+                                              self.node_mask)
+                conflicts = np.where(state.done, conflicts, fresh.cpu().numpy())
+            _sync(dev)
         chain_s = time.perf_counter() - t0
         colors, rounds = state.colors, np.zeros(len(sources), np.int64)
         if params.tailcut and conflicts.max() > 0:
@@ -456,6 +463,10 @@ class ResidentMCMCColorer:
         ``extra["free_color_trace_segments"]``.  With ``n_chains > 1`` this
         is ``run_ensemble``'s best chain (its summaries in
         ``last_summaries``)."""
+        with span("mc.run.resident"):
+            return self._run(seed, repetition, checkpoint_path, resume_from, source)
+
+    def _run(self, seed, repetition, checkpoint_path, resume_from, source) -> Coloring:
         from mcmc_colorer_tpu_torch.utils import term
 
         if (checkpoint_path or resume_from) and self.active:
@@ -473,8 +484,9 @@ class ResidentMCMCColorer:
         if self.active:
             _sync(dev)
             t0 = time.perf_counter()
-            colors, rip, conflicts, trace, extra = self._run_active(source)
-            _sync(dev)
+            with span("mc.chain"):
+                colors, rip, conflicts, trace, extra = self._run_active(source)
+                _sync(dev)
             chain_s = time.perf_counter() - t0
             tc_rounds = 0
             if params.tailcut and conflicts > 0:
@@ -489,7 +501,8 @@ class ResidentMCMCColorer:
             rip, conflicts, tc_rounds = int(state.rip[0]), int(conf[0]), int(tc[0])
             colors, trace = colors[0], state.trace[0, : rip + 1]
             extra = {"sweeps": state.bodies}  # body executions
-        out = colors[: self.n].cpu().numpy()
+        with span("mc.readback"):
+            out = colors[: self.n].cpu().numpy()
         total_s = time.perf_counter() - t0
         return Coloring(
             colors=out,
@@ -528,7 +541,8 @@ class ResidentMCMCColorer:
         sources = sources or ChainSources.seeded(seed, repetition, self.n_chains, self.device)
         state, colors, conflicts, rounds, _, _, t0 = self._chains(
             sources, checkpoint_path, resume_from, trace=False, thread_nc=False)
-        out = colors[:, :n].cpu().numpy()
+        with span("mc.readback"):
+            out = colors[:, :n].cpu().numpy()
         rips = state.rip
         best, summaries = pick_best(class_stds(out, params.n_colors), conflicts, rips)
         return Coloring(
