@@ -130,7 +130,16 @@ the card by default:
   sizes (printed beside the card's name and power limit), the var-col
   surface's three cells, the JSON round trip, and the plots, drawn or
   skipped where matplotlib is missing; the batch's K2 and K3 launches
-  held against the plain versions.
+  held against the plain versions;
+- the proposal over NC, kernel K4: phase 40 holds it against its plain
+  version on NC from K1 over phase 4's ER(100k, 0.01) graph, at the
+  resident chain's palettes (nCol = max degree / 1, 2, 4, one chain) and
+  at the sharded strips' [8, 100,352, 1,152], with the same uniforms:
+  conf2 exact, the samples equal but at CDF-boundary rows, Σ log qstar
+  within 1e-4 (relative) where they agree, each shape timed beside its
+  bound; the kernels line weights the shapes by the launches of the main
+  paths that run them, phase 4's chain (one launch a sweep) and phase
+  32's hash strips.
 
 The CLI phases (15, 25, 31 and 35) run last, as four concurrent lanes of
 subprocesses (``phase_clis``), each lane's calls in order.
@@ -214,8 +223,16 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def _median_ms(fn, runs: int = TIMED_RUNS) -> float:
-    """Median CUDA-event time of ``fn`` over ``runs`` calls, after one warm-up."""
+# about a millisecond of the card's clock: longer than the host takes to
+# queue one K4 call's launches
+QUEUE_SPIN_CYCLES = 2_000_000
+
+
+def _median_ms(fn, runs: int = TIMED_RUNS, queued: bool = False) -> float:
+    """Median CUDA-event time of ``fn`` over ``runs`` calls, after one warm-up.
+    ``queued``: the stream first spins on the card (``torch.cuda._sleep``)
+    while the host queues ``fn``'s launches, so the time is the card's
+    alone, without the host's time between the events and the launches."""
     import torch
 
     fn()
@@ -223,6 +240,8 @@ def _median_ms(fn, runs: int = TIMED_RUNS) -> float:
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -358,19 +377,21 @@ def phase_hash(device, n=5000, p=0.01, seed=11):
 
 def phase_main(device, n=BENCH_N, p=BENCH_P, graph_seed=0, seed=5):
     """The main path, once, through the library surface; returns
-    (coloring, colorer, K1 launches during it)."""
+    (coloring, colorer, K1 launches during it, the host graph, K4
+    launches during it)."""
     from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
     from mcmc_colorer_tpu_torch.models.base import check_coloring
     from mcmc_colorer_tpu_torch.models.mcmc_resident import ResidentMCMCColorer
     from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+    from mcmc_colorer_tpu_torch.ops import propose_nc as k4
 
     params = MCMCParams(n_colors=0, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
-    k1.launches = 0
+    k1.launches = k4.launches = 0
     t0 = time.perf_counter()
     c = ResidentMCMCColorer(n, p, graph_seed=graph_seed, params=params, device=device)
     r = c.run(seed=seed)
     wall = time.perf_counter() - t0
-    launches = k1.launches
+    launches, launches4 = k1.launches, k4.launches
     x = r.extra
     print(
         f"phase 4 main ER({n}, {p}) n_colors={c.params.n_colors} "
@@ -380,9 +401,12 @@ def phase_main(device, n=BENCH_N, p=BENCH_P, graph_seed=0, seed=5):
         f"chain {x['chain_seconds']:.3f} s, after chain {x['tailcut_seconds']:.3f} s, "
         f"run {r.duration_ms / 1e3:.3f} s, wall {wall:.3f} s; "
         f"{x['chain_seconds'] / max(x['sweeps'], 1) * 1e3:.3f} ms/sweep; "
-        f"K1 launches {launches}"
+        f"K1 launches {launches}, K4 launches {launches4}"
     )
     _require(launches > 0, "the main path launched K1 no time")
+    _require(launches4 == x["sweeps"] > 0,
+             f"the main path launched K4 {launches4} times in {x['sweeps']} sweeps, not once "
+             f"a sweep")
     t0 = time.perf_counter()
     g = c.host_graph()
     host_s = time.perf_counter() - t0
@@ -403,7 +427,7 @@ def phase_main(device, n=BENCH_N, p=BENCH_P, graph_seed=0, seed=5):
         f"phase 4 check: host C++ re-derivation {host_s:.3f} s, "
         f"check {check_s:.3f} s: valid, 0 conflicts"
     )
-    return r, c, launches, g
+    return r, c, launches, g, launches4
 
 
 def phase_tight(device, n=20_000, p=0.01, graph_seed=3, seed=5):
@@ -438,9 +462,10 @@ def build_kernels():
 
     from mcmc_colorer_tpu_torch.ops import firstfit as k3
     from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+    from mcmc_colorer_tpu_torch.ops import propose_nc as k4
     from mcmc_colorer_tpu_torch.ops import resample as k2
 
-    mods = {"K1": k1, "K2": k2, "K3": k3}
+    mods = {"K1": k1, "K2": k2, "K3": k3, "K4": k4}
     with ThreadPoolExecutor(len(mods)) as pool:
         futs = {k: pool.submit(m.load_kernel) for k, m in mods.items()}
         return {k: (mods[k], f.result()) for k, f in futs.items()}
@@ -2629,6 +2654,7 @@ def _sharded_run(c, g, label, phase, seed, shapes=(), tag=None, need=("K2",)):
     from mcmc_colorer_tpu_torch.models.base import check_coloring
     from mcmc_colorer_tpu_torch.ops import firstfit as k3
     from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+    from mcmc_colorer_tpu_torch.ops import propose_nc as k4
     from mcmc_colorer_tpu_torch.ops import resample as k2
 
     torch.cuda.synchronize()
@@ -2636,7 +2662,7 @@ def _sharded_run(c, g, label, phase, seed, shapes=(), tag=None, need=("K2",)):
     torch.cuda.reset_peak_memory_stats()
     for rec in shapes:
         rec.tag = tag or label
-    k1.launches = k2.launches = k3.launches = 0
+    k1.launches = k2.launches = k3.launches = k4.launches = 0
     with contextlib.ExitStack() as stack:
         for rec in shapes:
             stack.enter_context(rec)
@@ -2963,11 +2989,14 @@ def phase_sharded_strips(device, g, seed=5):
     re-derivation of the same hash graph (phase 35's CLI ``--check`` runs
     the colorer's own ``host_graph()``).  Returns (K1 rows, K2 rows, the
     K2 boundary fraction and qstar error, the full run's digest, its first
-    K1 inputs, ms a sweep)."""
+    K1 inputs, ms a sweep, K4's launches in the timed runs and the shape
+    of NC they read)."""
     import torch
 
     from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
     from mcmc_colorer_tpu_torch.ops import packed_nc as k1
+    from mcmc_colorer_tpu_torch.ops import propose_nc as k4
+    from mcmc_colorer_tpu_torch.ops.dense_adj import n_col_pad_of
     from mcmc_colorer_tpu_torch.ops.hashgen import _PACKED_CACHE
     from mcmc_colorer_tpu_torch.parallel.mesh import make_mesh
     from mcmc_colorer_tpu_torch.parallel.sharded import ShardedMCMCColorer
@@ -2984,7 +3013,7 @@ def phase_sharded_strips(device, g, seed=5):
         (f"tailcut after {STRIP_TAILCUT_SWEEPS} sweeps",
          dict(max_iterations=STRIP_TAILCUT_SWEEPS), {}, ("K1",)),
     )
-    out, l1 = {}, 0
+    out, l1, l4 = {}, 0, 0
     for name, pkw, ckw, need in runs:
         t0 = time.perf_counter()
         c = ShardedMCMCColorer(None, MCMCParams(**base, **pkw), mesh, n_chains=SHARDED_CHAINS,
@@ -2998,15 +3027,19 @@ def phase_sharded_strips(device, g, seed=5):
                                           (k1s, ls), tag=f"resident strips 1x1 {name}",
                                           need=need)
         l1 += k1.launches  # this run's, counted by the wrapper
+        l4 += k4.launches
         x = best.extra
         out[name] = (best, summ)
         if name == "frontier":
             _require(x["frontier_sweeps"] > 0, "phase 32: no frontier sweep ran")
         if name.startswith("tailcut"):
             _require(x["tailcut_rounds"] > 0, "phase 32: the strip tailcut ran no round")
+    nc4 = (c.n_chains, c.n_loc, n_col_pad_of(c.params.n_colors))
     del c
     torch.cuda.empty_cache()
     _require(k1s.launches() == l1, "phase 32: K1 launches by shape do not add up")
+    _require(l4 > 0, "phase 32: the strips launched K4 no time")
+    print(f"phase 32 K4 launches in the timed runs: {l4} at NC {list(nc4)}")
     full, _ = out["full"]
     ms_full = full.extra["chain_seconds"] / max(full.iterations, 1) * 1e3
     # the full run's first launch: the initial counts of all chains
@@ -3014,7 +3047,8 @@ def phase_sharded_strips(device, g, seed=5):
     k1_rows = k1s.check(32)
     k2_rows, _, frac, qerr, _ = ls.check(32, plain_runs=3)
     torch.cuda.empty_cache()
-    return k1_rows, k2_rows, frac, qerr, _sharded_digest(out["full"]), first, ms_full
+    return (k1_rows, k2_rows, frac, qerr, _sharded_digest(out["full"]), first, ms_full,
+            (l4, nc4))
 
 
 def phase_sharded_matmul(device, g, seed=5):
@@ -3559,6 +3593,171 @@ def phase_analysis(smi):
     return ls.check(39, plain_runs=3)
 
 
+# phase 40: the resident chain's palettes (max degree / 1, 2, 4) and the
+# sharded strips' chains (phase 32)
+K4_RATIOS = (1, 2, 4)
+K4_STRIP_CHAINS = 8
+
+
+def _k4_bytes(nc, p_eff, n_colors) -> int:
+    """K4's bytes, each once: NC's palette columns (rounded up to the
+    kernel's 16-byte copies; the padding past them is not read), the [C,
+    rows] vectors in (cur, taboo, unif) and out (star, new_taboo, qstar),
+    real, p_eff and conf2."""
+    c, rows, _ = nc.shape
+    return (4 * c * rows * _round_up(n_colors, 4) + 6 * 4 * c * rows + rows
+            + (0 if p_eff is None else _nbytes(p_eff)) + 8 * c)
+
+
+def _k4_shape(k4, label, nc, cur, taboo, unif, real, p_eff, params, block):
+    """K4 against its plain version on one shape: conf2 exact, samples
+    equal but at CDF-boundary rows (at most BOUNDARY_MAX_FRACTION of the
+    real rows), new_taboo equal and Σ log qstar within 1e-4 (relative)
+    where they agree; then both timed.  A row of the kernels line's K4
+    ``shapes``, its ``launches`` those of the main paths, set by
+    ``_k4_summary``."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.models.mcmc import _proposal_q
+
+    eps = torch.full((), params.epsilon, dtype=torch.float32, device=nc.device)
+    n_colors = params.n_colors
+    star, new_taboo, qstar, conf2 = k4.propose_nc_cuda(nc, cur, taboo, unif, real, p_eff, eps,
+                                                       params)
+    torch.cuda.synchronize()
+    want = k4.propose_nc_plain(nc, cur, taboo, unif, real, p_eff, eps, params, block)
+    _require(torch.equal(conf2, want[3]), f"phase 40 K4 {label}: conf2 {conf2.tolist()} vs "
+             f"plain {want[3].tolist()}")
+    logq = torch.log(qstar.clamp(min=1e-30)).sum(1)
+    c, rows, n_col_pad = nc.shape
+    n_real = int(real.sum())
+    worst, lrel = 0, 0.0
+    for k in range(c):
+        mism = (star[k] != want[0][k]).nonzero()[:, 0]
+        worst = max(worst, mism.numel())
+        _require(mism.numel() <= BOUNDARY_MAX_FRACTION * n_real,
+                 f"phase 40 K4 {label}: samples differ at {mism.numel()} of {n_real} rows")
+        # Σ log qstar over the rows where the samples agree: a boundary
+        # row's two colours have different q
+        got_l, want_l = logq[k], want[2][k]
+        if mism.numel():
+            p_pad = None
+            if p_eff is not None:
+                p_pad = torch.zeros(n_col_pad, dtype=torch.float32, device=nc.device)
+                p_pad[:n_colors] = p_eff[k]
+            q = _proposal_q(cur[k][mism], nc[k][mism] > 0, params, p_pad, eps, n_colors)
+            cdf = torch.cumsum(q, dim=1)
+            j = want[0][k][mism].to(torch.int64)
+            u = unif[k][mism]
+            near = (u - cdf.gather(1, j[:, None])[:, 0]).abs() <= BOUNDARY_RTOL * u
+            before = cdf.gather(1, (j - 1).clamp(min=0)[:, None])[:, 0]
+            near |= (j >= 1) & ((u - before).abs() <= BOUNDARY_RTOL * u)
+            _require(bool(near.all()), f"phase 40 K4 {label}: differs off a CDF boundary")
+            got_l = got_l - torch.log(qstar[k][mism].clamp(min=1e-30)).sum()
+            want_l = want_l - torch.log(q.gather(1, j[:, None])[:, 0].clamp(min=1e-30)).sum()
+        lrel = max(lrel, float((got_l - want_l).abs() / want_l.abs().clamp(min=1e-30)))
+        _require(lrel <= 1e-4, f"phase 40 K4 {label}: log qstar off by {lrel:.3g} (relative)")
+        keep = star[k] == want[0][k]
+        _require(torch.equal(new_taboo[k][keep], want[1][k][keep]),
+                 f"phase 40 K4 {label}: new_taboo differs")
+    k_ms = _median_ms(lambda: k4.propose_nc_cuda(nc, cur, taboo, unif, real, p_eff, eps,
+                                                 params), queued=True)
+    p_ms = _median_ms(lambda: k4.propose_nc_plain(nc, cur, taboo, unif, real, p_eff, eps,
+                                                  params, block), runs=3)
+    n_bytes = _k4_bytes(nc, p_eff, n_colors)
+    b_ms, _ = _bound(n_bytes, 0, FP32_OPS_PER_S)
+    print(f"phase 40 K4 {label} [{c}, {rows}, {n_col_pad}] n_colors={n_colors}: conf2 "
+          f"{conf2.tolist()} exact; at most {worst} boundary rows a chain of {n_real}; log "
+          f"qstar max rel err {lrel:.3g}; kernel {k_ms:.4f} ms (the launch queued), plain "
+          f"{p_ms:.3f} ms (median of {TIMED_RUNS}, plain of 3, CUDA events); bound "
+          f"{b_ms:.4f} ms ({n_bytes} bytes), {100 * b_ms / k_ms:.1f} % of it")
+    return {"shape": label, "chains": c, "rows": rows, "n_col_pad": n_col_pad,
+            "n_colors": n_colors, "taboo": params.taboo_iterations, "launches": 0,
+            "boundary_rows": worst, "logq_rel_err": lrel, "ms": k_ms, "plain_ms": p_ms,
+            "bytes": n_bytes, "ops": 0}
+
+
+def phase_k4(device, c_res, seed=5):
+    """K4 against its plain version at the resident chain's palettes and the
+    strips' shape, on NC from K1 over ``c_res``'s graph (phase 4's
+    ER(100k, 0.01)): colours drawn uniformly over the palette (phantom
+    rows at nCol), the configuration's taboo 0, and once taboo counters
+    up to 4.  Returns its rows."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind, default_n_colors
+    from mcmc_colorer_tpu_torch.models.mcmc import _p_eff, choose_block_size
+    from mcmc_colorer_tpu_torch.ops import propose_nc as k4
+    from mcmc_colorer_tpu_torch.ops.dense_adj import neighbor_color_counts
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    n, n_pad = c_res.n, c_res.n_pad
+    real = torch.arange(n_pad, device=device) < n
+    rows = []
+
+    def shape(label, n_colors, chains, taboo_max=0):
+        params = MCMCParams(n_colors=n_colors, proposal=ProposalKind.BALANCE_DYNAMIC,
+                            taboo_iterations=taboo_max)
+        colors = torch.stack([_real_colors(n, n_pad, n_colors, gen, device)
+                              for _ in range(chains)])
+        nc = neighbor_color_counts(c_res.adj, colors, n_colors, real)
+        p_eff = _p_eff(colors, params, n, real)
+        taboo = torch.randint(0, taboo_max + 1, colors.shape, generator=gen, device=device,
+                              dtype=torch.int32)
+        unif = torch.rand(colors.shape, generator=gen, device=device)
+        rows.append(_k4_shape(k4, label, nc, colors, taboo, unif, real, p_eff, params,
+                              choose_block_size(n_pad, n_colors)))
+        del nc
+        torch.cuda.empty_cache()
+
+    for ratio in K4_RATIOS:
+        n_colors = default_n_colors(c_res.max_degree, ratio)
+        shape(f"resident nCol {n_colors}", n_colors, 1)
+    shape(f"resident nCol {c_res.max_degree}, taboo 4", c_res.max_degree, 1, taboo_max=4)
+    shape(f"strips, {K4_STRIP_CHAINS} chains", c_res.max_degree, K4_STRIP_CHAINS)
+    return rows
+
+
+def _k4_summary(rows, chain, strips) -> dict:
+    """The kernels line's K4 entry: phase 40's shapes, each timed beside its
+    bound, with the launches of the main paths at that shape, ``chain``
+    (phase 4's n_pad, palette and K4 launches: one chain, taboo off) and
+    ``strips`` (phase 32's K4 launches and their NC shape); times are
+    weighted by those launches."""
+    (n_pad, n_colors, chain_n), (strips_n, strips_nc) = chain, strips
+    for x in rows:
+        x["bound_ms"], x["bound_by"] = _bound(x["bytes"], x["ops"], FP32_OPS_PER_S)
+        x["bound_share"] = x["bound_ms"] / x["ms"]
+        if (x["chains"], x["rows"], x["n_colors"], x["taboo"]) == (1, n_pad, n_colors, 0):
+            x["launches"] += chain_n
+        if (x["chains"], x["rows"], x["n_col_pad"]) == strips_nc:
+            x["launches"] += strips_n
+    n = sum(x["launches"] for x in rows)
+    _require(n == chain_n + strips_n,
+             f"K4's main-path launches ({chain_n} + {strips_n}) match no phase 40 shape")
+
+    def weighted(key):
+        return sum(x[key] * x["launches"] for x in rows) / n
+
+    return {
+        "name": "propose_nc",
+        "route": "cuda",
+        "source": "mcmc_colorer_tpu_torch/csrc/propose_nc.cu",
+        "replaces": None,  # the JAX package proposes in jnp (models/mcmc.py:103, :178)
+        "launches": n,
+        "boundary_rows": max(x["boundary_rows"] for x in rows),
+        "logq_rel_err": max(x["logq_rel_err"] for x in rows),
+        "ms": weighted("ms"),
+        "plain_ms": weighted("plain_ms"),
+        "bound_ms": weighted("bound_ms"),
+        "bound_by": "bytes",
+        "bound_share": weighted("bound_ms") / weighted("ms"),
+        "library_ms": None,
+        "shapes": rows,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -3582,14 +3781,18 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build_kernels()
     build_s = time.perf_counter() - t0
-    b1, b2, b3 = (built[k][1] for k in ("K1", "K2", "K3"))
+    b1, b2, b3, b4 = (built[k][1] for k in ("K1", "K2", "K3", "K4"))
     print(f"phase 1 build K1: {b1.seconds:.3f} s ({b1.path.name}); ptxas: {_ptxas(b1)}")
+    print(f"phase 1 build K4: {b4.seconds:.3f} s ({b4.path.name}); ptxas: {_ptxas(b4)}")
 
     err, k_ms, p_ms, k1_bytes, k1_bits = phase_k1(
         device, K1_SHAPES, bench_n_pad=_round_up(BENCH_N, 2048))
     torch.cuda.empty_cache()
     phase_hash(device)
-    r_main, c, launches, g_bench = phase_main(device)
+    r_main, c, launches, g_bench, k4_chain = phase_main(device)
+    k4_chain = (c.n_pad, c.params.n_colors, k4_chain)
+    k4_rows = phase_k4(device, c)
+    torch.cuda.empty_cache()
     chain_ncp = n_col_pad_of(c.params.n_colors)
     _require(chain_ncp == n_col_pad_of(K1_BENCH_COLORS),
              f"the chain ran K1 at {chain_ncp} padded colours, timed at {K1_BENCH_COLORS}")
@@ -3597,7 +3800,7 @@ def main() -> int:
 
     for label, b in (("K2", b2), ("K3", b3)):
         print(f"phase 6 build {label}: {b.seconds:.3f} s ({b.path.name}); ptxas: {_ptxas(b)}")
-    print(f"phase 6 all three builds, started together: {build_s:.3f} s")
+    print(f"phase 6 all four builds, started together: {build_s:.3f} s")
     g3, ell3, sb = setup_config3(device)
     err3, k3_ms, p3_ms, k3_bytes, k3_slots = phase_k3(device, ell3, sb)
     frac2, err2, k2_config3 = phase_k2(device, ell3, sb)
@@ -3666,7 +3869,8 @@ def main() -> int:
     slice9_s += time.perf_counter() - t_slice9
     torch.cuda.empty_cache()
     t_slice10 = time.perf_counter()
-    st_k1, st_k2, f2, e2, st_ref, st_first, _ = phase_sharded_strips(device, g_bench)
+    st_k1, st_k2, f2, e2, st_ref, st_first, _, k4_strips = phase_sharded_strips(device,
+                                                                                  g_bench)
     frac2, err2 = max(frac2, f2), max(err2, e2)
     mm_k1, mm_k3, _, e3, _ = phase_sharded_matmul(device, g_bench)
     err3 = max(err3, e3)
@@ -3827,6 +4031,7 @@ def main() -> int:
             "library_ms": None,
             "shapes": k3_rows,
         },
+        _k4_summary(k4_rows, k4_chain, k4_strips),
     ]}))
     import torch.distributed as dist
 

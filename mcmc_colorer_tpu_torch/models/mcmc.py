@@ -7,7 +7,8 @@ the Hastings reverse probability, the chain loops, the flat tailcut and
 
 - Packed chain (slice 1, ``models/mcmc_resident.py``): each sweep computes
   NC = A·onehot(colors) once (kernel K1 on the card) and reads occupancy,
-  conflicts and proposal from it (``_sweep_matmul``).
+  conflicts and proposal from it (kernel K4, ``ops/propose_nc.py``;
+  ``_sweep_matmul``).
 - ELL chain (``MCMCColorer``): each sweep hands the neighbour ids and
   the colour vector to kernel K2, which gathers the colours itself
   (``_sweep_pallas_fused``, backend ``pallas``, one launch a sweep), or
@@ -90,6 +91,7 @@ from mcmc_colorer_tpu_torch.ops.neighbor import (
     neighbor_colors_chains,
     occupancy_matrix,
 )
+from mcmc_colorer_tpu_torch.ops.propose_nc import propose_nc
 from mcmc_colorer_tpu_torch.utils.rng import ChainSources, TorchUniformSource
 from mcmc_colorer_tpu_torch.utils.spans import span
 
@@ -97,9 +99,10 @@ from mcmc_colorer_tpu_torch.utils.spans import span
 def choose_block_size(n: int, n_colors: int) -> int:
     """Vertex rows per sweep block, a power of two, so one [block, nCol]
     float32 temporary is about ``SWEEP_BLOCK_BYTES``.  Larger than the JAX
-    package's 32 MB blocks: on the card each block costs some forty
-    kernel launches, so fewer, larger blocks keep launch overhead below
-    the work; the memory bound is counted in ``ops/dense_adj.py``."""
+    package's 32 MB blocks: on the card a block of a torch pass (such as
+    the Hastings reverse proposal) costs tens of kernel launches, so
+    fewer, larger blocks keep launch overhead below the work; the memory
+    bound is counted in ``ops/dense_adj.py``."""
     b = SWEEP_BLOCK_BYTES // max(4 * n_colors, 1)
     b = max(128, min(1 << 16, b))
     b = 1 << int(math.floor(math.log2(b)))
@@ -321,9 +324,11 @@ def _sweep_matmul(
     n_nodes: int,
 ):
     """One full proposal sweep of every chain (colours [C, n_pad]): one
-    K1 launch gives each chain's NC [C, n_pad, n_col_pad], the proposal
-    runs a chain at a time in row blocks (``_propose_nc``).  Returns (star,
-    new_taboo, Σ log qStar [C], conflict edges of ``colors`` [C], NC) — the
+    K1 launch gives each chain's NC [C, n_pad, n_col_pad], one K4 launch
+    the proposal of every chain's rows from it, and the conflict count
+    beside it (``ops/propose_nc.py``; their plain versions on the CPU, the
+    proposal a chain at a time in row blocks).  Returns (star, new_taboo,
+    Σ log qStar [C], conflict edges of ``colors`` [C], NC) — the
     reference's selectStarColoringBalanceDynamic + conflictCounter pair
     (coloringMCMC_balance.cu:79-143, _utils.cu:103-119)."""
     n_pad = colors.shape[1]
@@ -333,42 +338,11 @@ def _sweep_matmul(
         nc = neighbor_color_counts(adj, colors, params.n_colors, real)
     # a fill on the card, not a copy of a host scalar (which waits for the stream)
     eps = torch.full((), params.epsilon, dtype=torch.float32, device=dev)
-    # conflict edges touch each endpoint once: Σ_i NC[i, c_i] = 2 E_conf
-    conf2 = _at_color(nc, colors).sum(1)
     with span("mc.sweep.propose"):
-        star, new_taboo, logq = _propose_nc(nc, colors, taboo, unif, real, p_eff, eps, params,
-                                            block)
+        # conflict edges touch each endpoint once: Σ_i NC[i, c_i] = 2 E_conf
+        star, new_taboo, logq, conf2 = propose_nc(nc, colors, taboo, unif, real, p_eff, eps,
+                                                  params, block)
     return star, new_taboo, logq, conf2 // 2, nc
-
-
-def _propose_nc(nc, cur, taboo, unif, real, p_eff, eps, params: MCMCParams, block: int):
-    """The proposal of C chains' rows from their NC [C, rows, n_col_pad]
-    (``cur``, ``taboo``, ``unif`` [C, rows], ``real`` [rows], ``p_eff`` [C,
-    n_colors] or None): a chain at a time in row blocks, ``_propose`` on the
-    occupancy NC > 0 with ``p_eff`` zero-padded to the NC's width; rows
-    outside ``real`` keep their colour with qstar 1.  The rows are a whole
-    A's or a rank's strip's (``parallel/sharded.py``).  Returns (star,
-    new_taboo, Σ log qstar [C])."""
-    c, rows, n_col_pad = nc.shape
-    dev = nc.device
-    star = torch.empty_like(cur)
-    new_taboo = torch.empty_like(taboo)
-    logq = torch.zeros((c,), dtype=torch.float32, device=dev)
-    for k in range(c):
-        p_eff_pad = None
-        if p_eff is not None:
-            p_eff_pad = torch.zeros((n_col_pad,), dtype=torch.float32, device=dev)
-            p_eff_pad[:params.n_colors] = p_eff[k]
-        for s in range(0, rows, block):
-            e = min(s + block, rows)
-            cur_b, real_b = cur[k, s:e], real[s:e]
-            chosen, qstar, new_taboo[k, s:e] = _propose(
-                cur_b, nc[k, s:e] > 0, taboo[k, s:e], unif[k, s:e], params, p_eff_pad, eps
-            )
-            star[k, s:e] = torch.where(real_b, chosen, cur_b)
-            qstar = torch.where(real_b, qstar, 1.0)
-            logq[k] += torch.log(qstar.clamp(min=1e-30)).sum()
-    return star, new_taboo, logq
 
 
 def _reverse_logq_matmul(

@@ -17,8 +17,9 @@ its own rows:
   rank's chains, own ids from ``row0 = s·n_loc``) gathers the colours
   itself; on the strip, kernel K1 (``ops/packed_nc.packed_nc``, one launch
   for the rank's chains) gives NC = strip·onehot(colours) [cl, n_loc,
-  n_col_pad] (``_strip_nc``), whose occupancy feeds the proposal of
-  ``models/mcmc.py:_propose_nc``;
+  n_col_pad] (``_strip_nc``), from which kernel K4
+  (``ops/propose_nc.propose_nc``, one launch for the rank's chains)
+  reads the proposal;
 * per-vertex same-colour counts ``cnt`` [n_loc] are recounted from the new
   vector (``cnt_of``: a gather, or NC(star) at each row's own colour);
   conflicts are Σ cnt over the shards / 2 (each conflict edge counted by
@@ -92,7 +93,6 @@ from mcmc_colorer_tpu_torch.models.mcmc import (
     _at_color,
     _bands,
     _p_eff,
-    _propose_nc,
     _reverse_logq_nc,
     _reverse_q,
     choose_block_size,
@@ -128,6 +128,7 @@ from mcmc_colorer_tpu_torch.ops.neighbor import (
     scatter_drop,
 )
 from mcmc_colorer_tpu_torch.ops.packed_nc import packed_nc
+from mcmc_colorer_tpu_torch.ops.propose_nc import propose_nc
 from mcmc_colorer_tpu_torch.parallel.mesh import Mesh
 from mcmc_colorer_tpu_torch.utils.rng import TorchUniformSource
 
@@ -792,9 +793,9 @@ class ShardedMCMCColorer:
             unif_loc = torch.zeros(tb.shape, dtype=torch.float32, device=dev)
             unif_loc[:, :nr] = unif
             nc = self._nc(cf)
-            star_loc, new_tb, logq_star = _propose_nc(
-                nc, cf[:, off:off + n_loc], tb, unif_loc, self._real_loc, p_eff, eps_t, p,
-                self._prop_block)
+            star_loc, new_tb, logq_star, _ = propose_nc(
+                nc, cf[:, off:off + n_loc].contiguous(), tb, unif_loc, self._real_loc, p_eff,
+                eps_t, p, self._prop_block)
             del nc  # one NC at a time: each is [k, n_loc, n_col_pad] int32
         else:
             cur = cf[:, off:off + nr].contiguous()

@@ -36,22 +36,12 @@ from mcmc_colorer_tpu_torch.models import mcmc as tm
 from mcmc_colorer_tpu_torch.ops import dense_adj as td
 from mcmc_colorer_tpu_torch.ops.neighbor import color_histogram as t_hist
 
+from cdf_boundary import assert_boundary_only
+
 torch.set_num_threads(2)
 
 N, P, GRAPH_SEED, N_PAD = 1200, 0.04, 21, 2048
 JAX_BLOCK, TORCH_BLOCK = 512, 700  # the port's blocks are ragged on purpose
-
-
-def assert_boundary_only(star_t, star_j, unif, cdf_j, n_real):
-    """Every vertex where the two samples differ is a CDF-boundary vertex,
-    and there are at most 0.1 % of them; returns their indices."""
-    mism = np.flatnonzero(np.asarray(star_t) != np.asarray(star_j))
-    assert mism.size <= 0.001 * n_real, f"{mism.size} sample mismatches"
-    for v in mism:
-        k, u = int(star_j[v]), float(unif[v])
-        near = [abs(u - float(cdf_j[v, c])) <= 1e-5 * u for c in (k, k - 1) if c >= 0]
-        assert any(near), f"vertex {v}: u={u} not on JAX's cdf step at colour {k}"
-    return mism
 
 
 def jax_ell(degrees: np.ndarray) -> EllGraph:
@@ -144,6 +134,51 @@ def test_sweep_matches_jax(graph, kind, taboo, n_colors):
     keep[mism] = False
     assert np.array_equal(taboo_t.numpy()[keep], taboo_j[keep])
     np.testing.assert_allclose(float(logq_t), float(logq_j), rtol=1e-4)
+
+
+@pytest.mark.parametrize("n_colors", [24, 150])
+@pytest.mark.parametrize("taboo", [0, 4])
+@pytest.mark.parametrize("chains", [1, 3])
+@pytest.mark.parametrize("kind", list(ProposalKind))
+def test_chains_sweep_matches_jax(graph, kind, chains, taboo, n_colors):
+    """The port's sweep of C chains at once (one NC [C, n_pad, n_col_pad]
+    and one proposal of every chain's rows, ``ops/propose_nc.py``'s plain
+    version on the CPU) against JAX's sweep of each chain alone, with the
+    phantom rows past N: NC and conflicts exact, the samples and taboo
+    equal but at CDF-boundary vertices, Σ log qstar within 1e-4."""
+    adj_j, adj_t, ell = graph
+    pj = JParams(n_colors=n_colors, proposal=JKind(kind.value), taboo_iterations=taboo)
+    pt = MCMCParams(n_colors=n_colors, proposal=kind, taboo_iterations=taboo)
+    states = [make_state(n_colors, taboo, seed=1000 * k + n_colors + taboo)
+              for k in range(chains)]
+    colors, tab, unif = (np.stack(x) for x in zip(*states))
+    real = torch.arange(N_PAD) < N
+    p_eff_t = None
+    if kind != ProposalKind.STANDARD:
+        p_eff_t = torch.stack([
+            tm._variant_distribution(pt, t_hist(torch.from_numpy(c), n_colors, real), N)
+            for c in colors])
+    star_t, taboo_t, logq_t, conf_t, nc_t = tm._sweep_matmul(
+        adj_t, pt, TORCH_BLOCK, torch.from_numpy(colors), torch.from_numpy(tab),
+        torch.from_numpy(unif), p_eff_t, N)
+    assert tuple(nc_t.shape) == (chains, N_PAD, td.n_col_pad_of(n_colors))
+    for k in range(chains):
+        p_eff_j = jm._variant_distribution(
+            pj, j_hist(jnp.asarray(colors[k]), n_colors, ell.node_mask), N)
+        star_j, taboo_j, logq_j, conf_j, nc_j = jm._sweep_matmul(
+            ell, adj_j, pj, JAX_BLOCK, jnp.asarray(colors[k]), jnp.asarray(tab[k]),
+            jnp.asarray(unif[k]), p_eff_j,
+        )
+        assert np.array_equal(nc_t[k].numpy(), np.asarray(nc_j))
+        assert int(conf_t[k]) == int(conf_j)
+        _, cdf_j = jax_q(ell, nc_j, colors[k], pj, p_eff_j, n_colors)
+        star_j, taboo_j = np.asarray(star_j), np.asarray(taboo_j)
+        mism = assert_boundary_only(star_t[k].numpy(), star_j, unif[k], cdf_j, N)
+        assert np.array_equal(star_t[k].numpy()[N:], colors[k][N:])  # phantoms keep theirs
+        keep = np.ones(N_PAD, bool)
+        keep[mism] = False
+        assert np.array_equal(taboo_t[k].numpy()[keep], taboo_j[keep])
+        np.testing.assert_allclose(float(logq_t[k]), float(logq_j), rtol=1e-4)
 
 
 @pytest.mark.parametrize("n_colors", [24, 150])
