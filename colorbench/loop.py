@@ -18,6 +18,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from colorbench import seeds, spec
+from colorbench.trace import SETUP_GRAPH, SETUP_WARM, WINDOW
 
 
 def make_graph(config: dict, seed: int):
@@ -48,6 +49,7 @@ class Run:
     graph_state: list = field(default_factory=list)  # (graph seed, kind, tensor)
     memory_peak_bytes: int = 0
     trace: object = None
+    setup_trace: object = None  # the traced set-up section that builds the fixed graph
     recorder: object = None
     setup_phases: dict = field(default_factory=dict)  # phase -> seconds since start, at its end
 
@@ -94,10 +96,19 @@ def load_kernels(kernels) -> None:
         raise errors[0]
 
 
+def _range(profile, name: str):
+    """A named host range in the profiler's trace, where a profiler runs."""
+    import torch
+
+    return torch.profiler.record_function(name) if profile is not None else nullcontext()
+
+
 def run_cell(cell: spec.Cell, seed: int, seconds: float, device, t_start: float,
-             shim=None, profile=None) -> Run:
-    """Set-up, then the window; ``shim`` (the launch recorder) and
-    ``profile`` (the profiler window) only in a traced run."""
+             shim=None, profile=None, setup_profile=None) -> Run:
+    """Set-up, then the window; ``shim`` (the launch recorder), ``profile``
+    (the profiler over the window) and ``setup_profile`` (a
+    ``trace.DeviceSection`` over set-up's build of the fixed graph) only
+    in a traced run."""
     import torch
 
     config, traffic = cell.config, cell.traffic
@@ -112,10 +123,14 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, device, t_start: float,
     if not per_job:
         gseed = config["graph_seed"]  # one graph for every seed: the same work, other chains
         graph = run.graphs[gseed] = make_graph(config, gseed)
-        t0 = time.perf_counter()  # the program's graph set-up: its graph, its colourers
-        handles = [d.make(config, j, graph, device) for j, d in kinds]
-        _sync(device)
-        run.setup_graph_s = time.perf_counter() - t0
+        if shim is not None:
+            shim.start(SETUP_GRAPH)
+        with (setup_profile if setup_profile is not None else nullcontext()):
+            t0 = time.perf_counter()  # the program's graph set-up: its graph, its colourers
+            handles = [d.make(config, j, graph, device) for j, d in kinds]
+            _sync(device)
+            run.setup_graph_s = time.perf_counter() - t0
+        run.setup_trace = setup_profile
         seen = set()
         for (_, d), h in zip(kinds, handles):
             kind, t = d.graph_state(h)
@@ -124,6 +139,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, device, t_start: float,
                 run.graph_state.append((gseed, kind, t))
     run.setup_phases["graph"] = time.perf_counter() - t_start
     # warm every kind of job once, on seeds no window job uses
+    if shim is not None:
+        shim.start(SETUP_WARM)
     wseed = seeds.warm_seed(seed)
     for k, (j, d) in enumerate(kinds):
         h = d.make(config, j, make_graph(config, wseed), device) if per_job else handles[k]
@@ -133,19 +150,17 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, device, t_start: float,
     run.setup_s = time.perf_counter() - t_start
 
     if shim is not None:
-        shim.reset()
+        shim.start(WINDOW)
     chain = seeds.chain_seed(seed)
     last = None
     with (profile if profile is not None else nullcontext()):
-        label = (lambda name: torch.profiler.record_function(name)) if profile else (
-            lambda name: nullcontext())
-        with label("colorbench.window"):
+        with _range(profile, WINDOW):
             t0 = time.perf_counter()
             while time.perf_counter() - t0 < seconds:
                 i = len(run.jobs)
                 k = i % len(kinds)
                 j, d = kinds[k]
-                with label(f"colorbench.job.{j['colorer']}"):
+                with _range(profile, f"colorbench.job.{j['colorer']}"):
                     ta = time.perf_counter()
                     if per_job:
                         gseed = seeds.graph_seed(seed, i)

@@ -5,6 +5,7 @@ they all read it here."""
 import math
 
 from colorbench.stats import p95_with_failures, rate
+from colorbench.trace import SETUP_GRAPH, WINDOW
 
 
 def valid_rate(run):
@@ -43,13 +44,32 @@ def ms_per_sweep(run):
     return 1e3 * sum(j.result["chain_s"] for j in jobs) / sweeps if sweeps else None
 
 
-def roofline_pct(run, kernel: str):
-    """None where the window ran no launch of the kernel or the trace saw
-    no device time of it (never 0)."""
-    if run.trace is None or run.recorder is None or kernel not in run.recorder.launches:
+def _roofline_pct(run, trace, kernel: str, section: str):
+    if trace is None or run.recorder is None or kernel not in run.recorder.kernels:
         return None
-    launches, bound = run.recorder.bound_s(kernel)
-    device = run.trace.kernel_s.get(kernel, 0.0)
+    launches, bound = run.recorder.bound_s(kernel, section)
+    device = trace.kernel_s.get(kernel, 0.0)
     if not launches or device <= 0:
         return None
     return 100.0 * bound / device
+
+
+def roofline_pct(run, kernel: str):
+    """A kernel's share of its roofline over the window: None where the
+    window ran no launch of it or the trace saw no device time of it
+    (never 0)."""
+    return _roofline_pct(run, run.trace, kernel, WINDOW)
+
+
+def setup_roofline_pct(run, kernel: str):
+    """A kernel's share of its roofline while set-up builds the fixed
+    graph (the traced set-up section), None as ``roofline_pct``."""
+    return _roofline_pct(run, run.setup_trace, kernel, SETUP_GRAPH)
+
+
+def setup_busy_s(run):
+    """The device's busy seconds, merged intervals, in the traced set-up
+    section that builds the fixed graph and its colourers; None where the
+    run has no such section or the trace saw no device work in it."""
+    t = run.setup_trace
+    return t.busy_s if t is not None and t.busy_s else None

@@ -66,13 +66,16 @@ def execute(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     from colorbench import check, loop
     from colorbench import trace as tr
 
-    shim = prof = None
+    shim = prof = setup_prof = None
     if trace:
         kernels = spec.roofline_kernels(cell.per_layer)
         shim = tr.Recorder(kernels).install()
-        prof = tr.Trace({k: spec.roofline(k).KERNEL for k in kernels})
+        names = {k: spec.roofline(k).KERNEL for k in kernels}
+        prof = tr.Trace(names)
+        setup_prof = tr.DeviceSection(names)
     try:
-        run = loop.run_cell(cell, seed, seconds, device, t_start, shim=shim, profile=prof)
+        run = loop.run_cell(cell, seed, seconds, device, t_start, shim=shim, profile=prof,
+                            setup_profile=setup_prof)
     finally:
         if shim is not None:
             shim.uninstall()
@@ -112,6 +115,10 @@ def execute(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     if trace:
         print(f"trace: profiler stopped in {prof.read_s[0]:.3f} s, events read in "
               f"{prof.read_s[1]:.3f} s, metrics read in {read_s:.3f} s", file=sys.stderr)
+        if run.setup_trace is not None:
+            st = run.setup_trace
+            print(f"trace: set-up's graph section {st.window_s} s, device busy {st.busy_s} s; "
+                  f"top device ops {st.device_ops[:5]}", file=sys.stderr)
     print(f"checked {checked} of {attempted} jobs against the reference in {check_s:.3f} s",
           file=sys.stderr)
     return result, numbers

@@ -107,6 +107,23 @@ def test_k3_work_hand_count():
     assert int(ops) == 2
 
 
+def test_k4_work_hand_count():
+    k4 = spec.roofline("k4")
+    c, rows, n_col_pad = 2, 3, 128
+    nc = torch.zeros((c, rows, n_col_pad), dtype=torch.int32)
+    v = torch.zeros((c, rows), dtype=torch.int32)
+    real = torch.ones(rows, dtype=torch.bool)
+    p_eff = torch.zeros((c, 10), dtype=torch.float32)
+    params = types.SimpleNamespace(n_colors=10)  # read as 12 colours: 16-byte copies
+    n_bytes, ops = k4.work((nc, v, v, v.float(), real, p_eff, None, params), {}, Memo())
+    # NC's palette columns, six [C, rows] vectors of 4 bytes, real, p_eff, conf2
+    assert n_bytes == 4 * c * rows * 12 + 6 * 4 * c * rows + rows + 4 * c * 10 + 8 * c
+    assert ops == 0
+    n_bytes, _ = k4.work((nc[:1], v[:1], v[:1], v[:1].float(), real, None, None, params), {},
+                         Memo())
+    assert n_bytes == 4 * rows * 12 + 6 * 4 * rows + rows + 8
+
+
 def test_memo_holds_a_value_while_its_tensor_lives():
     m, calls = Memo(), []
     t = torch.arange(10)

@@ -96,8 +96,17 @@ def test_balance_limits_name_the_ratios_the_traffic_runs():
 
 
 def test_roofline_kernels_named_by_metrics_exist():
-    kernels = spec.roofline_kernels(BENCH["per_layer"])
-    assert sorted(kernels) == ["k1", "k2", "k3"]
-    for k in kernels:
+    """Driven by the data: every kernel that a ``<kernel>.roofline_pct``
+    metric or a driver's KERNELS names has its ``roofline/<kernel>.py``,
+    which wraps a launcher of the port and states a peak; and every such
+    file is named by one of them."""
+    files = {p.stem for p in (spec.HERE / "roofline").glob("*.py") if p.stem != "__init__"}
+    by_metric = set(spec.roofline_kernels(BENCH["per_layer"]))
+    by_driver = {k for w in CELLS for d in spec.cell_drivers(spec.cell(w)) for k in d.KERNELS}
+    assert by_metric and by_metric <= files and by_driver <= files
+    assert files <= by_metric | by_driver, f"unused: {files - by_metric - by_driver}"
+    for k in by_metric | by_driver:
         r = spec.roofline(k)
-        assert r.WRAPS[0].startswith("mcmc_colorer_tpu_torch.") and r.OPS_PER_S > 0
+        assert isinstance(r.KERNEL, str) and r.KERNEL and callable(r.work)
+        assert len(r.WRAPS) == 2 and r.WRAPS[0].startswith("mcmc_colorer_tpu_torch.")
+        assert r.OPS_PER_S > 0

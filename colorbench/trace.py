@@ -1,13 +1,16 @@
-"""The traced run: the profiler over the window, and the benchmark's own
-recorder of the program's kernel launches.
+"""The traced run: the profiler over the window and, apart, over set-up's
+build of the fixed graph, and the benchmark's own recorder of the
+program's kernel launches.
 
 The recorder wraps, from the benchmark's side, the wrapper function that
 launches each kernel (``roofline/<kernel>.py``'s ``WRAPS``) and keeps
 the bytes and operations each launch's inputs need (that file's
-``work``); the program is not edited.  It is installed in the traced run
-only.  The profiler (``torch.profiler``, CPU and CUDA activities) gives
-the device intervals, from which come the busy time, the idle gaps, the
-time of each operation and each kernel's device time.
+``work``), tallied apart for each section; the program is not edited.
+It is installed in the traced run only.  The profiler (``torch.profiler``:
+CPU and CUDA activities over the window, CUDA alone over set-up) gives
+each section's device intervals, from which come the busy time, the time
+of each operation, each kernel's device time and, in the window, the
+idle gaps.
 """
 
 from __future__ import annotations
@@ -21,6 +24,12 @@ import numpy as np
 from colorbench import peaks, spec, stats
 
 WINDOW = "colorbench.window"
+# the recorder's sections besides the window: set-up's build of the fixed
+# graph and its colourers (profiled as a ``DeviceSection``), and its warm
+# jobs, tallied and never read, so that the memo's per-tensor values (K1's
+# row degrees) are worked out there and not in the window
+SETUP_GRAPH = "colorbench.setup.graph"
+SETUP_WARM = "colorbench.setup.warm"
 
 
 class Memo:
@@ -44,11 +53,13 @@ class Memo:
 
 class Recorder:
     """Each launch's (bytes, operations) of the named kernels, from the
-    benchmark's own wrapper around the program's launch functions."""
+    benchmark's own wrapper around the program's launch functions,
+    tallied under the section open at the launch (none outside them)."""
 
     def __init__(self, kernels):
         self.kernels = {k: spec.roofline(k) for k in kernels}
-        self.launches = {k: [] for k in self.kernels}
+        self.sections: dict[str, dict] = {}
+        self.launches = None  # the open section's tally
         self.memo = Memo()
         self._saved = []
 
@@ -59,7 +70,8 @@ class Recorder:
 
             def wrapped(*args, _orig=orig, _roof=roof, _name=name, **kwargs):
                 out = _orig(*args, **kwargs)
-                self.launches[_name].append(_roof.work(args, kwargs, self.memo))
+                if self.launches is not None:
+                    self.launches[_name].append(_roof.work(args, kwargs, self.memo))
                 return out
 
             setattr(mod, roof.WRAPS[1], wrapped)
@@ -71,15 +83,15 @@ class Recorder:
             setattr(mod, attr, orig)
         self._saved.clear()
 
-    def reset(self):
-        for v in self.launches.values():
-            v.clear()
+    def start(self, section: str) -> None:
+        """Tally the launches from here on under ``section``, anew."""
+        self.launches = self.sections[section] = {k: [] for k in self.kernels}
 
-    def bound_s(self, kernel: str) -> tuple[int, float]:
-        """(launches, the summed least time of those launches)."""
+    def bound_s(self, kernel: str, section: str = WINDOW) -> tuple[int, float]:
+        """(launches, the summed least time of those launches) in a section."""
         import torch
 
-        rows = self.launches[kernel]
+        rows = self.sections.get(section, {}).get(kernel, [])
         if not rows:
             return 0, 0.0
         flat = [x for r in rows for x in r]
@@ -91,16 +103,19 @@ class Recorder:
         return len(rows), total
 
 
-def _start_profiler() -> None:
+def _start_profiler(host: bool = True) -> None:
     """A kineto session over CPU and CUDA activities, read by its raw
     events: ``torch.profiler.profile`` would also build a Python object
-    an event, which takes minutes over a long window."""
+    an event, which takes minutes over a long window.  ``host=False``
+    records the CUDA activities alone where there is a card: no host
+    operator, so the host pays little for the session."""
     import torch
     from torch._C._profiler import _ExperimentalConfig
     from torch.autograd import profiler as ap
 
-    acts = {torch.profiler.ProfilerActivity.CPU}
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    acts = {torch.profiler.ProfilerActivity.CPU} if host or not cuda else set()
+    if cuda:
         acts.add(torch.profiler.ProfilerActivity.CUDA)
     cfg = ap.ProfilerConfig(ap.ProfilerState.KINETO, False, False, False, False, False,
                             _ExperimentalConfig())
@@ -120,6 +135,19 @@ def _annotation(e) -> bool:
     kind = getattr(e, "activity_type", None)
     return ("annotation" in str(kind() if callable(kind) else kind).lower()
             or e.name().startswith("colorbench."))
+
+
+def _device_work(intervals, kernel_names: dict[str, str]):
+    """(busy seconds, each kernel's device seconds, the top ten device
+    operations) of device intervals (start ns, end ns, name)."""
+    busy = stats.union_length([(s, e) for s, e, _ in intervals]) / 1e9
+    by_name: dict[str, float] = {}
+    for s, e, n in intervals:
+        by_name[n] = by_name.get(n, 0.0) + (e - s) / 1e9
+    kernel_s = {k: sum(v for n, v in by_name.items() if sub in n)
+                for k, sub in kernel_names.items()}
+    ops = sorted(([n[:160], v] for n, v in by_name.items()), key=lambda x: -x[1])[:10]
+    return busy, kernel_s, ops
 
 
 class Trace:
@@ -166,14 +194,7 @@ class Trace:
         t0, t1 = cpu[longest]
         self.window_s = (t1 - t0) / 1e9
         inside = [(max(s, t0), min(e, t1), n) for s, e, n in gpu if e > t0 and s < t1]
-        self.busy_s = stats.union_length([(s, e) for s, e, _ in inside]) / 1e9
-        by_name: dict[str, float] = {}
-        for s, e, n in inside:
-            by_name[n] = by_name.get(n, 0.0) + (e - s) / 1e9
-        for k, sub in self.kernel_names.items():
-            self.kernel_s[k] = sum(v for n, v in by_name.items() if sub in n)
-        self.device_ops = sorted(([n[:160], v] for n, v in by_name.items()),
-                                 key=lambda x: -x[1])[:10]
+        self.busy_s, self.kernel_s, self.device_ops = _device_work(inside, self.kernel_names)
         gaps = sorted(stats.gaps([(s, e) for s, e, _ in inside], t0, t1),
                       key=lambda g: g[0] - g[1])[:10]
         cs = np.array([c[0] for c in cpu], dtype=np.float64)
@@ -184,3 +205,33 @@ class Trace:
             # the innermost host range open over the gap's middle
             name = cpu_events[hit[np.argmax(cs[hit])]].name() if hit.size else "no host range"
             self.idle_gaps.append([name[:160], (g1 - g0) / 1e9])
+
+
+class DeviceSection:
+    """The device's work in one stretch of the run outside the window
+    (set-up's build of the fixed graph), under a session of its own that
+    records the CUDA activities alone, so that the host's time over the
+    stretch, which the run also reads, stays near what it is untraced:
+    ``busy_s`` (merged device intervals), ``window_s`` (the stretch on the
+    host clock), each kernel's device seconds and the top device
+    operations.  Every device interval of the session is the stretch's."""
+
+    def __init__(self, kernel_names: dict[str, str]):
+        self.kernel_names = kernel_names
+        self.busy_s = self.window_s = None
+        self.kernel_s: dict[str, float] = {}
+        self.device_ops: list = []
+
+    def __enter__(self):
+        _start_profiler(host=False)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.window_s = time.perf_counter() - self._t0
+        events = _stop_profiler()
+        if exc[0] is None:
+            gpu = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in events
+                   if str(e.device_type()).endswith("CUDA") and not _annotation(e)]
+            self.busy_s, self.kernel_s, self.device_ops = _device_work(gpu, self.kernel_names)
+        return False
