@@ -25,6 +25,16 @@ the card by default:
   loaded by the native importer and coloured; and the K2 chain beside the
   K1 chain on the ER(100k, 0.01) graph of slice 1 (K2 staged there, L2
   at config 3; one launch a sweep on both);
+- config 3 with no host graph, kernel K5: phase 41 builds the hash
+  G(10^6, 0.001) of ``ops/hashgen.py`` (graph seed 0, the benchmark's
+  ``er1m_p001``) as ``HashGraph``'s flat ELL on the card, two K5 launches
+  (count, fill); holds sampled bands of its rows, at full n and into the
+  phantom rows, exactly against the plain version's same rows on the
+  card; times the count and the fill beside that plain version and the
+  least time of the pair tests; and runs ``MCMCColorer`` over it at
+  numColRatio 1, 2 and 4 (K2 and K3 counted on the config-3 rows, K5 not
+  run again), each colouring's conflicts counted on the card over K5's
+  rows;
 - slice 4, the other colorers and the CLI: at config 3 the frontier
   GreedyFF (its colours must equal the full loop's) and VFF, full and
   frontier (K3 with allow and cur), each also on K3's plain version: all
@@ -144,7 +154,9 @@ the card by default:
 The CLI phases (15, 25, 31 and 35) run last, as four concurrent lanes of
 subprocesses (``phase_clis``), each lane's calls in order.
 
-Every colouring is checked with ``check_coloring``.  Any failed check
+Every colouring is checked with ``check_coloring``, but phase 41's,
+which are checked on the card against K5's rows (the host graph at that
+size takes a minute to enumerate).  Any failed check
 raises, so the exit code is non-zero.  Without CUDA, or outside a
 checkout, it exits non-zero before printing any result.
 
@@ -159,7 +171,10 @@ phases 32-34, its rows under ``shapes``), K2 at two sweep shapes, at
 each (palette, cap) of the two frontiers and at each shape of the runs of
 phases 20 and 21, K3 at the config-3 band and at each shape of phases 20
 and 21; their times and bounds are means weighted by the launches at
-each, listed under ``shapes``.
+each, listed under ``shapes``.  K5's entry is one build at config 3 (its
+count and fill launches, each under ``shapes``): ``ms`` the two summed,
+``plain_ms`` the plain version's time over phase 41's sampled rows scaled
+to n.
 """
 
 from __future__ import annotations
@@ -187,6 +202,9 @@ TIMED_RUNS = 10
 # config 4 (:196-240)
 CONFIG3_N, CONFIG3_P, CONFIG3_SEED, CONFIG3_RATIOS = 1_000_000, 0.001, 3, (1.0, 2.0, 4.0)
 CONFIG4_N, CONFIG4_M, CONFIG4_SEED = 50_000, 8, 4
+# phase 41: config 3 as the hash graph of ops/hashgen.py (the benchmark's
+# er1m_p001 graph, seed 0), its ELL built by K5; rows of each sampled band
+HASH3_GRAPH_SEED, HASH3_BAND_ROWS = 0, 128
 CONFIG3_RUN_SEED, CONFIG4_RUN_SEED = 31, 41  # the chains' seeds (:178, :223)
 # phase 21: config 4's generator at a million vertices (max degree 4677)
 BA1M_N = 1_000_000
@@ -461,11 +479,12 @@ def build_kernels():
     from concurrent.futures import ThreadPoolExecutor
 
     from mcmc_colorer_tpu_torch.ops import firstfit as k3
+    from mcmc_colorer_tpu_torch.ops import hash_ell as k5
     from mcmc_colorer_tpu_torch.ops import packed_nc as k1
     from mcmc_colorer_tpu_torch.ops import propose_nc as k4
     from mcmc_colorer_tpu_torch.ops import resample as k2
 
-    mods = {"K1": k1, "K2": k2, "K3": k3, "K4": k4}
+    mods = {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K5": k5}
     with ThreadPoolExecutor(len(mods)) as pool:
         futs = {k: pool.submit(m.load_kernel) for k, m in mods.items()}
         return {k: (mods[k], f.result()) for k, f in futs.items()}
@@ -833,6 +852,145 @@ def phase_config3(device, g):
     _require(l3 > 0, "GreedyFF launched K3 no time")
     _require(valid, "GreedyFF: invalid colouring")
     return k2_total, k3_total, (r, l3), fulls, peaks
+
+
+def _ell_conflicts(ell, colors, rows: int = 1 << 15) -> int:
+    """Conflict edges of ``colors`` (host, [n]) over ``ell``'s rows, counted
+    on the card a block of rows at a time (each edge seen from both ends)."""
+    import torch
+
+    n, n_pad = ell.n_nodes, ell.n_pad
+    c = torch.full((n_pad + 1,), -1, dtype=torch.int64, device=ell.neighbors.device)
+    c[:n] = torch.as_tensor(colors, device=c.device)
+    twice = 0
+    for r0 in range(0, n, rows):
+        r1 = min(n, r0 + rows)
+        twice += int((c[ell.neighbors[r0:r1].long()] == c[r0:r1, None]).sum())
+    return twice // 2
+
+
+def phase_hash_ell_config3(device, seed=CONFIG3_RUN_SEED):
+    """BASELINE config 3 on the route with no host graph: ``HashGraph(10^6,
+    0.001, 0)`` on the card, its flat ELL built by K5 (the count and the
+    fill, two launches, counted from 0), the rectangle ``MCMCColorer``
+    asks for; bands of its rows at the start, the middle, a random place
+    and the end (into the phantom rows) held exactly against the plain
+    version's same rows computed on the card; K5's count and fill timed
+    beside that plain version (its time over the sampled rows, scaled to
+    n) and the least time of the work (``colorbench/roofline/k5.py``'s
+    booking); then ``MCMCColorer`` over it at numColRatio 1, 2, 4 (K2 a
+    sweep, K3 in the tailcut, K5 not again), each colouring checked on the
+    card against K5's rows.  Returns (K2 launches, K3 launches, the
+    kernels line's K5 entry)."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind, default_n_colors
+    from mcmc_colorer_tpu_torch.graph.container import HashGraph, degree_pad_for
+    from mcmc_colorer_tpu_torch.models.mcmc import MCMCColorer, choose_block_size
+    from mcmc_colorer_tpu_torch.ops import firstfit as k3
+    from mcmc_colorer_tpu_torch.ops import hash_ell as k5
+    from mcmc_colorer_tpu_torch.ops import resample as k2
+
+    n, p, gs = CONFIG3_N, CONFIG3_P, HASH3_GRAPH_SEED
+    k5.launches = 0
+    t0 = time.perf_counter()
+    hg = HashGraph(n, p, gs, device=device)
+    pad = degree_pad_for(hg, "pallas")
+    ell = hg.to_ell(pad_nodes_to=choose_block_size(n, 1), pad_degree_to=pad, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    main_launches = k5.launches
+    n_pad, d_pad = ell.n_pad, ell.d_pad
+    print(f"phase 41 HashGraph({n}, {p}, {gs}) on the card: m={hg.n_edges} "
+          f"max_degree={hg.max_degree}; ELL [{n_pad}, {d_pad}] "
+          f"({n_pad * d_pad * 4 / 1e9:.3f} GB) built by K5 in {build_s:.3f} s, "
+          f"{main_launches} launches")
+    _require(main_launches == 2, f"K5 launched {main_launches} times for one build, not 2")
+    _require(d_pad == k5.d_pad_for(hg.max_degree, pad)
+             and int(ell.degrees.max()) == hg.max_degree,
+             "the rectangle's width is not the max degree's")
+    _require(int(ell.degrees.sum()) == 2 * hg.n_edges and not ell.degrees[n:].any(),
+             "the degrees do not add up to twice the edges")
+    _require(bool((ell.neighbors[n:] == n_pad).all()), "a phantom row holds a neighbour")
+
+    gen = torch.Generator().manual_seed(seed)
+    r = int(torch.randint(HASH3_BAND_ROWS, n - 2 * HASH3_BAND_ROWS, (1,), generator=gen))
+    half = HASH3_BAND_ROWS // 2
+    bands = [(0, HASH3_BAND_ROWS), (n // 2 - half, n // 2 + half), (r, r + HASH3_BAND_ROWS),
+             (n - HASH3_BAND_ROWS + 32, n + 32)]
+    k5.hash_ell_plain_rows(n, p, gs, n_pad, d_pad, 0, 4, device=device)  # warm-up, untimed
+    plain_s, real_rows = 0.0, 0
+    for lo, hi in bands:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows, deg = k5.hash_ell_plain_rows(n, p, gs, n_pad, d_pad, lo, hi, device=device)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        real_rows += max(0, min(hi, n) - lo)
+        _require(torch.equal(ell.degrees[lo:hi], deg), f"K5's degrees of rows [{lo}, {hi}) differ "
+                 f"from the plain version's")
+        _require(torch.equal(ell.neighbors[lo:hi], rows), f"K5's rows [{lo}, {hi}) differ from "
+                 f"the plain version's")
+    plain_ms = plain_s / real_rows * n * 1e3
+    print(f"phase 41 K5 rows {bands}: exact against the plain version on the card "
+          f"({real_rows} real rows, plain {plain_s:.3f} s: {plain_ms / 1e3:.1f} s scaled to n)")
+
+    count_ms = _median_ms(lambda: k5.hash_ell_degrees(n, p, gs, n_pad, device), runs=3)
+    fill_ms = _median_ms(lambda: k5.hash_ell_fill(n, p, gs, ell.degrees, d_pad), runs=3)
+    shapes = []
+    for label, ms, n_bytes, ops in (("count", count_ms, 4 * n_pad, 0),
+                                    ("fill", fill_ms, 4 * n_pad * d_pad, 8 * (n * (n - 1) // 2))):
+        b_ms, b_by = _bound(n_bytes, ops, INT32_OPS_PER_S)
+        shapes.append({"shape": f"{label} [{n_pad}, {d_pad}]", "launches": 1, "ms": ms,
+                       "bytes": n_bytes, "ops": ops, "bound_ms": b_ms, "bound_by": b_by})
+    bound_ms = sum(x["bound_ms"] for x in shapes)
+    print(f"phase 41 K5 count {count_ms:.3f} ms, fill {fill_ms:.3f} ms (median of 3); the "
+          f"build's bound {bound_ms:.3f} ms, {bound_ms / (count_ms + fill_ms):.2%} of it")
+
+    k2_total = k3_total = 0
+    timed = k5.launches
+    for ratio in CONFIG3_RATIOS:
+        n_col = default_n_colors(hg.max_degree, ratio)
+        params = MCMCParams(n_colors=n_col, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
+        c = MCMCColorer(hg, params, backend="pallas", device=device)
+        _require(c.ell is ell, f"ratio {ratio}: the colourer built its own rectangle")
+        k2.launches = k3.launches = 0
+        res = c.run(seed=seed)
+        l2, l3 = k2.launches, k3.launches
+        k2_total, k3_total = k2_total + l2, k3_total + l3
+        x = res.extra
+        conflicts = _ell_conflicts(ell, res.colors)
+        off = int(((res.colors < 0) | (res.colors >= n_col)).sum())
+        print(f"phase 41 hash config3 ratio={ratio} n_colors={n_col}: setup "
+              f"{c.setup_seconds:.3f} s; sweeps {x['sweeps']}, chain {x['chain_seconds']:.3f} s "
+              f"({x['chain_seconds'] / max(x['sweeps'], 1) * 1e3:.3f} ms/sweep), tailcut rounds "
+              f"{x['tailcut_rounds']} {x['tailcut_seconds']:.3f} s, run {res.duration_ms / 1e3:.3f} "
+              f"s; balance index {res.balance_index(p):.4f}; K2 launches {l2}, K3 launches {l3}; "
+              f"conflict edges on the card {conflicts}, off the palette {off}")
+        _require(l2 > 0 and l2 == x["sweeps"], f"ratio {ratio}: {l2} K2 launches in "
+                 f"{x['sweeps']} sweeps")
+        _require(conflicts == 0 and off == 0 and x["final_conflicts"] == 0,
+                 f"ratio {ratio}: invalid colouring")
+        del c
+    _require(k5.launches == timed, "K5 ran again in the colourers' set-up")
+    _require(k3_total > 0, "the tailcuts launched K3 no time")
+    entry = {
+        "name": "hash_ell",
+        "route": "cuda",
+        "source": "mcmc_colorer_tpu_torch/csrc/hash_ell.cu",
+        "replaces": None,  # the JAX package builds no ELL of a graph it has not sampled
+        "launches": main_launches,
+        "max_abs_err": 0,
+        "rows_checked": real_rows,
+        "ms": count_ms + fill_ms,  # the build: one count and one fill launch
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if all(x["bound_by"] == "bytes" for x in shapes) else "operations",
+        "bound_share": bound_ms / (count_ms + fill_ms),
+        "library_ms": None,
+        "shapes": shapes,
+    }
+    return k2_total, k3_total, entry
 
 
 def phase_config4(device):
@@ -3781,9 +3939,10 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build_kernels()
     build_s = time.perf_counter() - t0
-    b1, b2, b3, b4 = (built[k][1] for k in ("K1", "K2", "K3", "K4"))
+    b1, b2, b3, b4, b5 = (built[k][1] for k in ("K1", "K2", "K3", "K4", "K5"))
     print(f"phase 1 build K1: {b1.seconds:.3f} s ({b1.path.name}); ptxas: {_ptxas(b1)}")
     print(f"phase 1 build K4: {b4.seconds:.3f} s ({b4.path.name}); ptxas: {_ptxas(b4)}")
+    print(f"phase 1 build K5: {b5.seconds:.3f} s ({b5.path.name}); ptxas: {_ptxas(b5)}")
 
     err, k_ms, p_ms, k1_bytes, k1_bits = phase_k1(
         device, K1_SHAPES, bench_n_pad=_round_up(BENCH_N, 2048))
@@ -3800,7 +3959,7 @@ def main() -> int:
 
     for label, b in (("K2", b2), ("K3", b3)):
         print(f"phase 6 build {label}: {b.seconds:.3f} s ({b.path.name}); ptxas: {_ptxas(b)}")
-    print(f"phase 6 all four builds, started together: {build_s:.3f} s")
+    print(f"phase 6 all five builds, started together: {build_s:.3f} s")
     g3, ell3, sb = setup_config3(device)
     err3, k3_ms, p3_ms, k3_bytes, k3_slots = phase_k3(device, ell3, sb)
     frac2, err2, k2_config3 = phase_k2(device, ell3, sb)
@@ -3822,6 +3981,9 @@ def main() -> int:
     err3 = max(err3, e3)
     slice9_s = time.perf_counter() - t_slice9
     del g3
+    torch.cuda.empty_cache()
+    hash_k2, hash_k3, k5_entry = phase_hash_ell_config3(device)
+    launches2, launches3 = launches2 + hash_k2, launches3 + hash_k3
     torch.cuda.empty_cache()
     g4, r4, gff4 = phase_config4(device)
     t_slice7 = time.perf_counter()
@@ -4032,6 +4194,7 @@ def main() -> int:
             "shapes": k3_rows,
         },
         _k4_summary(k4_rows, k4_chain, k4_strips),
+        k5_entry,
     ]}))
     import torch.distributed as dist
 

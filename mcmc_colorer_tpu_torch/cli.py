@@ -24,6 +24,13 @@ colorer, the stepped chain), as in JAX: for any other ``--resume`` exits
 2 and ``--ckpt`` is ignored with a message; ``-v 1`` or more turns the
 TRACE output on (the device chain's free-colour lines among it).
 
+``--resident --mcmcgpu --backend pallas|xla`` on a graph whose packed
+adjacency does not fit (``n`` past ``PACKED_ADJ_MAX_N``: BASELINE config
+3, ER(10^6, 0.001)) runs ``MCMCColorer`` over a ``HashGraph``, one chain
+of full sweeps: the hash graph's flat ELL built on the device by kernel
+K5; ``--check`` enumerates the graph on the host.  Below the cap the
+packed route runs, as it always has.
+
 ``--mesh-chains``/``--mesh-shards`` run ``ShardedMCMCColorer`` on a
 (chains, shards) mesh of ``torch.distributed`` ranks (``--anneal``:
 pooled annealing; ``--active``: frontier sweeps, cap ``max(128, n //
@@ -376,12 +383,29 @@ def _check_resident_args(args) -> None:
                      ("--anneal without a mesh", args.anneal and not on_mesh)):
         if on:
             _refuse(f"--resident is incompatible with {flag}.")
-    if args.backend not in ("auto", "matmul", "packed"):
+    if _resident_ell_route(args):
+        for flag, on in (("--layout bucketed", args.layout != "flat"),
+                         ("--active", args.active), ("--chains", args.chains > 1)):
+            if on:
+                _refuse(f"--resident --backend {args.backend} past the packed adjacency's cap "
+                        f"runs one chain of full sweeps over one flat ELL; drop {flag}.")
+    elif args.backend not in ("auto", "matmul", "packed"):
         print(
             f"--resident implies the packed-MXU backend; ignoring "
             f"--backend {args.backend}.",
             file=sys.stderr,
         )
+
+
+def _resident_ell_route(args) -> bool:
+    """``--resident --mcmcgpu --backend pallas|xla`` (no mesh) on a graph
+    whose packed adjacency does not fit (``ResidentMCMCColorer``'s cap):
+    ``MCMCColorer`` over a ``HashGraph``, whose flat ELL kernel K5 builds
+    on the device from the hash definition."""
+    from mcmc_colorer_tpu_torch.models.mcmc_resident import packed_adj_fits
+
+    return bool(args.resident and args.mcmcgpu and args.backend in ("pallas", "xla")
+                and not _on_mesh(args) and not packed_adj_fits(args.nodes))
 
 
 def _device_backend(args) -> str:
@@ -567,6 +591,24 @@ def main(argv=None) -> int:
             params = template.replace(
                 n_colors=args.n_col or default_n_colors(g.max_degree, ratio)
             )
+        elif _resident_ell_route(args):
+            # the hash graph's flat ELL built on the device by kernel K5 (no
+            # packed A, no host sampling); --check enumerates it host-side
+            from mcmc_colorer_tpu_torch.graph.container import HashGraph
+            from mcmc_colorer_tpu_torch.models.mcmc import MCMCColorer
+
+            t0 = time.perf_counter()
+            hg = HashGraph(args.nodes, args.simulate, seed, device=device)
+            params = template.replace(
+                n_colors=args.n_col or default_n_colors(hg.max_degree, ratio)
+            )
+            resident = MCMCColorer(hg, params, backend=args.backend, device=device)
+            if not args.quiet:
+                print(
+                    f"Resident ELL built on {device} in {time.perf_counter() - t0:.1f}s "
+                    f"(zero bytes uploaded)."
+                )
+            g = hg.host_graph() if args.check else hg
         elif mesh is not None:
             # zero-upload sharded run: every rank hash-generates its own
             # strip of the packed adjacency (parallel/sharded.py)

@@ -23,6 +23,8 @@ from functools import cached_property
 import numpy as np
 import torch
 
+from mcmc_colorer_tpu_torch.utils.spans import span
+
 # The host build materialises row and slot ids for every stored edge as
 # int64 (three 2m-long arrays: 24 GB at ER(1M, 0.001)) and then uploads
 # the whole rectangle; on a CUDA device a rectangle above this size is
@@ -41,6 +43,24 @@ def _layout_device(device) -> torch.device:
     from mcmc_colorer_tpu_torch.models.base import colorer_device
 
     return colorer_device(device)
+
+
+def _cached_ell(cache: dict, key: tuple, build):
+    """``cache[key]`` (key = (n_pad, d_pad, device)), else ``build()``:
+    only the largest rectangle is kept, and a smaller-or-equal cached one
+    is evicted BEFORE the new one is built, so two never coexist on the
+    device through the cache."""
+    hit = cache.get(key)
+    if hit is not None:
+        return hit
+    size = key[0] * key[1]
+    if cache and size >= max(k[0] * k[1] for k in cache):
+        cache.clear()
+    ell = build()
+    if not cache or size >= max(k[0] * k[1] for k in cache):
+        cache.clear()
+        cache[key] = ell
+    return ell
 
 
 def degree_pad_for(graph: "Graph", backend: str) -> int:
@@ -205,13 +225,12 @@ class Graph:
         device = _layout_device(device)
         n_pad = _round_up(max(self.n, 1), pad_nodes_to)
         d_pad = _round_up(max(self.max_degree, min_degree_pad), pad_degree_to)
-        key = (n_pad, d_pad, str(device))
-        cache = self.__dict__.setdefault("_ell_cache", {})
-        hit = cache.get(key)
-        if hit is not None:
-            return hit
-        if cache and n_pad * d_pad >= max(k[0] * k[1] for k in cache):
-            cache.clear()
+        return _cached_ell(
+            self.__dict__.setdefault("_ell_cache", {}), (n_pad, d_pad, str(device)),
+            lambda: self._build_ell(n_pad, d_pad, device, device_build, build_stats),
+        )
+
+    def _build_ell(self, n_pad: int, d_pad: int, device, device_build, build_stats):
         if device_build is None:
             device_build = (
                 device.type == "cuda" and n_pad * d_pad * 4 > DEVICE_BUILD_MIN_BYTES
@@ -234,14 +253,10 @@ class Graph:
             neigh = torch.from_numpy(host).to(device)
         degrees = torch.zeros((n_pad,), dtype=torch.int32, device=device)
         degrees[: self.n] = torch.from_numpy(self.degrees).to(device)
-        ell = EllGraph(
+        return EllGraph(
             neighbors=neigh, degrees=degrees, n_nodes=self.n,
             n_edges=self.n_edges, max_degree=self.max_degree,
         )
-        if not cache or n_pad * d_pad >= max(k[0] * k[1] for k in cache):
-            cache.clear()
-            cache[key] = ell
-        return ell
 
     def to_ell_bucketed(
         self,
@@ -327,6 +342,94 @@ class Graph:
             slices=tuple(slices), degrees=torch.from_numpy(degrees).to(device),
             n_nodes=self.n, n_edges=self.n_edges, max_degree=self.max_degree,
         )
+
+
+class HashGraph:
+    """The hash-defined G(n, p) of ``ops/hashgen.py`` (``edge(i, j) :=
+    mix32(seed, min(i, j), max(i, j)) < floor(p * 2**32)``) with no host
+    CSR: its degrees are counted and its flat ELL built on ``device`` by
+    kernel K5 (``ops/hash_ell.py``; the plain version on the CPU), so no
+    edge is sampled, sorted or uploaded by the host.
+
+    ``degrees``, ``max_degree`` and ``n_edges`` come from K5's count pass,
+    run once on the graph's device at first use and read back once;
+    ``to_ell`` runs the fill pass (cached as ``Graph.to_ell`` caches);
+    ``host_graph()`` enumerates the same graph on the host
+    (``ops/hashgen.hash_er_graph``, O(n²)), for checking only.  It has no
+    ``row_ptr``/``cols``: the colourers that need a host CSR (the
+    bucketed layout, the packed backend) refuse it."""
+
+    def __init__(self, n: int, p: float, seed: int, name: str | None = None,
+                 device="cuda") -> None:
+        if n < 1 or not 0.0 <= p <= 1.0:
+            raise ValueError(f"HashGraph needs n >= 1 and 0 <= p <= 1, got n={n}, p={p}")
+        self.n, self.p, self.seed = n, p, seed
+        self.name = name or f"er_hash_{n}_{p}"
+        self.device = _layout_device(device)
+        self._ell_cache: dict = {}
+
+    @cached_property
+    def _counted(self) -> tuple[torch.Tensor, np.ndarray]:
+        """(degrees [n] int32 on the graph's device, the same on the host)."""
+        from mcmc_colorer_tpu_torch.ops.hash_ell import hash_ell_degrees
+
+        with span("mc.hash_ell"):
+            dev = hash_ell_degrees(self.n, self.p, self.seed, self.n, self.device)
+            return dev, dev.cpu().numpy()
+
+    @property
+    def degrees(self) -> np.ndarray:
+        return self._counted[1]
+
+    @cached_property
+    def max_degree(self) -> int:
+        return int(self.degrees.max())
+
+    @cached_property
+    def n_edges(self) -> int:
+        """Number of undirected edges."""
+        return int(self.degrees.sum(dtype=np.int64)) // 2
+
+    @property
+    def mean_degree(self) -> float:
+        return float(self.degrees.mean())
+
+    def host_graph(self) -> Graph:
+        """The same graph as a host CSR, enumerated on the host (checking
+        only: O(n²) hashes)."""
+        from mcmc_colorer_tpu_torch.ops.hashgen import hash_er_graph
+
+        return hash_er_graph(self.n, self.p, self.seed, name=self.name)
+
+    def to_ell(
+        self,
+        *,
+        pad_nodes_to: int = 8,
+        pad_degree_to: int = 8,
+        min_degree_pad: int = 1,
+        device=None,
+    ) -> "EllGraph":
+        """The flat ELL on the graph's device (``device``, if given, must
+        be it): K5's fill pass over the counted degrees, rows padded to
+        ``pad_nodes_to``, the max degree to ``pad_degree_to``; the sentinel
+        n_pad in every padding slot, as ``Graph.to_ell`` lays it out."""
+        from mcmc_colorer_tpu_torch.ops.hash_ell import d_pad_for, hash_ell_fill
+
+        if device is not None and _layout_device(device) != self.device:
+            raise ValueError(f"a HashGraph on {self.device} builds its ELL there, not on "
+                             f"{_layout_device(device)}")
+        n_pad = _round_up(self.n, pad_nodes_to)
+        d_pad = d_pad_for(self.max_degree, pad_degree_to, min_degree_pad)
+
+        def build() -> EllGraph:
+            degrees = torch.zeros((n_pad,), dtype=torch.int32, device=self.device)
+            degrees[: self.n] = self._counted[0]
+            with span("mc.hash_ell"):
+                neigh = hash_ell_fill(self.n, self.p, self.seed, degrees, d_pad)
+            return EllGraph(neighbors=neigh, degrees=degrees, n_nodes=self.n,
+                            n_edges=self.n_edges, max_degree=self.max_degree)
+
+        return _cached_ell(self._ell_cache, (n_pad, d_pad, str(self.device)), build)
 
 
 @dataclass

@@ -69,6 +69,7 @@ from mcmc_colorer_tpu_torch.graph.container import (
     BucketedEll,
     EllGraph,
     Graph,
+    HashGraph,
     degree_pad_for,
 )
 from mcmc_colorer_tpu_torch.models.base import (
@@ -898,7 +899,9 @@ def _sync(device: torch.device) -> None:
 
 class MCMCColorer:
     """Balanced-colouring MCMC chain over a host ``Graph`` laid out as an
-    ELL on ``device`` (counterpart of JAX's ``MCMCColorer``).
+    ELL on ``device`` (counterpart of JAX's ``MCMCColorer``), or over a
+    ``HashGraph``, whose ELL kernel K5 builds on the device (flat layout,
+    ``pallas`` or ``xla`` only: the others build from a host CSR).
 
     ``backend``: ``pallas`` (kernel K2 per sweep, with the conflict count
     fused in), ``xla`` (K2's plain version and a separate conflict count,
@@ -918,7 +921,7 @@ class MCMCColorer:
 
     def __init__(
         self,
-        graph: Graph,
+        graph: Graph | HashGraph,
         params: MCMCParams,
         block_size: int | None = None,
         backend: str = "auto",
@@ -937,6 +940,12 @@ class MCMCColorer:
             raise ValueError(
                 "backend='matmul' is flat-layout only (the packed adjacency already "
                 "removes the degree-padding cost the bucketed layout exists to cut)"
+            )
+        if isinstance(graph, HashGraph) and (layout != "flat" or backend == "matmul"):
+            raise ValueError(
+                f"a HashGraph has no host CSR, which layout={layout!r} with "
+                f"backend={backend!r} builds from: use the flat layout with the 'pallas' "
+                f"or 'xla' backend"
             )
         self.graph = graph
         self.params = params
@@ -963,8 +972,13 @@ class MCMCColorer:
                 device=self.device,
             )
         else:
+            # a HashGraph's rectangle is built by K5, not from a host CSR:
+            # rows padded to the largest block any palette picks at this n
+            # (every block is a power of two that divides it), so the
+            # colourers of a ratio sweep share one rectangle and one build
             self.ell = graph.to_ell(
-                pad_nodes_to=self.block,
+                pad_nodes_to=(math.lcm(self.block, choose_block_size(graph.n, 1))
+                              if isinstance(graph, HashGraph) else self.block),
                 pad_degree_to=degree_pad_for(graph, backend),
                 device=self.device,
             )

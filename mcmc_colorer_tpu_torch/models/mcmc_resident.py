@@ -79,6 +79,15 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+ROW_CHUNK = 2048  # rows of the packed A a generation step writes
+
+
+def packed_adj_fits(n: int, row_chunk: int = ROW_CHUNK) -> bool:
+    """Whether G(n, p)'s packed adjacency fits the resident path's cap
+    (``ops/dense_adj.PACKED_ADJ_MAX_N``)."""
+    return _round_up(n, row_chunk) <= PACKED_ADJ_MAX_N
+
+
 def conflicts_from_packed(adj, colors, n_colors, node_mask) -> torch.Tensor:
     """Conflict-edge count via one NC: Σ_i NC[i, c_i] = 2 E_conf; [C]
     counts, one K1 launch, for colours [C, n_pad]."""
@@ -206,7 +215,7 @@ class ResidentMCMCColorer:
         p: float,
         graph_seed: int,
         params: MCMCParams | None = None,
-        row_chunk: int = 2048,
+        row_chunk: int = ROW_CHUNK,
         num_col_ratio: float = 1.0,
         n_chains: int = 1,
         active: bool = False,
@@ -226,11 +235,14 @@ class ResidentMCMCColorer:
         self.n, self.p, self.graph_seed = n, p, graph_seed
         self.n_chains, self.active = n_chains, active
         n_pad = _round_up(n, row_chunk)
-        if n_pad > PACKED_ADJ_MAX_N:
+        if not packed_adj_fits(n, row_chunk):
             raise ValueError(
                 f"resident graphs are bound to the packed-adjacency HBM "
                 f"cap: n_pad={n_pad} > {PACKED_ADJ_MAX_N} "
-                f"({packed_adj_bytes(n_pad) / 1e9:.1f} GB of A bits)"
+                f"({packed_adj_bytes(n_pad) / 1e9:.1f} GB of A bits); for larger "
+                f"graphs run MCMCColorer over graph.container.HashGraph(n, p, "
+                f"graph_seed), the flat ELL built on the device (CLI: --resident "
+                f"--backend pallas)"
             )
         self.n_pad = n_pad
         t0 = time.perf_counter()

@@ -129,6 +129,74 @@ def test_cli_resident_runs_and_validates(tmp_path):
     assert len((out / cf).read_text().strip().split("\n")) == 900
 
 
+def _past_the_packed_cap(monkeypatch, n_max=512):
+    """Lower the packed adjacency's cap, so a small graph takes the route
+    of one too large for it."""
+    from mcmc_colorer_tpu_torch.models import mcmc_resident
+
+    monkeypatch.setattr(mcmc_resident, "PACKED_ADJ_MAX_N", n_max)
+
+
+def test_cli_resident_ell_route(tmp_path, capsys, monkeypatch):
+    """Past the packed adjacency's cap, --resident --mcmcgpu --backend
+    pallas runs MCMCColorer over a HashGraph (its ELL from K5's plain
+    version on the CPU), one chain, checked against the host's
+    enumeration of the same graph; the colours are MCMCColorer's over
+    that HashGraph.  With --layout bucketed it exits 2."""
+    from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
+    from mcmc_colorer_tpu_torch.graph.container import HashGraph
+    from mcmc_colorer_tpu_torch.models.mcmc import MCMCColorer
+
+    _past_the_packed_cap(monkeypatch)
+    out = tmp_path / "out"
+    rc = cli_main(
+        ["--simulate", "0.03", "-n", "800", "--mcmcgpu", "--resident", "--backend", "pallas",
+         "--tailcut", "--seed", "11", "--check", "--outDir", str(out), *CPU]
+    )
+    assert rc == 0
+    text = capsys.readouterr()
+    assert "Resident ELL built" in text.out and "VALID" in text.out
+    assert "ignoring --backend" not in text.err
+    cf = [f for f in os.listdir(out) if f.endswith("-colors.txt")]
+    assert len(cf) == 1 and "-MCMC_GPU-0" in cf[0]
+    got = [int(x.split()[1]) for x in (out / cf[0]).read_text().strip().split("\n")]
+    from mcmc_colorer_tpu_torch.cli import build_parser
+
+    a = build_parser().parse_args(["--simulate", "0.03", "-n", "800", "--tailcut"])
+    hg = HashGraph(800, 0.03, 11, device="cpu")
+    params = MCMCParams(n_colors=hg.max_degree, taboo_iterations=a.taboo_iterations,
+                        tailcut=True, proposal=ProposalKind(a.proposal),
+                        seq_stall_escape=a.seq_stall_escape)
+    want = MCMCColorer(hg, params, device="cpu").run(11, 0).colors
+    assert got == want.tolist()
+    with pytest.raises(SystemExit) as e:
+        cli_main(["--simulate", "0.03", "-n", "800", "--mcmcgpu", "--resident", "--backend",
+                  "pallas", "--layout", "bucketed", "--quiet", *CPU])
+    assert e.value.code == 2
+
+
+@pytest.mark.parametrize("extra", [["--active"], ["--chains", "2"]], ids=["active", "chains"])
+def test_cli_resident_ell_route_refuses_what_it_cannot_run(monkeypatch, capsys, extra):
+    """The ELL route runs one chain of full sweeps: --active and --chains
+    exit 2 with a message, and are not run on another route."""
+    _past_the_packed_cap(monkeypatch)
+    with pytest.raises(SystemExit) as e:
+        cli_main(["--simulate", "0.03", "-n", "800", "--mcmcgpu", "--resident", "--backend",
+                  "pallas", "--quiet", *extra, *CPU])
+    assert e.value.code == 2 and f"drop {extra[0]}" in capsys.readouterr().err
+
+
+def test_cli_resident_backend_below_the_packed_cap(tmp_path, capsys):
+    """Where the packed adjacency fits, --resident --backend pallas runs
+    the packed resident chain, as it always has, the backend ignored with
+    a message."""
+    rc = cli_main(["--simulate", "0.03", "-n", "800", "--mcmcgpu", "--resident", "--backend",
+                   "pallas", "--seed", "11", "--outDir", str(tmp_path / "out"), *CPU])
+    text = capsys.readouterr()
+    assert rc == 0 and "ignoring --backend pallas" in text.err
+    assert "Resident graph materialised" in text.out and "Resident ELL" not in text.out
+
+
 def test_cli_resident_mcmc_and_luby_share_adjacency(tmp_path, monkeypatch):
     """--resident --mcmcgpu --lubygpu builds A once: both colorers take
     it from the one cache slot."""
