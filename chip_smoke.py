@@ -16,9 +16,12 @@ in shared memory, and read from L2).  Then it drives
 both main paths through the library surface, where every colorer runs on
 the card by default:
 
-- slice 1, the resident path: the hash generator word for word, ER(n=100k,
-  p=0.01) with balance-dynamic proposals and the tailcut, checked against
-  the host's C++ re-derivation, and a tight-palette run;
+- slice 1, the resident path: the hash generator (kernel K6, the packed A
+  and its degrees in one launch) word for word against the numpy oracle,
+  then at the bench shape ER(100k, 0.01) bit for bit against its plain
+  version on the card and timed beside it (phase 3); ER(n=100k, p=0.01)
+  with balance-dynamic proposals and the tailcut, checked against the
+  host's C++ re-derivation, and a tight-palette run;
 - slice 2, the ELL path: BASELINE config 3, ER(n=1M, p=0.001) from the
   native sampler at numColRatio 1, 2 and 4, plus GreedyFF; config 4, a
   BA(50k, 8) graph written in the network-repository layout, converted,
@@ -174,7 +177,10 @@ and 21; their times and bounds are means weighted by the launches at
 each, listed under ``shapes``.  K5's entry is one build at config 3 (its
 count and fill launches, each under ``shapes``): ``ms`` the two summed,
 ``plain_ms`` the plain version's time over phase 41's sampled rows scaled
-to n.
+to n.  K6's entry is one build of the bench graph's A and degrees
+(phase 3), its bound by ``colorbench/roofline/k5.py``'s rule at that n;
+its ``launches`` are the main path's (phase 4, its graph built anew:
+exactly 1).
 """
 
 from __future__ import annotations
@@ -370,16 +376,20 @@ def _pack_edges_host(edges, n_pad: int):
 
 
 def phase_hash(device, n=5000, p=0.01, seed=11):
-    """Hash generator on ``device`` against the numpy oracle, word for word."""
+    """Hash generator on ``device`` (K6, one launch for A and its degrees)
+    against the numpy oracle, word for word."""
     import numpy as np
 
     from mcmc_colorer_tpu_torch.interop import adjacency_to_jax
+    from mcmc_colorer_tpu_torch.ops import hash_packed as k6
     from mcmc_colorer_tpu_torch.ops.hashgen import (
-        degrees_from_packed, er_packed_on_device, hash_edges_reference,
+        degrees_from_packed, er_packed_and_degrees, hash_edges_reference,
     )
 
     n_pad = _round_up(n, 2048)
-    adj = er_packed_on_device(n, p, seed, n_pad, device=device)
+    before = k6.launches
+    adj, k6_deg = er_packed_and_degrees(n, p, seed, n_pad, device=device)
+    _require(k6.launches == before + 1, f"K6 launched {k6.launches - before} times, not once")
     edges = hash_edges_reference(n, p, seed)
     want = _pack_edges_host(edges, n_pad)
     got = adjacency_to_jax(adj)
@@ -387,29 +397,86 @@ def phase_hash(device, n=5000, p=0.01, seed=11):
     deg = degrees_from_packed(adj).cpu().numpy()[:n]
     want_deg = np.bincount(edges.ravel(), minlength=n)
     _require(np.array_equal(deg, want_deg), "degrees differ from the oracle")
+    k6_deg = k6_deg.cpu().numpy()
+    _require(np.array_equal(k6_deg[:n], want_deg) and not k6_deg[n:].any(),
+             "K6's degrees differ from the oracle")
     print(
         f"phase 3 hash n={n} n_pad={n_pad} words={adj.shape[1]} "
-        f"edges={edges.shape[0]}: words and degrees exact"
+        f"edges={edges.shape[0]}: K6's words and degrees exact (1 launch)"
     )
 
 
+def phase_k6(device, n=BENCH_N, p=BENCH_P, seed=1):
+    """K6 at the bench shape: the whole A and its degrees of ER(100k,
+    0.01) in one launch, bit for bit against the plain version on the
+    card, both timed (CUDA events), beside the least time of the work by
+    ``colorbench/roofline/k5.py``'s rule (8 int32 operations an unordered
+    pair; A and the degrees written once).  Returns the kernels line's K6
+    entry, whose ``launches`` phase 4 sets to the main path's own count."""
+    import torch
+
+    from mcmc_colorer_tpu_torch.ops import hash_packed as k6
+    from mcmc_colorer_tpu_torch.ops.hashgen import er_packed_and_degrees, er_packed_plain
+
+    n_pad = _round_up(n, 2048)
+    before = k6.launches
+    adj, deg = er_packed_and_degrees(n, p, seed, n_pad, device=device)
+    launches = k6.launches - before
+    _require(launches == 1, f"K6 launched {launches} times for one build, not once")
+    want, want_deg = er_packed_plain(n, p, seed, n_pad, device=device)
+    _require(torch.equal(adj, want) and torch.equal(deg, want_deg),
+             f"K6 differs from its plain version at ER({n}, {p})")
+    edges = int(want_deg.sum()) // 2
+    del want, want_deg
+    kernel_ms = _median_ms(lambda: er_packed_and_degrees(n, p, seed, n_pad, device=device))
+    plain_ms = _median_ms(lambda: er_packed_plain(n, p, seed, n_pad, device=device), runs=3)
+    n_bytes = _nbytes(adj, deg)
+    ops = 8 * (n * (n - 1) // 2)
+    bound_ms, bound_by = _bound(n_bytes, ops, INT32_OPS_PER_S)
+    print(f"phase 3 K6 ER({n}, {p}) A [{n_pad}, {adj.shape[1]}] and degrees ({edges} edges): "
+          f"exact against the plain version on the card; kernel {kernel_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms (medians, CUDA events); bound {bound_ms:.3f} ms ({bound_by}), "
+          f"{bound_ms / kernel_ms:.2%} of it")
+    return {
+        "name": "hash_packed",
+        "route": "cuda",
+        "source": "mcmc_colorer_tpu_torch/csrc/hash_packed.cu",
+        "replaces": None,  # the JAX package generates the packed A in jnp ops
+        "launches": launches,
+        "max_abs_err": 0,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "bound_share": bound_ms / kernel_ms,
+        "library_ms": None,
+        "shapes": [{"shape": f"A [{n_pad}, {adj.shape[1]}] and degrees", "launches": launches,
+                    "ms": kernel_ms, "bytes": n_bytes, "ops": ops, "bound_ms": bound_ms,
+                    "bound_by": bound_by}],
+    }
+
+
 def phase_main(device, n=BENCH_N, p=BENCH_P, graph_seed=0, seed=5):
-    """The main path, once, through the library surface; returns
-    (coloring, colorer, K1 launches during it, the host graph, K4
+    """The main path, once, through the library surface, its graph built
+    anew (the cache emptied first); returns (coloring, colorer, K1
+    launches during it, the host graph, K4 launches during it, K6
     launches during it)."""
     from mcmc_colorer_tpu_torch.config import MCMCParams, ProposalKind
     from mcmc_colorer_tpu_torch.models.base import check_coloring
     from mcmc_colorer_tpu_torch.models.mcmc_resident import ResidentMCMCColorer
+    from mcmc_colorer_tpu_torch.ops import hash_packed as k6
     from mcmc_colorer_tpu_torch.ops import packed_nc as k1
     from mcmc_colorer_tpu_torch.ops import propose_nc as k4
+    from mcmc_colorer_tpu_torch.ops.hashgen import _PACKED_CACHE
 
     params = MCMCParams(n_colors=0, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
-    k1.launches = k4.launches = 0
+    _PACKED_CACHE.clear()
+    k1.launches = k4.launches = k6.launches = 0
     t0 = time.perf_counter()
     c = ResidentMCMCColorer(n, p, graph_seed=graph_seed, params=params, device=device)
     r = c.run(seed=seed)
     wall = time.perf_counter() - t0
-    launches, launches4 = k1.launches, k4.launches
+    launches, launches4, launches6 = k1.launches, k4.launches, k6.launches
     x = r.extra
     print(
         f"phase 4 main ER({n}, {p}) n_colors={c.params.n_colors} "
@@ -419,8 +486,10 @@ def phase_main(device, n=BENCH_N, p=BENCH_P, graph_seed=0, seed=5):
         f"chain {x['chain_seconds']:.3f} s, after chain {x['tailcut_seconds']:.3f} s, "
         f"run {r.duration_ms / 1e3:.3f} s, wall {wall:.3f} s; "
         f"{x['chain_seconds'] / max(x['sweeps'], 1) * 1e3:.3f} ms/sweep; "
-        f"K1 launches {launches}, K4 launches {launches4}"
+        f"K1 launches {launches}, K4 launches {launches4}, K6 launches {launches6}"
     )
+    _require(launches6 == 1,
+             f"the main path launched K6 {launches6} times to build its graph, not once")
     _require(launches > 0, "the main path launched K1 no time")
     _require(launches4 == x["sweeps"] > 0,
              f"the main path launched K4 {launches4} times in {x['sweeps']} sweeps, not once "
@@ -445,7 +514,7 @@ def phase_main(device, n=BENCH_N, p=BENCH_P, graph_seed=0, seed=5):
         f"phase 4 check: host C++ re-derivation {host_s:.3f} s, "
         f"check {check_s:.3f} s: valid, 0 conflicts"
     )
-    return r, c, launches, g, launches4
+    return r, c, launches, g, launches4, launches6
 
 
 def phase_tight(device, n=20_000, p=0.01, graph_seed=3, seed=5):
@@ -480,11 +549,12 @@ def build_kernels():
 
     from mcmc_colorer_tpu_torch.ops import firstfit as k3
     from mcmc_colorer_tpu_torch.ops import hash_ell as k5
+    from mcmc_colorer_tpu_torch.ops import hash_packed as k6
     from mcmc_colorer_tpu_torch.ops import packed_nc as k1
     from mcmc_colorer_tpu_torch.ops import propose_nc as k4
     from mcmc_colorer_tpu_torch.ops import resample as k2
 
-    mods = {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K5": k5}
+    mods = {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K5": k5, "K6": k6}
     with ThreadPoolExecutor(len(mods)) as pool:
         futs = {k: pool.submit(m.load_kernel) for k, m in mods.items()}
         return {k: (mods[k], f.result()) for k, f in futs.items()}
@@ -3176,7 +3246,7 @@ def phase_sharded_strips(device, g, seed=5):
         t0 = time.perf_counter()
         c = ShardedMCMCColorer(None, MCMCParams(**base, **pkw), mesh, n_chains=SHARDED_CHAINS,
                                resident_spec=STRIP_SPEC, **ckw)
-        strip = ("phase 4's cached A" if any(c.strip is a for a in _PACKED_CACHE.values())
+        strip = ("phase 4's cached A" if any(c.strip is a for a, _ in _PACKED_CACHE.values())
                  else "built for it")
         print(f"phase 32 resident strips {name}: strip {list(c.strip.shape)} ({strip}), n_pad "
               f"{c.n_pad}, set-up {time.perf_counter() - t0:.3f} s")
@@ -3362,7 +3432,7 @@ def phase_strips_two_ranks(device, ref, first, seed=5, deadline_s=300.0):
     print(f"phase 34 spawn of two ranks: {wall:.3f} s")
     _require(got[0]["strip"] == got[1]["strip"], "phase 34: the ranks' strips differ in shape")
     n_pad = got[0]["colors"][1]
-    strip = er_packed_strips_on_device(*STRIP_SPEC, n_pad, Mesh(1, 2, 0, 1, device))
+    strip, _ = er_packed_strips_on_device(*STRIP_SPEC, n_pad, Mesh(1, 2, 0, 1, device))
     _require(tuple(strip.shape) == got[1]["strip"]
              and tuple(first[1].shape) == got[1]["colors"],
              "phase 34: shapes differ from the ranks'")
@@ -3939,16 +4009,19 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build_kernels()
     build_s = time.perf_counter() - t0
-    b1, b2, b3, b4, b5 = (built[k][1] for k in ("K1", "K2", "K3", "K4", "K5"))
+    b1, b2, b3, b4, b5, b6 = (built[k][1] for k in ("K1", "K2", "K3", "K4", "K5", "K6"))
     print(f"phase 1 build K1: {b1.seconds:.3f} s ({b1.path.name}); ptxas: {_ptxas(b1)}")
     print(f"phase 1 build K4: {b4.seconds:.3f} s ({b4.path.name}); ptxas: {_ptxas(b4)}")
     print(f"phase 1 build K5: {b5.seconds:.3f} s ({b5.path.name}); ptxas: {_ptxas(b5)}")
+    print(f"phase 1 build K6: {b6.seconds:.3f} s ({b6.path.name}); ptxas: {_ptxas(b6)}")
 
     err, k_ms, p_ms, k1_bytes, k1_bits = phase_k1(
         device, K1_SHAPES, bench_n_pad=_round_up(BENCH_N, 2048))
     torch.cuda.empty_cache()
     phase_hash(device)
-    r_main, c, launches, g_bench, k4_chain = phase_main(device)
+    k6_entry = phase_k6(device)
+    torch.cuda.empty_cache()
+    r_main, c, launches, g_bench, k4_chain, k6_entry["launches"] = phase_main(device)
     k4_chain = (c.n_pad, c.params.n_colors, k4_chain)
     k4_rows = phase_k4(device, c)
     torch.cuda.empty_cache()
@@ -3959,7 +4032,7 @@ def main() -> int:
 
     for label, b in (("K2", b2), ("K3", b3)):
         print(f"phase 6 build {label}: {b.seconds:.3f} s ({b.path.name}); ptxas: {_ptxas(b)}")
-    print(f"phase 6 all five builds, started together: {build_s:.3f} s")
+    print(f"phase 6 all six builds, started together: {build_s:.3f} s")
     g3, ell3, sb = setup_config3(device)
     err3, k3_ms, p3_ms, k3_bytes, k3_slots = phase_k3(device, ell3, sb)
     frac2, err2, k2_config3 = phase_k2(device, ell3, sb)
@@ -4195,6 +4268,7 @@ def main() -> int:
         },
         _k4_summary(k4_rows, k4_chain, k4_strips),
         k5_entry,
+        k6_entry,
     ]}))
     import torch.distributed as dist
 

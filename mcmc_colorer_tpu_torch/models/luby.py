@@ -60,7 +60,6 @@ from mcmc_colorer_tpu_torch.ops.dense_adj import (
     packed_adj_bytes,
 )
 from mcmc_colorer_tpu_torch.ops.hashgen import (
-    degrees_from_packed,
     er_packed_on_device_cached,
     hash_er_graph,
 )
@@ -153,8 +152,8 @@ class LubyColorer:
         self.n_pad = n_pad
         # the same cache slot as ResidentMCMCColorer: both colorers of one
         # hash graph share one device adjacency
-        self.adj = er_packed_on_device_cached(n, p, graph_seed, n_pad, device=self.device)
-        degrees = degrees_from_packed(self.adj)
+        self.adj, degrees = er_packed_on_device_cached(n, p, graph_seed, n_pad,
+                                                       device=self.device)
         host_degrees = degrees[:n].cpu().numpy()
         max_degree = int(host_degrees.max()) if n else 0
         n_edges = int(host_degrees.astype(np.int64).sum() // 2)

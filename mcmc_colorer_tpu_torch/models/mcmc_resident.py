@@ -4,8 +4,10 @@ Counterpart of ``mcmc_colorer_tpu/models/mcmc_resident.py``: the device
 builds the bit-packed adjacency of the hash graph itself
 (``ops/hashgen.py``), the balance-dynamic chain runs against it
 (``models/mcmc.py``), and what conflicts remain are repaired by the
-NC-native independent-set tailcut (``_tailcut_nc``).  Every neighbour
-interaction is NC = A·onehot(colors), kernel K1 on the card.
+NC-native independent-set tailcut (``_tailcut_nc``; where its rounds' cap
+leaves conflicts in a chain that converged, a serial first-free pass,
+``_finish_first_free``, a deliberate difference from JAX).  Every neighbour interaction is NC =
+A·onehot(colors), kernel K1 on the card.
 
 With ``active=True`` (``_run_active``) the chain runs full K1 sweeps in
 budgets of 4 until ``2·conflicts < n_pad // 8``, tested between budgets,
@@ -67,7 +69,6 @@ from mcmc_colorer_tpu_torch.ops.dense_adj import (
     resident_bytes,
 )
 from mcmc_colorer_tpu_torch.ops.hashgen import (
-    degrees_from_packed,
     er_packed_on_device_cached,
     hash_er_graph,
 )
@@ -160,23 +161,75 @@ def _tailcut_nc_round(adj, colors, coin_unif, node_mask, nc_prev=None, running=N
     return colors, conflicts, nc_new
 
 
+def _free_color_of_row(row: torch.Tensor, colors: torch.Tensor, n_colors: int,
+                       own: int) -> int:
+    """The colour a vertex takes in the serial first-free pass: its
+    smallest colour that no neighbour holds (``row``, its [words] packed
+    A row; ``colors``, every vertex's [n_pad]) where a neighbour holds
+    ``own``, its colour, and some colour is free; else ``own``."""
+    words = row.shape[0]
+    shifts = torch.arange(32, dtype=torch.int32, device=row.device)[:, None]
+    # the neighbours in column order (ops/dense_adj.packed_bit_coords)
+    bits = (row.view(words // 128, 1, 128) >> shifts) & 1
+    held = torch.zeros((n_colors + 1,), dtype=torch.bool, device=row.device)
+    held[colors[torch.nonzero(bits.flatten()).flatten()].clamp(0, n_colors)] = True
+    if bool(held[min(max(own, 0), n_colors)]) and not bool(held[:n_colors].all()):
+        return int(torch.argmin(held[:n_colors].to(torch.int32)))
+    return own
+
+
+def _finish_first_free(adj, colors, conflicts, node_mask, *, n_colors: int):
+    """What the rounds' cap left: in each chain with conflicts, every
+    vertex still in a conflict, one at a time in id order, takes its
+    smallest colour that no neighbour holds, or keeps its own where every
+    colour is held (``_free_color_of_row``; the reference CUDA program's
+    serial tailcut epilogue, ``coloringMCMC_utils.cu:tailCutting``).  One
+    at a time, no two movers meet, so each move ends its vertex's
+    conflicts.  JAX stops at the cap with the conflicts
+    (``mcmc_resident.py:491``).  The rounds end there where the two ends
+    of a conflict flip the same coin round after round: at ER(100k,
+    0.01), nCol = max degree, one job in 6,200 on an H100, its two
+    conflicted vertices with hundreds of free colours
+    (``scripts/tailcut_cap_repro.py``).  The mesh's strip tailcut ends the
+    same way (``parallel/sharded.py``).  Returns (colours, conflicts
+    [C])."""
+    colors = colors.clone()
+    nc = neighbor_color_counts(adj, colors, n_colors, node_mask)
+    for k in np.flatnonzero(conflicts > 0):
+        bad = torch.nonzero((_at_color(nc[k], colors[k]) > 0) & node_mask).flatten().tolist()
+        for v in bad:
+            colors[k, v] = _free_color_of_row(adj[v], colors[k], n_colors, int(colors[k, v]))
+    return colors, np.where(conflicts > 0, conflicts_from_packed(
+        adj, colors, n_colors, node_mask).cpu().numpy(), conflicts)
+
+
 def _tailcut_nc(adj, colors, conflicts, sources, node_mask, *, n_colors: int,
-                thread_nc: bool):
+                thread_nc: bool, z: int):
     """NC tailcut rounds of C chains: a chain runs while it has conflicts
     and fewer than its own 16 + 2·conflicts rounds, as a run of it alone
     would; only running chains draw their coins (``next(n_pad)`` a round).
     ``thread_nc`` hands each round's exit NC to the next, as JAX's single
     chain does; JAX's ensemble threads none (``mcmc_resident.py:728-735``),
-    and pays a second K1 launch a round.  Returns (colours, conflicts [C],
+    and pays a second K1 launch a round.  A chain whose chain converged
+    (it came in with at most ``z`` conflicts, the tailcut threshold) and
+    that reaches its cap with conflicts is finished by
+    ``_finish_first_free``; one that came in with more ends at its cap
+    with its conflicts, as in JAX.  Returns (colours, conflicts [C],
     rounds [C])."""
     conflicts = np.asarray(conflicts).copy()
     cap = 16 + 2 * conflicts
+    converged = conflicts <= z
     rounds = np.zeros(len(conflicts), np.int64)
     nc = None
     with span("mc.tailcut"):
         while True:
             running = (conflicts > 0) & (rounds < cap)
             if not running.any():
+                left = np.where(converged, conflicts, 0)
+                if left.any():
+                    colors, done = _finish_first_free(adj, colors, left, node_mask,
+                                                      n_colors=n_colors)
+                    conflicts = np.where(converged, done, conflicts)
                 return colors, conflicts, rounds
             with span("mc.tailcut.round"):
                 colors, fresh, nc = _tailcut_nc_round(
@@ -247,10 +300,9 @@ class ResidentMCMCColorer:
         self.n_pad = n_pad
         t0 = time.perf_counter()
         with span("mc.hashgen"):
-            self.adj = er_packed_on_device_cached(
+            self.adj, degrees = er_packed_on_device_cached(
                 n, p, graph_seed, n_pad, row_chunk, device=self.device
             )
-            degrees = degrees_from_packed(self.adj)
             self.max_degree = int(degrees.max())  # host read: waits for generation
         self.gen_seconds = time.perf_counter() - t0
         self.host_degrees = degrees[:n].cpu().numpy()
@@ -427,7 +479,8 @@ class ResidentMCMCColorer:
         if params.tailcut and conflicts.max() > 0:
             colors, conflicts, rounds = _tailcut_nc(
                 self.adj, colors, conflicts, sources, self.node_mask,
-                n_colors=params.n_colors, thread_nc=thread_nc)
+                n_colors=params.n_colors, thread_nc=thread_nc,
+                z=params.tailcut_threshold(self.n))
         return state, colors, conflicts, rounds, fc_segments, chain_s, t0
 
     def _run_active(self, source) -> tuple:
@@ -504,7 +557,8 @@ class ResidentMCMCColorer:
             if params.tailcut and conflicts > 0:
                 out, conf, tc = _tailcut_nc(
                     self.adj, colors[None], np.array([conflicts]), ChainSources([source], dev),
-                    self.node_mask, n_colors=params.n_colors, thread_nc=True)
+                    self.node_mask, n_colors=params.n_colors, thread_nc=True,
+                    z=params.tailcut_threshold(self.n))
                 colors, conflicts, tc_rounds = out[0], int(conf[0]), int(tc[0])
         else:
             state, colors, conf, tc, fc_segments, chain_s, t0 = self._chains(

@@ -10,7 +10,14 @@ so the device builds A without any upload, and the host's C++ enumerator
 checking.  The words equal the JAX package's uint32 words bit for bit.
 On a mesh (``parallel/mesh.py``) each rank builds only its own rows, its
 strip of A (``er_packed_strips_on_device``), and the degrees come from a
-banded pass that never holds A (``er_degrees_on_device``).
+pass that never holds A (``er_degrees_on_device``).
+
+Every generator goes through ``_gen_packed_rows``, which dispatches on the
+device: a CUDA tensor goes to kernel K6 (``ops/hash_packed.py``,
+``csrc/hash_packed.cu``), one launch for any window of rows, the words
+and the degrees together; a CPU tensor to the plain version
+(``gen_packed_rows_plain``: the torch ops below, a band of rows at a
+time).  There is no fallback from the card to the plain version.
 
 torch has no logical right shift and no unsigned compare for 32-bit
 integers, so the mixer works on ``int32`` tensors holding uint32 bit
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from mcmc_colorer_tpu_torch.models.base import colorer_device
+from mcmc_colorer_tpu_torch.ops import hash_packed as k6
 from mcmc_colorer_tpu_torch.ops.dense_adj import PACKED_K_CHUNK, packed_adj_words
 
 # murmur3 fmix32 constants (public domain)
@@ -83,7 +91,7 @@ def hash_edges_reference(n: int, p: float, seed: int) -> np.ndarray:
     return np.stack([i[keep], j[keep]], axis=1)
 
 
-def _gen_packed_rows(
+def _plain_band(
     r0: int, n: int, t: int, seed32: int, row_chunk: int, words: int,
     out: torch.Tensor,
 ) -> None:
@@ -109,14 +117,45 @@ def _gen_packed_rows(
         out |= edge.to(torch.int32) << b  # in place: accumulates the 32 bits
 
 
-def er_packed_on_device(
-    n: int, p: float, seed: int, n_pad: int, row_chunk: int = 2048,
-    device="cuda",
-) -> torch.Tensor:
-    """[n_pad, words] int32 bit-packed adjacency of the hash graph, built
-    on ``device`` (the current card by default, raising without one:
-    ``models/base.colorer_device``) in bands of ``row_chunk`` rows
-    written in place."""
+def gen_packed_rows_plain(
+    r0: int, n: int, t: int, seed32: int, words: int, out: torch.Tensor | None = None,
+    degrees: torch.Tensor | None = None, row_chunk: int = 2048,
+) -> None:
+    """Plain version of K6, on any device: rows [r0, r0 + rows) of the
+    packed adjacency into ``out`` ([rows, words] int32) and their degrees
+    into ``degrees`` ([rows] int32), either of which may be None, in
+    bands of ``row_chunk`` rows (without ``out`` each band is popcounted
+    and thrown away, so A is never held)."""
+    rows = (out if out is not None else degrees).shape[0]
+    dev = (out if out is not None else degrees).device
+    band = None
+    if out is None:
+        band = torch.empty((min(row_chunk, rows), words), dtype=torch.int32, device=dev)
+    for b0 in range(0, rows, row_chunk):
+        b1 = min(rows, b0 + row_chunk)
+        dst = out[b0:b1] if out is not None else band[:b1 - b0]
+        _plain_band(r0 + b0, n, t, seed32, b1 - b0, words, dst)
+        if degrees is not None:
+            degrees[b0:b1] = popcount32(dst).sum(1, dtype=torch.int32)
+
+
+def _gen_packed_rows(
+    r0: int, n: int, t: int, seed32: int, words: int, out: torch.Tensor | None = None,
+    degrees: torch.Tensor | None = None, row_chunk: int = 2048,
+) -> None:
+    """Rows [r0, r0 + rows) of the packed adjacency into ``out`` and/or
+    their degrees into ``degrees``: K6 in one launch on CUDA (raising on
+    what it does not take), the plain version on the CPU."""
+    dev = (out if out is not None else degrees).device
+    if dev.type == "cuda":
+        k6.hash_packed_cuda(r0, n, t, seed32, out, degrees)
+    elif dev.type == "cpu":
+        gen_packed_rows_plain(r0, n, t, seed32, words, out, degrees, row_chunk)
+    else:
+        raise ValueError(f"no hash generator for device {dev}")
+
+
+def _er_packed(n, p, seed, n_pad, row_chunk, device, with_degrees: bool):
     device = colorer_device(device)
     if n_pad % row_chunk:
         raise ValueError(f"row_chunk must divide n_pad ({n_pad})")
@@ -124,12 +163,44 @@ def er_packed_on_device(
         raise ValueError(f"n={n} exceeds n_pad={n_pad}")
     words = packed_adj_words(n_pad)
     adj = torch.empty((n_pad, words), dtype=torch.int32, device=device)
-    t, seed32 = er_threshold(p), seed & 0xFFFFFFFF
-    for r0 in range(0, n_pad, row_chunk):
-        _gen_packed_rows(
-            r0, n, t, seed32, row_chunk, words, adj[r0:r0 + row_chunk]
-        )
-    return adj
+    degrees = torch.empty((n_pad,), dtype=torch.int32, device=device) if with_degrees else None
+    _gen_packed_rows(0, n, er_threshold(p), seed & 0xFFFFFFFF, words, adj, degrees, row_chunk)
+    return adj, degrees
+
+
+def er_packed_on_device(
+    n: int, p: float, seed: int, n_pad: int, row_chunk: int = 2048,
+    device="cuda",
+) -> torch.Tensor:
+    """[n_pad, words] int32 bit-packed adjacency of the hash graph, built
+    on ``device`` (the current card by default, raising without one:
+    ``models/base.colorer_device``): one K6 launch on the card, bands of
+    ``row_chunk`` rows on the CPU."""
+    return _er_packed(n, p, seed, n_pad, row_chunk, device, with_degrees=False)[0]
+
+
+def er_packed_and_degrees(
+    n: int, p: float, seed: int, n_pad: int, row_chunk: int = 2048,
+    device="cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(A as :func:`er_packed_on_device` builds it, its [n_pad] int32
+    degrees): K6 writes both in one launch on the card."""
+    return _er_packed(n, p, seed, n_pad, row_chunk, device, with_degrees=True)
+
+
+def er_packed_plain(
+    n: int, p: float, seed: int, n_pad: int, row_chunk: int = 2048, device="cpu",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(A, degrees) of :func:`er_packed_and_degrees` from the plain version
+    on any ``device`` (the CPU unless asked): what K6 is held against on
+    the card."""
+    device = torch.device(device)
+    words = packed_adj_words(n_pad)
+    adj = torch.empty((n_pad, words), dtype=torch.int32, device=device)
+    degrees = torch.empty((n_pad,), dtype=torch.int32, device=device)
+    gen_packed_rows_plain(0, n, er_threshold(p), seed & 0xFFFFFFFF, words, adj, degrees,
+                          row_chunk)
+    return adj, degrees
 
 
 _PACKED_CACHE: dict = {}
@@ -138,29 +209,28 @@ _PACKED_CACHE: dict = {}
 def er_packed_on_device_cached(
     n: int, p: float, seed: int, n_pad: int, row_chunk: int = 2048,
     device="cuda",
-) -> torch.Tensor:
-    """Single-slot cache over :func:`er_packed_on_device` (on the same
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-slot cache over :func:`er_packed_and_degrees` (on the same
     default device), so colorers of the same hash graph share one device
-    adjacency."""
+    adjacency: (A, degrees), built together."""
     device = colorer_device(device)
     ck = (n, float(p), int(seed), n_pad, str(device))
-    if ck in _PACKED_CACHE:
-        return _PACKED_CACHE[ck]
-    _PACKED_CACHE.clear()  # free the old graph before building the new one
-    a = er_packed_on_device(n, p, seed, n_pad, row_chunk, device=device)
-    _PACKED_CACHE[ck] = a
-    return a
+    if ck not in _PACKED_CACHE:
+        _PACKED_CACHE.clear()  # free the old graph before building the new one
+        _PACKED_CACHE[ck] = er_packed_and_degrees(n, p, seed, n_pad, row_chunk, device=device)
+    return _PACKED_CACHE[ck]
 
 
 def er_packed_strips_on_device(
     n: int, p: float, seed: int, n_pad: int, mesh, row_chunk: int = 2048,
-) -> torch.Tensor:
-    """This rank's strip of the hash graph's packed adjacency: rows
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """This rank's strip of the hash graph's packed adjacency, rows
     ``[s·n_loc, (s+1)·n_loc)`` of the [n_pad, words] A, ``n_loc = n_pad /
-    shards`` and s the rank's shard, built on the mesh's device in bands of
-    ``row_chunk`` rows, so nothing is uploaded and nothing crosses the
-    mesh (JAX ``er_packed_strips_on_device``, whose shard s holds the same
-    words)."""
+    shards`` and s the rank's shard, and those rows' [n_loc] int32
+    degrees, built together on the mesh's device (one K6 launch on the
+    card, bands of ``row_chunk`` rows on the CPU), so nothing is uploaded
+    and nothing crosses the mesh (JAX ``er_packed_strips_on_device``,
+    whose shard s holds the same words, and returns no degrees)."""
     ms = mesh.shards
     if n_pad % ms:
         raise ValueError(f"shards must divide n_pad ({n_pad})")
@@ -169,21 +239,20 @@ def er_packed_strips_on_device(
     n_loc = n_pad // ms
     words = packed_adj_words(n_pad)
     strip = torch.empty((n_loc, words), dtype=torch.int32, device=mesh.device)
-    t, seed32 = er_threshold(p), seed & 0xFFFFFFFF
-    r_base = mesh.shard_index * n_loc
-    for r0 in range(0, n_loc, row_chunk):
-        rows = min(row_chunk, n_loc - r0)
-        _gen_packed_rows(r_base + r0, n, t, seed32, rows, words, strip[r0:r0 + rows])
-    return strip
+    degrees = torch.empty((n_loc,), dtype=torch.int32, device=mesh.device)
+    _gen_packed_rows(mesh.shard_index * n_loc, n, er_threshold(p), seed & 0xFFFFFFFF, words,
+                     strip, degrees, row_chunk)
+    return strip, degrees
 
 
 def er_degrees_on_device(
     n: int, p: float, seed: int, row_chunk: int = 2048, mesh=None, device="cuda",
 ) -> torch.Tensor:
-    """[n] int32 degrees of the hash graph from [row_chunk, words] bands
-    that are popcounted and thrown away, so the adjacency is never held
-    (JAX ``er_degrees_on_device``: how a sharded colorer resolves ``n_colors
-    = max degree`` before it builds its strips).  With ``mesh`` each rank
+    """[n] int32 degrees of the hash graph, the adjacency never held: K6
+    writing degrees alone on the card, [row_chunk, words] bands popcounted
+    and thrown away on the CPU (JAX ``er_degrees_on_device``: how a
+    sharded colorer resolves ``n_colors = max degree`` before it builds
+    its strips).  With ``mesh`` each rank
     takes its share of the rows, as JAX's shards do, on the mesh's device,
     and one all-gather over its shard group puts every degree on every
     rank; without, ``device`` (the current card by default) takes them
@@ -196,11 +265,7 @@ def er_degrees_on_device(
         rows_total = -(-n // (mesh.shards * row_chunk)) * row_chunk  # rows a shard
         dev, r_base = mesh.device, mesh.shard_index * rows_total
     deg = torch.empty((rows_total,), dtype=torch.int32, device=dev)
-    band = torch.empty((min(row_chunk, rows_total), words), dtype=torch.int32, device=dev)
-    for r0 in range(0, rows_total, row_chunk):
-        rows = min(row_chunk, rows_total - r0)
-        _gen_packed_rows(r_base + r0, n, t, seed32, rows, words, band[:rows])
-        deg[r0:r0 + rows] = popcount32(band[:rows]).sum(1, dtype=torch.int32)
+    _gen_packed_rows(r_base, n, t, seed32, words, degrees=deg, row_chunk=row_chunk)
     if mesh is not None:
         deg = mesh.all_gather_shards(deg)
     return deg[:n]

@@ -40,7 +40,10 @@ its own rows:
   lists, by the strip-native independent-set rounds
   (``_tailcut_strips_round``: coins, one all-gather of the heads, one
   ``strip & head_bits`` pass, first NC-free colours, one all-gather of
-  the colours, the exit NC by K1 carried into the next round).
+  the colours, the exit NC by K1 carried into the next round), which
+  JAX's cap of 16 + 2·conflicts ends; where they leave conflicts in a
+  colouring whose chain converged, a serial first-free pass
+  (``_finish_strips``) ends them, as on one card.
 
 ``resident_spec=(n, p, graph_seed)`` with ``graph=None`` is the hash
 graph of ``ops/hashgen.py``: each rank generates its own strip on its
@@ -100,6 +103,7 @@ from mcmc_colorer_tpu_torch.models.mcmc import (
 from mcmc_colorer_tpu_torch.models.mcmc_resident import (
     _any_neighbor_in,
     _first_free,
+    _free_color_of_row,
     _pack_mask,
     _round_up,
     _StatsShim,
@@ -114,7 +118,6 @@ from mcmc_colorer_tpu_torch.ops.dense_adj import (
     refuse_multigraph,
 )
 from mcmc_colorer_tpu_torch.ops.hashgen import (
-    degrees_from_packed,
     er_degrees_on_device,
     er_packed_on_device_cached,
     er_packed_strips_on_device,
@@ -194,10 +197,11 @@ def _resident_palette(spec: tuple, params: MCMCParams, mesh: Mesh, n_chains: int
 _RESIDENT_STRIP_CACHE: dict = {}
 
 
-def _resident_strips(spec: tuple, n_pad: int, mesh: Mesh) -> torch.Tensor:
-    """This rank's strip of the hash graph (JAX ``_resident_strips``).  On
-    one shard at the resident colorers' n_pad (n rounded up to 2048) the
-    strip is their whole A: the same cache slot
+def _resident_strips(spec: tuple, n_pad: int, mesh: Mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """This rank's strip of the hash graph and its rows' degrees, built
+    together (JAX ``_resident_strips``, which returns the strip alone).
+    On one shard at the resident colorers' n_pad (n rounded up to 2048)
+    the strip is their whole A: the same cache slot
     (``er_packed_on_device_cached``) serves both, one copy on the card."""
     n, p, seed = spec
     if mesh.shards == 1 and n_pad == _round_up(n, 2048):
@@ -325,8 +329,8 @@ class ShardedMCMCColorer:
         self.neighbors = self.strip = self.d_pad = None
         if resident_spec is not None:
             _check_strip_bytes(n_loc, self.n_pad, ms)
-            self.strip = _resident_strips(resident_spec, self.n_pad, mesh)
-            self.graph = self._stats_shim()
+            self.strip, strip_degrees = _resident_strips(resident_spec, self.n_pad, mesh)
+            self.graph = self._stats_shim(strip_degrees)
             # the frontier's rows unpacked from the strip: every real row
             # fits this many ids (JAX rows_from_strip)
             self.d_row = _round_up(max(self.graph.max_degree, 1), 8)
@@ -348,12 +352,12 @@ class ShardedMCMCColorer:
         self._real_loc = self._gids < g_n
         self._full_real = torch.arange(self.n_pad, device=dev) < g_n
 
-    def _stats_shim(self) -> _StatsShim:
-        """The hash graph's stats for the logs (JAX :267-289): each row's
-        degree is its strip row's popcount, the other ranks' rows come
-        from one all-gather over the shard group."""
+    def _stats_shim(self, strip_degrees: torch.Tensor) -> _StatsShim:
+        """The hash graph's stats for the logs (JAX :267-289): this rank's
+        rows' degrees, written with its strip, and the other ranks' from
+        one all-gather over the shard group."""
         n, p, _ = self.resident_spec
-        degrees = self.mesh.all_gather_shards(degrees_from_packed(self.strip))
+        degrees = self.mesh.all_gather_shards(strip_degrees)
         host = degrees[:n].cpu().numpy()
         max_degree = int(host.max()) if n else 0
         return _StatsShim(n, int(host.astype(np.int64).sum() // 2), host, max_degree,
@@ -1029,14 +1033,44 @@ class ShardedMCMCColorer:
         """Independent-set repair rounds of one colouring (replicated
         [n_pad]) over the strips while conflicts remain, at most 16 + 2 ·
         the entry conflicts (JAX ``run``, sharded.py:575-616), each round's
-        exit NC the next round's entry NC.  Returns (colours, conflicts
-        after the last round, rounds)."""
+        exit NC the next round's entry NC; where the cap leaves conflicts
+        in a colouring whose chain converged (it came in with at most the
+        tailcut threshold z), the serial first-free pass
+        (``_finish_strips``, a deliberate difference from JAX, as on one
+        card).  Returns (colours, conflicts at the end, rounds)."""
+        converged = conflicts <= self.params.tailcut_threshold(self.graph.n)
         cap, rounds, nc = 16 + 2 * conflicts, 0, None
         while conflicts > 0 and rounds < cap:
             colors_full, conflicts, nc = self._tailcut_strips_round(
                 colors_full, source.next(self.n_pad), nc)
             rounds += 1
+        if conflicts > 0 and converged:
+            del nc
+            colors_full, conflicts = self._finish_strips(colors_full)
         return colors_full, conflicts, rounds
+
+    def _finish_strips(self, cols: torch.Tensor):
+        """The single-card tailcut's end (``mcmc_resident._finish_first_free``)
+        over the strips: every vertex in a conflict, one at a time in id
+        order, takes its smallest colour that no neighbour holds
+        (``_free_color_of_row`` on its strip row, by the rank that holds
+        it; one all-gather over the shard group hands the colour to every
+        rank).  Returns (colours [n_pad], global conflicts)."""
+        p, off, n_loc, real = self.params, self.offset, self.n_loc, self._real_loc
+        nc = self._nc(cols)
+        bad_loc = (_at_color(nc, cols[off:off + n_loc]) > 0) & real
+        del nc
+        bad = self.mesh.all_gather_shards(bad_loc.to(torch.int32))
+        cols = cols.clone()
+        for v in torch.nonzero(bad).flatten().tolist():
+            s = v // n_loc
+            mine = torch.full((1,), -1, dtype=cols.dtype, device=cols.device)
+            if s == self.mesh.shard_index:
+                mine[0] = _free_color_of_row(self.strip[v - off], cols, p.n_colors, int(cols[v]))
+            cols[v] = self.mesh.all_gather_shards(mine)[s]
+        own = cols[off:off + n_loc]
+        cnt = torch.where(real, _at_color(self._nc(cols), own), 0).sum()
+        return cols, int(self.mesh.gather_shards_host(cnt).sum()) // 2
 
     def _tailcut_strips_round(self, cols: torch.Tensor, coins: torch.Tensor,
                               nc_prev: torch.Tensor | None = None):

@@ -201,9 +201,9 @@ def test_cli_resident_mcmc_and_luby_share_adjacency(tmp_path, monkeypatch):
     """--resident --mcmcgpu --lubygpu builds A once: both colorers take
     it from the one cache slot."""
     builds = []
-    build = hashgen.er_packed_on_device
+    build = hashgen.er_packed_and_degrees  # the cache's builder: A and its degrees
     monkeypatch.setattr(hashgen, "_PACKED_CACHE", {})
-    monkeypatch.setattr(hashgen, "er_packed_on_device",
+    monkeypatch.setattr(hashgen, "er_packed_and_degrees",
                         lambda *a, **k: builds.append(a) or build(*a, **k))
     out = tmp_path / "out"
     rc = cli_main(

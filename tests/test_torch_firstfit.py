@@ -254,7 +254,7 @@ def test_colorers_default_to_the_card(medium_er, monkeypatch, make):
 
 
 @pytest.mark.parametrize("build", ["to_ell", "to_ell_bucketed", "er_packed_on_device",
-                                   "er_packed_on_device_cached"])
+                                   "er_packed_and_degrees", "er_packed_on_device_cached"])
 def test_layout_builders_default_to_the_card(medium_er, monkeypatch, build):
     """The public layout builders put their tensors on the card by
     default, as JAX's put theirs on its default device: without CUDA they
@@ -270,8 +270,10 @@ def test_layout_builders_default_to_the_card(medium_er, monkeypatch, build):
         "to_ell_bucketed": lambda **kw: g_sorted.to_ell_bucketed(**kw).degrees,
         "er_packed_on_device": lambda **kw: hashgen.er_packed_on_device(
             300, 0.05, 1, 512, row_chunk=256, **kw),
+        "er_packed_and_degrees": lambda **kw: hashgen.er_packed_and_degrees(
+            300, 0.05, 1, 512, row_chunk=256, **kw)[1],
         "er_packed_on_device_cached": lambda **kw: hashgen.er_packed_on_device_cached(
-            300, 0.05, 1, 512, row_chunk=256, **kw),
+            300, 0.05, 1, 512, row_chunk=256, **kw)[0],
     }[build]
     for kw in ({}, {"device": "cuda"}, {"device": None}):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -240,3 +240,104 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=120, check=True,
     ).stdout.split()
     assert int(out[0]) > 10 and out[1] == "[]"
+
+
+class InStep:
+    """Coins alike for every vertex, heads and tails in turn: the two ends
+    of a conflict flip the same coin round after round, so neither moves
+    and the NC rounds reach their cap.  That is how one job of ER(100k,
+    0.01) at nCol = max degree ended unfinished on an H100
+    (``scripts/tailcut_cap_repro.py``).  ``next(n)`` is [n] (the strip
+    tailcut's), ``next(n, running)`` [C, n] (``ChainSources``')."""
+
+    def __init__(self):
+        self.rounds = 0
+
+    def next(self, n, running=None):
+        self.rounds += 1
+        shape = (n,) if running is None else (len(running), n)
+        return torch.full(shape, 0.25 if self.rounds % 2 else 0.75)
+
+
+def planted_conflict(n, p, seed, n_pad):
+    """A capped case of the hash graph at nCol = its max degree: a proper
+    first-fit colouring with one edge (u, v), u < v, made a conflict by
+    giving v u's colour (an edge whose v has no other neighbour of that
+    colour, so the conflicts are 1).  Returns (host graph, nCol, planted
+    colours [n_pad] int32, u, the colours the serial first-free pass must
+    give: u on its smallest colour no neighbour holds, v kept)."""
+    from mcmc_colorer_tpu_torch.ops.hashgen import hash_er_graph
+
+    g = hash_er_graph(n, p, seed)
+    off = np.concatenate([[0], np.cumsum(g.degrees)])
+    nbrs = [g.cols[off[v]:off[v + 1]] for v in range(n)]
+    colors = np.zeros(n_pad, np.int32)
+    for v in range(n):
+        colors[v] = min(set(range(n)) - set(colors[nbrs[v][nbrs[v] < v]].tolist()))
+    n_colors = int(g.max_degree)
+    assert colors[:n].max() < n_colors
+    u, v = next((u, v) for v in range(n) for u in nbrs[v][nbrs[v] < v].tolist()
+                if (colors[nbrs[v]] == colors[u]).sum() == 1)
+    planted = colors.copy()
+    planted[v] = colors[u]
+    want = planted.copy()
+    want[u] = min(set(range(n_colors)) - set(planted[nbrs[u]].tolist()))
+    return g, n_colors, planted, u, want
+
+
+def _capped(thread_nc, z):
+    """``planted_conflict``'s case through ``_tailcut_nc`` on ``InStep``
+    coins: (host graph, planted, u, want, colours out, conflicts, rounds,
+    coins drawn)."""
+    from mcmc_colorer_tpu_torch.models import mcmc_resident as mr
+    from mcmc_colorer_tpu_torch.ops.hashgen import er_packed_on_device
+
+    n, p, seed, n_pad = 400, 0.05, 3, 512
+    g, n_colors, planted, u, want = planted_conflict(n, p, seed, n_pad)
+    adj = er_packed_on_device(n, p, seed, n_pad, row_chunk=256, device="cpu")
+    node_mask = torch.arange(n_pad) < n
+    t = torch.from_numpy(planted)[None]
+    conf0 = mr.conflicts_from_packed(adj, t, n_colors, node_mask).numpy()
+    assert conf0.tolist() == [1]
+    coins = InStep()
+    out, conf, rounds = mr._tailcut_nc(adj, t, conf0, ChainSources([coins], "cpu"), node_mask,
+                                       n_colors=n_colors, thread_nc=thread_nc, z=z)
+    assert np.array_equal(t[0].numpy(), planted)  # the input is not written
+    return g, planted, u, want, out[0].numpy(), conf.tolist(), rounds.tolist(), coins.rounds
+
+
+@pytest.mark.parametrize("thread_nc", [True, False], ids=["threaded_nc", "fresh_nc"])
+def test_tailcut_cap_ends_with_a_first_free_pass(thread_nc):
+    """A converged chain (1 conflict, under the tailcut threshold z = 50)
+    whose NC rounds reach their cap with the conflict (both ends flipping
+    alike) is finished by the serial first-free pass: the lower end takes
+    its smallest free colour, the other keeps its own, and the colouring
+    is proper."""
+    g, planted, u, want, out, conf, rounds, drawn = _capped(thread_nc, z=50)
+    assert rounds == [16 + 2] and drawn == 18 and conf == [0]
+    assert np.array_equal(out, want) and out[u] != planted[u]
+    assert check_coloring(g, out[:g.n])
+
+
+def test_tailcut_cap_leaves_a_chain_that_did_not_converge_unfinished():
+    """A chain that came in with more conflicts than the tailcut threshold
+    (here z = 0) ends at its cap with its conflict, its colours as the
+    rounds left them, as in JAX: the serial pass finishes only a
+    converged chain's tail."""
+    _, planted, _, _, out, conf, rounds, drawn = _capped(True, z=0)
+    assert rounds == [18] and drawn == 18 and conf == [1]
+    assert np.array_equal(out, planted)
+
+
+def test_tailcut_first_free_pass_keeps_a_vertex_with_no_free_colour():
+    from mcmc_colorer_tpu_torch.models import mcmc_resident as mr
+    from mcmc_colorer_tpu_torch.ops.hashgen import er_packed_on_device
+
+    n, p, seed, n_pad = 400, 0.05, 3, 512
+    _, _, planted, _, _ = planted_conflict(n, p, seed, n_pad)
+    adj = er_packed_on_device(n, p, seed, n_pad, row_chunk=256, device="cpu")
+    node_mask = torch.arange(n_pad) < n
+    t = torch.from_numpy(planted)[None].clamp(max=0)  # one colour: every edge conflicts
+    conf0 = mr.conflicts_from_packed(adj, t, 1, node_mask).numpy()
+    out, conf = mr._finish_first_free(adj, t, conf0, node_mask, n_colors=1)
+    assert torch.equal(out, t) and conf[0] == conf0[0] > 0

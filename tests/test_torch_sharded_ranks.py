@@ -22,7 +22,8 @@ the test instead of stalling the suite.
   run at each mesh equals the 1x1 run at the same chain count, chain by
   chain (exact), and a checkpoint written at 1x1 after 2 sweeps resumes
   there equal to the uninterrupted 1x1 run (re-sharding), for the ELL
-  and for the resident strips.
+  and for the resident strips; the strip tailcut's capped end (its
+  serial first-free pass, a collective a vertex) equals the 1x1 one.
 - The CLI under ``torchrun`` with 2 ranks (``--mesh-shards 2 --device
   cpu``): exit 0, a valid colouring, rank 0 alone writing the files; over
   a host graph with ``--backend packed``, and on the resident strips.
@@ -54,7 +55,7 @@ from mcmc_colorer_tpu_torch.parallel.mesh import initialize_distributed, make_me
 from mcmc_colorer_tpu_torch.parallel.sharded import ShardedMCMCColorer
 
 from test_torch_sharded import TIMES, case_setup, exercised, jax_sources
-from test_torch_sharded_strips import SPEC, replay, run_setup
+from test_torch_sharded_strips import SPEC, replay, run_setup, strip_finish
 from test_torch_sharded_strips import exercised as strips_exercised
 
 torch.set_num_threads(2)
@@ -118,6 +119,8 @@ def _run_case(mesh, case, n_chains, replay_draws, resume_from=None):
         from mcmc_colorer_tpu_torch.ops.hashgen import er_degrees_on_device
 
         return er_degrees_on_device(*SPEC, row_chunk=128, mesh=mesh).numpy()
+    if case == "finish":  # the strip tailcut's capped end over the mesh
+        return strip_finish(mesh)[:3]
     c, p = _colorer(mesh, case, n_chains)
     run_kw = {"resume_from": resume_from} if resume_from else {}
     if replay_draws:
@@ -213,7 +216,8 @@ def test_ranks_match_jax_and_one_by_one(geometry, tmp_path):
     job = {"mesh": geometry, "ckpt": ckpt,
            "runs": [(case, case, n_chains, True, False) for case in cases]
            + [(f"own {case}", case, n_chains, False, False) for case in OWN]
-           + [(f"resume {case}", case, n_chains, False, True) for case in OWN]}
+           + [(f"resume {case}", case, n_chains, False, True) for case in OWN]
+           + [("finish", "finish", n_chains, False, False)]}
     ctx, out = spawn(job, mc * ms, tmp_path)
     try:
         jmesh = j_make_mesh(mc, ms, devices=jax.devices()[:mc * ms])
@@ -221,7 +225,10 @@ def test_ranks_match_jax_and_one_by_one(geometry, tmp_path):
     finally:
         ranks = join(ctx, out, mc * ms)
     g = interop.graph_from_jax(_graph())
+    cols, conf, rounds, want_finish = strip_finish(make_mesh(1, 1, device="cpu"))
     for got in ranks:
+        assert got["finish"][1:] == (conf, rounds) == (0, 18)
+        assert np.array_equal(got["finish"][0], cols) and np.array_equal(cols, want_finish)
         for case in cases:
             if case == "degrees":
                 assert np.array_equal(got[case], want[case])

@@ -136,17 +136,21 @@ def test_host_graph_strips_match_jax(medium_er, shards):
 @pytest.mark.parametrize("shards", [1, 2, 4])
 def test_hash_strips_and_degrees_match_jax(shards):
     """Shard s's hash strip equals rows [s·n_loc, (s+1)·n_loc) of JAX's
-    sharded strips, bit for bit; the banded degree pass equals JAX's, on
-    one device and (its rows) shard by shard."""
+    sharded strips, bit for bit, and the degrees built with it are its
+    rows' of JAX's; the banded degree pass equals JAX's, on one device and
+    (its rows) shard by shard."""
     n, prob, seed = SPEC
     n_pad = 1024 * shards if shards > 1 else 1024
     want = np.asarray(jh.er_packed_strips_on_device(n, prob, seed, n_pad, j_mesh(shards)))
     n_loc = n_pad // shards
-    for s in range(shards):
-        got = th.er_packed_strips_on_device(n, prob, seed, n_pad, rank_mesh(shards, s),
-                                            row_chunk=200)  # ragged last band
-        assert np.array_equal(interop.adjacency_to_jax(got), want[s * n_loc:(s + 1) * n_loc])
     deg_j = np.asarray(jh.er_degrees_on_device(n, prob, seed, row_chunk=128, mesh=j_mesh(shards)))
+    deg_pad = np.zeros(n_pad, np.int32)
+    deg_pad[:n] = deg_j
+    for s in range(shards):
+        got, got_deg = th.er_packed_strips_on_device(n, prob, seed, n_pad, rank_mesh(shards, s),
+                                                     row_chunk=200)  # ragged last band
+        assert np.array_equal(interop.adjacency_to_jax(got), want[s * n_loc:(s + 1) * n_loc])
+        assert np.array_equal(got_deg.numpy(), deg_pad[s * n_loc:(s + 1) * n_loc])
     assert np.array_equal(deg_j, np.asarray(jh.er_degrees_on_device(n, prob, seed)))
     assert np.array_equal(th.er_degrees_on_device(n, prob, seed, row_chunk=96,
                                                   device="cpu").numpy(), deg_j)
@@ -170,7 +174,7 @@ def test_strip_nc_matches_jax(n_colors, chains):
     n, prob, seed = SPEC
     n_pad, shards, s = 1024, 4, 1
     n_loc = n_pad // shards
-    strip = th.er_packed_strips_on_device(n, prob, seed, n_pad, rank_mesh(shards, s))
+    strip, _ = th.er_packed_strips_on_device(n, prob, seed, n_pad, rank_mesh(shards, s))
     strip_j = jnp.asarray(interop.adjacency_to_jax(strip))
     rng = np.random.default_rng(n_colors)
     colors = rng.integers(0, n_colors, (chains, n_pad)).astype(np.int32)
@@ -324,6 +328,41 @@ def test_tailcut_strips_round_matches_jax():
     entry = int(_at_color(ts._strip_nc(c.strip, torch.from_numpy(cols), c._full_real, n_colors),
                           torch.from_numpy(cols)).sum()) // 2
     assert entry >= confs[0] >= confs[1] and entry > confs[1]
+
+
+def strip_finish(mesh):
+    """The strip tailcut of ``SPEC`` at nCol = max degree on ``mesh``, from
+    ``test_torch_resident.planted_conflict``'s one conflict with coins
+    that keep both ends alike (``InStep``), so its rounds reach their cap.
+    Returns (colours [n_pad], conflicts, rounds, the colours the serial
+    first-free pass must give)."""
+    from test_torch_resident import InStep, planted_conflict
+
+    c = ShardedMCMCColorer(None, MCMCParams(n_colors=0, tailcut=True), mesh, resident_spec=SPEC)
+    _, n_colors, planted, _, want = planted_conflict(*SPEC, c.n_pad)
+    assert c.params.n_colors == n_colors
+    cols, conf, rounds = c._tailcut_strips(torch.from_numpy(planted), 1, InStep())
+    return cols.numpy(), conf, rounds, want
+
+
+def test_strip_tailcut_cap_ends_with_the_first_free_pass():
+    """The strip tailcut ends where its rounds' cap leaves a conflict as
+    the single-card tailcut does: the serial first-free pass gives the
+    colours it must (the lower end on its smallest free colour, the other
+    kept), 0 conflicts, a proper colouring, after 16 + 2 rounds; equal to
+    ``mcmc_resident._finish_first_free`` over the whole A."""
+    from mcmc_colorer_tpu_torch.models import mcmc_resident as mr
+    from test_torch_resident import planted_conflict
+
+    cols, conf, rounds, want = strip_finish(make_mesh(1, 1, device="cpu"))
+    assert (conf, rounds) == (0, 18) and np.array_equal(cols, want)
+    assert check_coloring(th_host_graph(), cols[:SPEC[0]])
+    n, n_pad = SPEC[0], cols.shape[0]
+    adj = th.er_packed_on_device(*SPEC, n_pad, row_chunk=n_pad, device="cpu")
+    _, n_colors, planted, _, _ = planted_conflict(*SPEC, n_pad)
+    out, conf1 = mr._finish_first_free(adj, torch.from_numpy(planted)[None], np.array([1]),
+                                       torch.arange(n_pad) < n, n_colors=n_colors)
+    assert np.array_equal(out[0].numpy(), cols) and conf1.tolist() == [0]
 
 
 def test_tight_palette_resident_run_is_valid_and_matches_jax():
