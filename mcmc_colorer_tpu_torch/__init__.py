@@ -31,8 +31,7 @@ What is there:
   chains and vertex shards over ``parallel.mesh`` on
   ``torch.distributed``);
 - the command line (``cli``), the baseline and validation scripts
-  (``scripts``), the offline analysis of run logs (``analysis``), and the
-  card's measurements (``measure_*``).
+  (``scripts``) and the offline analysis of run logs (``analysis``).
 
 Entry points::
 

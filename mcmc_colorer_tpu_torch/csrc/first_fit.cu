@@ -22,8 +22,7 @@
 // request for a sector of its own, and the card serves those at about
 // 1e11 a second (torch's index_select gather of the same band runs at
 // the same rate): ~1 ms a band.  Folded into 64 KB the same lookups hit
-// L1 and the kernel takes about a third of that (PERF.md, from
-// measure_kernels.py).
+// L1 and the kernel takes about a third of that (PERF.md).
 //
 // Design: one warp per row, rows_per_block rows a block.  Each lane loads
 // its ids two 16-byte vectors at a time with the streaming hint (evict

@@ -20,10 +20,9 @@
 // looked each colour up in device memory (400 KB of int32, past an SM's
 // L1), one 16-byte load of A per lane, and ran at 41 % of the bound.
 // The matrix-unit form would be n_pad^2 * n_col_pad ~ 1.16e13 int8 MACs,
-// about 12 ms at the card's dense int8 peak.  What holds this design is
-// measured with `mode` 1 and 2 (PERF.md): the stream and the
-// staging alone take ~0.6 ms, the bit walk ~0.25 ms more, the histogram
-// atomics the rest.
+// about 12 ms at the card's dense int8 peak.  Where the time goes
+// (PERF.md): the stream and the staging alone take ~0.6 ms, the bit walk
+// ~0.25 ms more, the histogram atomics the rest.
 //
 // Design: a block of rows_per_block (at most 8) warps, one warp per row,
 // walks its rows window by window.  The window's 4096 colours (8 KB as
@@ -102,12 +101,9 @@ __device__ __forceinline__ void count(unsigned c, uint32_t* hist, int n_col_pad)
 // b * 128 + w of the window.  (Popping one bit of each of the four words
 // a step issued four lookups and four atomics a step, most of them on idle
 // lanes at ~0.3 set bits a word; a warp-wide list of the bits, filled
-// through a warp scan, was no faster.)  MODE 2 looks the colours up and
-// sums them instead of counting them (a measurement).
-template <int MODE>
+// through a warp scan, was no faster.)
 __device__ __forceinline__ void count_window(uint4 v, const uint16_t* win, int lane,
-                                             uint32_t* hist, int n_col_pad,
-                                             unsigned& sink) {
+                                             uint32_t* hist, int n_col_pad) {
   const uint16_t* base = win + 4 * lane;
   uint32_t x0 = v.x, x1 = v.y, x2 = v.z, x3 = v.w;
   while (x0 | x1 | x2 | x3) {
@@ -118,8 +114,7 @@ __device__ __forceinline__ void count_window(uint4 v, const uint16_t* win, int l
     else if (t == 1) x1 &= x1 - 1;
     else if (t == 2) x2 &= x2 - 1;
     else x3 &= x3 - 1;
-    if (MODE == 2) sink += c;
-    else count(c, hist, n_col_pad);
+    count(c, hist, n_col_pad);
   }
 }
 
@@ -144,10 +139,6 @@ __device__ void count_row_wide(const uint4* __restrict__ src, int words,
   }
 }
 
-// MODE 0 counts; 1 (only streams A and stages colours) and 2 (also walks
-// the bits and looks the colours up, without counting) are measurements
-// of what the count costs, and write no defined output
-template <int MODE>
 __global__ void __launch_bounds__(32 * kMaxRows, kMinBlocks)
     packed_nc_kernel(const uint4* __restrict__ packed, const uint16_t* __restrict__ colors16,
                      int* __restrict__ out, int n_rows, int words, int n_col_pad) {
@@ -188,7 +179,7 @@ __global__ void __launch_bounds__(32 * kMaxRows, kMinBlocks)
   cp_async_wait<kDepth - 1>();
   __syncthreads();
 
-  unsigned bits = 0, sink = 0;
+  unsigned bits = 0;
   for (int k0 = 0; k0 < n_win; k0 += kPrefetch) {
 #pragma unroll
     for (int i = 0; i < kPrefetch; ++i) {
@@ -201,9 +192,7 @@ __global__ void __launch_bounds__(32 * kMaxRows, kMinBlocks)
       const uint4 v = a[i];
       if (active && k + kPrefetch < n_win) a[i] = __ldcs(src + 32 * (k + kPrefetch));
       bits += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
-      if (MODE != 1) {
-        count_window<MODE>(v, ring + (k % kRing) * kWindowCols, lane, hist, n_col_pad, sink);
-      }
+      count_window(v, ring + (k % kRing) * kWindowCols, lane, hist, n_col_pad);
       cp_async_wait<kDepth - 1>();  // window k + 1 has landed
       __syncthreads();              // for every thread, and window k is free again
     }
@@ -211,10 +200,6 @@ __global__ void __launch_bounds__(32 * kMaxRows, kMinBlocks)
 
   if (!active) return;
   int* dst_row = out + static_cast<size_t>(row) * n_col_pad;
-  if (MODE != 0) {
-    if (lane == 0) dst_row[0] = static_cast<int>(bits + sink);  // keeps the work live
-    return;
-  }
   if (__reduce_add_sync(0xffffffffu, bits) >= (1u << 16)) {  // uniform across the warp
     count_row_wide(row_src, words, colors16, dst_row, n_col_pad, lane);
     return;
@@ -228,7 +213,6 @@ __global__ void __launch_bounds__(32 * kMaxRows, kMinBlocks)
   }
 }
 
-template <int MODE>
 int launch(const void* packed, const void* colors16, void* out, int n_rows,
            int words, int n_col_pad, int rows_per_block, int n_chains, cudaStream_t stream) {
   const size_t smem = kRing * kWindowBytes +
@@ -236,7 +220,7 @@ int launch(const void* packed, const void* colors16, void* out, int n_rows,
   if (rows_per_block > kMaxRows || n_chains < 1 || n_chains > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = packed_nc_kernel<MODE>;
+  auto kernel = packed_nc_kernel;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -255,23 +239,15 @@ int launch(const void* packed, const void* colors16, void* out, int n_rows,
 extern "C" {
 
 // Launches K1 on `stream`; returns cudaGetLastError() of the launch
-// (0 on success), or cudaErrorInvalidValue for a `mode` other than 0, 1
-// or 2, more than kMaxRows rows a block, or a chain count outside 1 to
-// 65535.  Pointers are device pointers, 16-byte aligned; out is
-// [n_chains, n_rows, n_col_pad], colors16 [n_chains, words * 32].  mode 0
-// is K1; 1 and 2 are the measurements described at packed_nc_kernel.
+// (0 on success), or cudaErrorInvalidValue for more than kMaxRows rows a
+// block or a chain count outside 1 to 65535.  Pointers are device
+// pointers, 16-byte aligned; out is [n_chains, n_rows, n_col_pad],
+// colors16 [n_chains, words * 32].
 int packed_nc_launch(const void* packed, const void* colors16, void* out,
                      int n_rows, int words, int n_col_pad, int rows_per_block,
-                     int n_chains, int mode, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-#define K1_ARGS packed, colors16, out, n_rows, words, n_col_pad, rows_per_block, n_chains, s
-  switch (mode) {
-    case 0: return launch<0>(K1_ARGS);
-    case 1: return launch<1>(K1_ARGS);
-    case 2: return launch<2>(K1_ARGS);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef K1_ARGS
+                     int n_chains, void* stream) {
+  return launch(packed, colors16, out, n_rows, words, n_col_pad, rows_per_block, n_chains,
+                static_cast<cudaStream_t>(stream));
 }
 
 const char* packed_nc_error_string(int code) {

@@ -67,10 +67,6 @@
 // sampled colour may differ from the plain version's where the uniform
 // lies on a CDF step; the integer outputs are exact.
 //
-// `mode` 1 and 2 are measurement variants with no defined output: 1
-// streams the ids alone, 2 also looks the colours up and fills the
-// occupancy, without the palette passes.
-//
 // The chain axis.  An ensemble of C independent chains sweeps one shared
 // ELL (JAX vmaps pallas_sweep over its chains: parallel/chains.py:145-153).
 // Here the chain is the grid's y index: block (x, c) serves chain c, whose
@@ -175,8 +171,8 @@ __device__ __forceinline__ int visit(uint32_t* occ_lane, int copies, int n_color
 }
 
 // Streams one row's ids, fills its occupancy copies and returns the
-// lane's conflict count (mode 1: the ids alone, no lookups).
-template <bool VEC, int UNROLL, int MODE, bool STAGED>
+// lane's conflict count.
+template <bool VEC, int UNROLL, bool STAGED>
 __device__ __forceinline__ int stream_row(const int* __restrict__ src, int d_pad,
                                           int lane, const Colors<STAGED>& col,
                                           uint32_t* occ_lane, int copies,
@@ -200,11 +196,6 @@ __device__ __forceinline__ int stream_row(const int* __restrict__ src, int d_pad
         ids[u] = k < n_steps ? __ldcs(src + k) : -1;
       }
     }
-    if (MODE == 1) {
-#pragma unroll
-      for (int i = 0; i < K; ++i) n_conf += ids[i] > sid;
-      continue;
-    }
     int c[K];
 #pragma unroll
     for (int i = 0; i < K; ++i) c[i] = col(ids[i]);
@@ -225,7 +216,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) resample_kernel(
     float* __restrict__ qstar, int* __restrict__ new_taboo,
     int* __restrict__ conf, int n_rows, int d_pad, int row0,
     const int* __restrict__ self_ids, int n_colors, int n_words, int copies,
-    int kind, float lam, int lam_zero, int taboo_iterations, int mode) {
+    int kind, float lam, int lam_zero, int taboo_iterations) {
   extern __shared__ __align__(16) unsigned char smem[];
   {  // this block's chain: offset every per-chain array to its slice
     const size_t chain = blockIdx.y;
@@ -271,19 +262,17 @@ __global__ void __launch_bounds__(kMaxWarps * 32) resample_kernel(
     const int own = __ldg(cur + row);
     const int sid = self_ids != nullptr ? __ldg(self_ids + row) : row0 + row;
     const int* src = neighbors + static_cast<size_t>(row) * d_pad;
-    int n_conf = mode == 1
-        ? stream_row<VEC, UNROLL, 1>(src, d_pad, lane, col, occ_lane, copies, n_colors, own, sid)
-        : stream_row<VEC, UNROLL, 0>(src, d_pad, lane, col, occ_lane, copies, n_colors, own, sid);
-    n_conf = warp_sum(n_conf);
+    const int n_conf = warp_sum(
+        stream_row<VEC, UNROLL>(src, d_pad, lane, col, occ_lane, copies, n_colors, own, sid));
     __syncwarp();
 
     const int tab = __ldg(taboo + row);
-    if (tab > 0 || mode != 0) {  // taboo: keep the current colour, count down
+    if (tab > 0) {  // taboo: keep the current colour, count down
       if (lane == 0) {
         conf[row] = n_conf;
         star[row] = own;
         qstar[row] = keep_hi;
-        new_taboo[row] = tab > 0 ? tab - 1 : 0;
+        new_taboo[row] = tab - 1;
       }
       continue;
     }
@@ -388,7 +377,7 @@ int launch(const void* neighbors, const void* colors, int n_ids, const void* cur
            void* star, void* qstar, void* new_taboo, void* conf, int n_rows,
            int d_pad, int row0, const void* self_ids, int n_colors, int n_words,
            int copies, int kind, float lam, int lam_zero, int taboo_iterations, int warps, int grid,
-           int n_chains, size_t smem, int mode, cudaStream_t stream) {
+           int n_chains, size_t smem, cudaStream_t stream) {
   auto kernel = resample_kernel<STAGED, VEC, UNROLL>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -402,7 +391,7 @@ int launch(const void* neighbors, const void* colors, int n_ids, const void* cur
       static_cast<const float*>(eps), static_cast<int*>(star),
       static_cast<float*>(qstar), static_cast<int*>(new_taboo),
       static_cast<int*>(conf), n_rows, d_pad, row0, static_cast<const int*>(self_ids),
-      n_colors, n_words, copies, kind, lam, lam_zero, taboo_iterations, mode);
+      n_colors, n_words, copies, kind, lam, lam_zero, taboo_iterations);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -426,7 +415,7 @@ int resample_launch(const void* neighbors, const void* colors, int n_ids,
                     void* new_taboo, void* conf, int n_rows, int d_pad, int row0,
                     const void* self_ids, int n_colors, int kind, float lam, int lam_zero,
                     int taboo_iterations, int staged, int warps, int copies,
-                    int grid, int n_chains, int mode, void* stream) {
+                    int grid, int n_chains, void* stream) {
   const int n_words = (n_colors + 31) / 32;
   size_t smem = round16(static_cast<size_t>(warps) * n_words * copies * 4);
   if (staged) {
@@ -442,7 +431,7 @@ int resample_launch(const void* neighbors, const void* colors, int n_ids,
 #define K2_ARGS                                                                   \
   neighbors, colors, n_ids, cur, taboo, unif, p_eff, eps, star, qstar, new_taboo, \
       conf, n_rows, d_pad, row0, self_ids, n_colors, n_words, copies, kind, lam,  \
-      lam_zero, taboo_iterations, warps, grid, n_chains, smem, mode, s
+      lam_zero, taboo_iterations, warps, grid, n_chains, smem, s
   if (staged) {
     return vec ? launch<true, true, 2>(K2_ARGS) : launch<true, false, 8>(K2_ARGS);
   }

@@ -107,8 +107,9 @@ def pick_cap(caps: list[int], count: int) -> int:
 
 def round_range(loop: str, cap: int):
     """A profiler range around one frontier round, named by its loop and
-    its cap (``measure_kernels.py --colorers`` groups the rounds by the
-    name); without a profiler the shared no-op span (``utils/spans.py``)."""
+    its cap, so that a profiler trace of a run groups the rounds by loop
+    and cap; without a profiler the shared no-op span
+    (``utils/spans.py``)."""
     return span(f"{loop} round cap={cap}")
 
 

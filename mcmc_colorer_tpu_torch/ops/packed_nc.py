@@ -50,7 +50,7 @@ def load_kernel():
 
         built = build_library("packed_nc", SOURCE)
         fn = built.lib.packed_nc_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = built.lib.packed_nc_error_string
         err.argtypes = [ctypes.c_int]
@@ -106,11 +106,8 @@ def _colors16(colors_k: torch.Tensor, n_col_pad: int) -> torch.Tensor:
     return torch.where(v >= 2**15, v - 2**16, v).to(torch.int16)
 
 
-def packed_nc_cuda(packed: torch.Tensor, colors: torch.Tensor, n_col_pad: int, *,
-                   mode: int = 0) -> torch.Tensor:
-    """Launch K1 on the current stream of the tensors' card.  ``mode`` 1
-    or 2 launches one of the measurement variants of ``csrc/packed_nc.cu``
-    (no defined output), for measuring what holds the kernel."""
+def packed_nc_cuda(packed: torch.Tensor, colors: torch.Tensor, n_col_pad: int) -> torch.Tensor:
+    """Launch K1 on the current stream of the tensors' card."""
     global launches
     _check(packed, colors, n_col_pad)
     if packed.device.type != "cuda":
@@ -135,7 +132,7 @@ def packed_nc_cuda(packed: torch.Tensor, colors: torch.Tensor, n_col_pad: int, *
     with torch.cuda.device(packed.device):
         rc = lib.packed_nc_launch(
             packed.data_ptr(), colors16.data_ptr(), out.data_ptr(),
-            rows, words, n_col_pad, rows_per_block, chains, mode,
+            rows, words, n_col_pad, rows_per_block, chains,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:

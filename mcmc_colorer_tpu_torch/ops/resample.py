@@ -93,7 +93,7 @@ def load_kernel():
         fn.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 9
             + [ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 2
-            + [ctypes.c_float] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            + [ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         err = built.lib.resample_error_string
@@ -220,12 +220,10 @@ def resample_sweep(neighbors, colors, cur, taboo, row0: int, unif, p_eff, eps,
 
 
 def resample_sweep_cuda(neighbors, colors, cur, taboo, row0: int, unif, p_eff, eps,
-                        params: MCMCParams, self_ids=None, *, _l2: bool = False,
-                        mode: int = 0):
+                        params: MCMCParams, self_ids=None, *, _l2: bool = False):
     """Launch K2 on the current stream of the tensors' card.  ``_l2``
     forces the L2 regime, so that a check can hold both regimes on the
-    same inputs.  ``mode`` 1 or 2 launches one of the measurement
-    variants of ``csrc/resample.cu`` (no defined output)."""
+    same inputs."""
     global launches
     n_colors = params.n_colors
     chains = _chains(colors)
@@ -273,7 +271,7 @@ def resample_sweep_cuda(neighbors, colors, cur, taboo, row0: int, unif, p_eff, e
             None if self_ids is None else self_ids.data_ptr(), n_colors,
             _KIND_CODE[params.proposal],
             float(params.lambda_), int(params.lambda_ == 0.0), params.taboo_iterations,
-            int(shape.staged), shape.warps, shape.copies, blocks, max(chains, 1), mode,
+            int(shape.staged), shape.warps, shape.copies, blocks, max(chains, 1),
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:

@@ -2,8 +2,8 @@
 and of ``mcmc_colorer_tpu/utils/memtrack.py``).
 
 The numbers come from the CUDA caching allocator
-(``torch.cuda.memory_stats``); ``measure_kernels.py --colorers`` reads
-each colorer run's peak from them.  ``estimate_run_bytes`` is JAX's
+(``torch.cuda.memory_stats``), the peak of a run among them.
+``estimate_run_bytes`` is JAX's
 analytic footprint of a chain run, kept as its counterpart (its formula
 is JAX's, not fitted to the port).
 """

@@ -8,8 +8,8 @@ neighbour gathers, and the colorers' refusal to run without a card
 unless asked for the CPU.
 
 First fit is integer work: every comparison is exact.  The CUDA kernel
-itself runs only on the card, where ``chip_smoke.py`` holds it against
-the same plain version, exactly.
+itself runs only on the card, where ``test_torch_card_kernels.py``
+holds it against the same plain version, exactly.
 """
 
 import jax.numpy as jnp

@@ -28,6 +28,8 @@ from mcmc_colorer_tpu_torch.models.mcmc import MCMCColorer, choose_block_size
 from mcmc_colorer_tpu_torch.ops import hash_ell as k5
 from mcmc_colorer_tpu_torch.ops.hashgen import hash_er_graph
 
+from torch_card import card  # noqa: F401  (the fixture)
+
 CASES = [  # (n, p, seed, n_pad, pad_degree_to)
     (300, 0.05, 3, 384, 8),            # n off the padding
     (257, 0.0, 1, 264, 8),             # no edge at all
@@ -197,14 +199,6 @@ def test_the_build_is_spanned():
         hg.to_ell(pad_nodes_to=128)
     names = {e.name for e in prof.events()}
     assert {"mc.hash_ell", "mc.hash_ell.count", "mc.hash_ell.fill"} <= names
-
-
-@pytest.fixture
-def card():
-    """The card, or a skip where there is none (decided here, at run time)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: K5 is a CUDA kernel with no CPU mode")
-    return torch.device("cuda", 0)
 
 
 @pytest.mark.card

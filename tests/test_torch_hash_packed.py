@@ -19,6 +19,8 @@ from mcmc_colorer_tpu_torch.ops import hashgen
 from mcmc_colorer_tpu_torch.ops.dense_adj import packed_adj_words
 from mcmc_colorer_tpu_torch.parallel.mesh import Mesh
 
+from torch_card import card  # noqa: F401  (the fixture)
+
 torch.set_num_threads(2)
 
 
@@ -102,14 +104,6 @@ def test_k6_checks_before_any_launch(call, err):
     with pytest.raises(err):
         call()
     assert k6.launches == before
-
-
-@pytest.fixture
-def card():
-    """The card, or a skip where there is none (decided here, at run time)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: K6 is a CUDA kernel with no CPU mode")
-    return torch.device("cuda", 0)
 
 
 @pytest.mark.card

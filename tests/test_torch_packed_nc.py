@@ -5,7 +5,7 @@ bits and a one-hot, exact because every partial sum is an integer below
 2**24) and the CPU dispatch of ``neighbor_color_counts`` must equal JAX's
 ``packed_nc_pallas`` (interpret mode on the CPU) and
 ``neighbor_color_counts`` exactly.  The CUDA kernel itself is held
-against the plain version on the card by ``chip_smoke.py``.
+against the plain version on the card by ``test_torch_card_kernels.py``.
 """
 
 import jax.numpy as jnp

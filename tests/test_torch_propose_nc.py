@@ -12,11 +12,13 @@ dtype, rank, device or width; no launch on the CPU.
 The case marked ``card`` holds the kernel against the plain version on
 the card (``python -m pytest --noconftest -m card
 tests/test_torch_propose_nc.py``: this file imports no JAX, which does
-not run on the card): conf2 exact, the samples equal but at CDF-boundary
-rows (``cdf_boundary.py``), new_taboo equal and Σ log qstar within 1e-4
-relative where they agree, at palettes whose rows the kernel stages in
-shared memory and one whose rows it reads in place.
+not run on the card) by ``torch_card.k4_agrees``: conf2 exact, the
+samples equal but at CDF-boundary rows, new_taboo equal and Σ log qstar
+within 1e-4 relative where they agree, at palettes whose rows the kernel
+stages in shared memory and one whose rows it reads in place.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -27,11 +29,29 @@ from mcmc_colorer_tpu_torch.models import mcmc as tm
 from mcmc_colorer_tpu_torch.ops import propose_nc as k4
 from mcmc_colorer_tpu_torch.ops.dense_adj import n_col_pad_of
 
-from cdf_boundary import assert_boundary_only
+from torch_card import card, k4_agrees  # noqa: F401  (card: the fixture)
 
 torch.set_num_threads(2)
 
 ROWS, BLOCK = 1000, 384  # ragged: 1000 rows in blocks of 384
+
+
+@functools.lru_cache(maxsize=8)
+def _draws(chains, n_colors, taboo_max, seed, rows):
+    """``make_inputs``' random draws, which the proposal kind does not
+    enter: made once for the kinds that share a seed (numpy's binomial
+    takes most of a card case's time)."""
+    rng = np.random.default_rng(seed)
+    nc = rng.binomial(3, 0.25, (chains, rows, n_colors)).astype(np.int32)
+    nc[:, ::97] += 1                 # rows with no free colour
+    real = rng.random(rows) > 0.05
+    real[-37:] = False               # a padded tail, and phantoms among real rows
+    cur = rng.integers(0, n_colors, (chains, rows)).astype(np.int32)
+    cur[:, ~real] = n_colors
+    taboo = rng.integers(0, taboo_max + 1, (chains, rows)).astype(np.int32)
+    unif = rng.random((chains, rows), dtype=np.float32)
+    hists = [rng.integers(0, rows // 4, n_colors) for _ in range(chains)]
+    return nc, real, cur, taboo, unif, hists
 
 
 def make_inputs(chains, n_colors, taboo_max, kind, seed, rows=ROWS, device="cpu",
@@ -40,24 +60,17 @@ def make_inputs(chains, n_colors, taboo_max, kind, seed, rows=ROWS, device="cpu"
     colour taken) over ``n_col_pad`` columns (by default K1's padding of
     the palette), colours with phantom rows at the out-of-palette colour
     n_colors, taboo counters, uniforms and each chain's p_eff."""
-    rng = np.random.default_rng(seed)
+    nc, real, cur, taboo, unif, hists = _draws(chains, n_colors, taboo_max, seed, rows)
     n_col_pad = n_col_pad or n_col_pad_of(n_colors)
-    nc = np.zeros((chains, rows, n_col_pad), np.int32)  # K1 leaves the padding at 0
-    nc[:, :, :n_colors] = rng.binomial(3, 0.25, (chains, rows, n_colors))
-    nc[:, ::97, :n_colors] += 1      # rows with no free colour
-    real = rng.random(rows) > 0.05
-    real[-37:] = False               # a padded tail, and phantoms among real rows
-    cur = rng.integers(0, n_colors, (chains, rows)).astype(np.int32)
-    cur[:, ~real] = n_colors
-    taboo = rng.integers(0, taboo_max + 1, (chains, rows)).astype(np.int32)
-    unif = rng.random((chains, rows), dtype=np.float32)
     params = MCMCParams(n_colors=n_colors, proposal=kind, taboo_iterations=taboo_max)
-    hists = [torch.from_numpy(rng.integers(0, rows // 4, n_colors)) for _ in range(chains)]
     p_eff = None
     if kind != ProposalKind.STANDARD:
-        p_eff = torch.stack([tm._variant_distribution(params, h, rows) for h in hists])
-    t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
-    return (t(nc), t(cur), t(taboo), t(unif), t(real),
+        p_eff = torch.stack([tm._variant_distribution(params, torch.tensor(h), rows)
+                             for h in hists])
+    t = lambda x: torch.tensor(x, device=device)  # a copy: the draws are shared  # noqa: E731
+    padded = torch.zeros((chains, rows, n_col_pad), dtype=torch.int32, device=device)
+    padded[..., :n_colors] = t(nc)  # K1 leaves the padding at 0
+    return (padded, t(cur), t(taboo), t(unif), t(real),
             None if p_eff is None else p_eff.to(device),
             torch.tensor(params.epsilon, dtype=torch.float32, device=device), params)
 
@@ -161,14 +174,6 @@ def test_no_launch_on_the_cpu():
     assert k4.launches == before == 0
 
 
-@pytest.fixture
-def card():
-    """The card, or a skip where there is none (decided here, at run time)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: K4 is a CUDA kernel with no CPU mode")
-    return torch.device("cuda", 0)
-
-
 @pytest.mark.card
 @pytest.mark.parametrize("n_colors, n_col_pad", [
     (24, None), (150, None), (1150, None), (2100, None),
@@ -189,25 +194,6 @@ def test_kernel_against_the_plain_version(card, kind, taboo_max, n_colors, n_col
     torch.cuda.synchronize()
     assert k4.launches == launches + 1
     want = k4.propose_nc_plain(nc, cur, taboo, unif, real, p_eff, eps, params, BLOCK)
-    assert torch.equal(conf2, want[3])
-    logq = torch.log(qstar.clamp(min=1e-30)).sum(1)
-    n_col_pad = nc.shape[2]
     for k in range(3):
-        p_pad = None
-        if p_eff is not None:
-            p_pad = torch.zeros(n_col_pad, device=card)
-            p_pad[:n_colors] = p_eff[k]
-        q = tm._proposal_q(cur[k], nc[k] > 0, params, p_pad, eps, n_colors)
-        cdf = torch.cumsum(q, 1).cpu().numpy()
-        mism = assert_boundary_only(star[k].cpu().numpy(), want[0][k].cpu().numpy(),
-                                    unif[k].cpu().numpy(), cdf, rows)
-        keep = np.ones(rows, bool)
-        keep[mism] = False
-        assert np.array_equal(new_taboo[k].cpu().numpy()[keep], want[1][k].cpu().numpy()[keep])
-        # Σ log qstar over the rows where the samples agree: a boundary row's
-        # two colours have different q
-        m = torch.from_numpy(mism).to(card)
-        q_plain = q[m, want[0][k][m].long()]
-        got = float(logq[k] - torch.log(qstar[k][m].clamp(min=1e-30)).sum())
-        ref = float(want[2][k] - torch.log(q_plain.clamp(min=1e-30)).sum())
-        np.testing.assert_allclose(got, ref, rtol=1e-4)
+        k4_agrees((star, new_taboo, qstar, conf2), want,
+                  (nc, cur, taboo, unif, real, p_eff, eps, params), k)

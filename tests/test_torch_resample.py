@@ -18,8 +18,9 @@ Tolerances, and why:
 - qstar: float32 q at the chosen colour, rtol 1e-5 where the colours
   agree.
 
-The CUDA kernel runs only on the card, where ``chip_smoke.py`` holds it
-against the same plain version under the same rule.
+The CUDA kernel runs only on the card, where
+``test_torch_card_kernels.py`` holds it against the same plain version
+under the same rule.
 """
 
 import jax.numpy as jnp

@@ -12,6 +12,7 @@
   valid colouring of the same graph as JAX's.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -221,25 +222,53 @@ def test_unported_paths_raise(monkeypatch, tmp_path):
         ResidentMCMCColorer(td.PACKED_ADJ_MAX_N + 1, 0.001, graph_seed=1, device="cpu")
 
 
-def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, load no jax and nothing
-    of the JAX package."""
+# what must load on the card's machine, which has no JAX: the port's
+# modules, the kernel timer and the test files run there with --noconftest
+NO_JAX = sorted(
+    ".".join(f.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+    for f in (REPO / "mcmc_colorer_tpu_torch").rglob("*.py")
+) + ["kernel_times", "test_torch_hash_ell", "test_torch_hash_packed", "test_torch_propose_nc"] + [
+    f.stem for f in sorted((REPO / "tests").glob("test_torch_card_*.py"))]
+
+
+@pytest.fixture(scope="module")
+def loaded_by():
+    """{module: the top-level names of JAX and the JAX package loaded by
+    importing it}: one subprocess, which imports what every module shares
+    (torch, numpy, pytest; none of them JAX) and then each module in a
+    child process forked from it, so each starts with none of them."""
     code = (
-        "import importlib, pkgutil, sys\n"
-        "BAD = ('jax', 'jaxlib', 'mcmc_colorer_tpu')\n"
-        "import mcmc_colorer_tpu_torch as m\n"
-        "for x in pkgutil.walk_packages(m.__path__, m.__name__ + '.'):\n"
-        "    importlib.import_module(x.name)\n"
-        "import chip_smoke\n"
-        "top = [k.split('.')[0] for k in sys.modules]\n"
-        "print(top.count('mcmc_colorer_tpu_torch'), [k for k in top if k in BAD])\n"
+        "import importlib, json, os, sys\n"
+        "import numpy, pytest, torch\n"
+        "BAD = {'jax', 'jaxlib', 'mcmc_colorer_tpu'}\n"
+        "for name in sys.argv[1:]:\n"
+        "    r, w = os.pipe()\n"
+        "    if os.fork() == 0:\n"
+        "        try:\n"
+        "            importlib.import_module(name)\n"
+        "            got = sorted(BAD & {k.split('.')[0] for k in sys.modules})\n"
+        "        except BaseException as e:\n"
+        "            got = [repr(e)]\n"
+        "        os.write(w, json.dumps([name, got]).encode())\n"
+        "        os._exit(0)\n"
+        "    os.close(w)\n"
+        "    with os.fdopen(r) as f:\n"
+        "        print(f.read(), flush=True)\n"
+        "    os.wait()\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.pathsep.join([str(REPO), str(REPO / "tests")])
     out = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=120, check=True,
-    ).stdout.split()
-    assert int(out[0]) > 10 and out[1] == "[]"
+        [sys.executable, "-c", code, *NO_JAX], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=600, check=True,
+    ).stdout
+    return dict(json.loads(line) for line in out.splitlines())
+
+
+@pytest.mark.parametrize("module", NO_JAX)
+def test_port_imports_no_jax(loaded_by, module):
+    """Importing the module loads no jax and nothing of the JAX package."""
+    assert loaded_by[module] == []
 
 
 class InStep:

@@ -39,7 +39,7 @@ def test_device_memory_stats_without_a_card(monkeypatch):
 @pytest.mark.parametrize("loop", ["gff", "vff", "luby"])
 def test_frontier_rounds_in_profiler_ranges(loop):
     """Each frontier round runs in one profiler range named by its loop
-    and cap, which is how measure_kernels.py --colorers groups them."""
+    and cap, by which a profiler trace of a run groups them."""
     g = erdos_renyi(500, 0.05, seed=3)
     if loop == "gff":
         c = GreedyFFColorer(g, active=True, device="cpu")
