@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The port's kernels K1-K6 timed on the card at the shapes the benchmark's
-cells launch them, each beside its plain version and the least time the
-card could take for the same work.
+"""The port's kernels K1-K6 and the ELL tailcut's lower-movable kernel
+timed on the card at the shapes the benchmark's cells launch them, each
+beside its plain version and the least time the card could take for the
+same work.
 
     python3 kernel_times.py [--parent DIR] [--out PATH]
 
@@ -25,7 +26,9 @@ inputs:
   rate and the operations over their peak, from the kernel's work count
   in ``colorbench/roofline/`` and the peaks of ``colorbench/peaks.py``
   (K6, which has none, by K5's: a build of the same graph whose rectangle
-  is A's words); ``bound_share`` = ``bound_ms / device_ms``, and
+  is A's words; the lower-movable kernel, which has none either, by its
+  bytes: the rows' movable flags read and written, the movable rows'
+  ids); ``bound_share`` = ``bound_ms / device_ms``, and
   ``bound_share_event`` = ``bound_ms / ms``, which counts the host's time
   before a launch too.
 
@@ -35,8 +38,10 @@ with ``git archive`` into a git-ignored directory) run on the same inputs
 in the same rounds, in turns with these (``parent_ms``, ``parent_ms_range``,
 ``parent_device_ms``).
 
-Each kernel's build prints its registers, shared memory and spills (as
-``nvcc -Xptxas -v`` gives them), the parent's too.  The output is one JSON
+Each kernel source's build prints, for each kernel instance in it, its
+registers, shared memory and spills (as ``nvcc -Xptxas -v`` gives them),
+the parent's too.  K3's shapes hold the greedy instance's launches and
+the tailcut's (those with ``flag``), apart.  The output is one JSON
 line per kernel, then the card's name and power limit; all of it also
 goes to ``--out``.
 """
@@ -65,10 +70,12 @@ KERNELS = {
     "K4": ("propose_nc", "propose_nc_cuda", "propose_nc_plain", "k4", "propose_nc_kernel"),
     "K5": ("hash_ell", "hash_ell_cuda", None, "k5", "hash_ell_kernel"),
     "K6": ("hash_packed", "hash_packed_cuda", None, None, "hash_packed_kernel"),
+    "K3-lower": ("firstfit", "lower_movable_cuda", "lower_movable_plain", None,
+                 "lower_movable_kernel"),
 }
 # the arguments a launch reads and never writes, and which stay alive
 # with the graph: kept as they are, where the others are cloned
-SHARED_ARG = {"K1": 0, "K2": 0, "K3": 0}
+SHARED_ARG = {"K1": 0, "K2": 0, "K3": 0, "K3-lower": 0}
 RUNS, ROUNDS, K5_PLAIN_ROWS = 10, 5, 128
 
 
@@ -89,9 +96,13 @@ def ops_module(name: str, root: Path | None = None):
 
 
 def ptxas(source: Path) -> str:
-    """What ptxas says of each kernel of ``source`` (registers, shared
-    memory, spills), from an nvcc run of the build's own flags into a
-    scratch directory: a library loaded from an earlier build has no log."""
+    """What ptxas says of each kernel instance of ``source`` (registers,
+    shared memory, spills), from an nvcc run of the build's own flags into
+    a scratch directory: a library loaded from an earlier build has no
+    log.  Each instance is named as ``cu++filt`` demangles it, without its
+    parameter list (``_without_params``), where the toolkit has it."""
+    import re
+    import shutil
     import tempfile
 
     from mcmc_colorer_tpu_torch.utils import cuda_build
@@ -100,18 +111,46 @@ def ptxas(source: Path) -> str:
         proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
                                str(Path(td) / "k.so"), str(source)],
                               capture_output=True, text=True, check=True)
-    return " | ".join(ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-                      if "registers" in ln or "spill" in ln)
+    entries: dict[str, list[str]] = {}
+    name = ""
+    for ln in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", ln)
+        if m:
+            name = m.group(1)
+            entries.setdefault(name, [])
+        elif "registers" in ln or "spill" in ln:
+            entries.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    filt = shutil.which("cu++filt") or str(Path(cuda_build._nvcc()).with_name("cu++filt"))
+    names = list(entries)
+    if names and Path(filt).exists():
+        out = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                             text=True).stdout.splitlines()
+        if len(out) == len(names):
+            names = [_without_params(n) for n in out]
+    return " | ".join(f"{n}: {'; '.join(v)}" for n, v in zip(names, entries.values()))
+
+
+def _without_params(name: str) -> str:
+    """A demangled kernel name without ``void`` and its parameter list:
+    ``ns::k<(bool)1, (int)2>``."""
+    name = name.removeprefix("void ")
+    close = name.rfind(">")
+    if close >= 0 and name[close + 1:close + 2] in ("(", ""):
+        return name[:close + 1]
+    return name.split("(")[0]
 
 
 def build(mods: dict, label: str) -> None:
     """Load every kernel (its nvcc runs started together) and print what
-    ptxas says of each."""
-    with ThreadPoolExecutor(len(mods)) as pool:
-        built = dict(zip(mods, pool.map(lambda m: m.load_kernel(), mods.values())))
-        reports = dict(zip(mods, pool.map(lambda m: ptxas(m.SOURCE), mods.values())))
-    for k, b in built.items():
-        print(f"{label} {k} {b.path.name}: loaded in {b.seconds:.3f} s; ptxas: {reports[k]}")
+    ptxas says of each source's instances, once a source."""
+    by_source = {m.SOURCE: m for m in mods.values()}
+    with ThreadPoolExecutor(len(by_source)) as pool:
+        built = dict(zip(by_source, pool.map(lambda m: m.load_kernel(), by_source.values())))
+        reports = dict(zip(by_source, pool.map(ptxas, by_source)))
+    for src, b in built.items():
+        names = " ".join(k for k, m in mods.items() if m.SOURCE == src)
+        print(f"{label} {names} {b.path.name}: loaded in {b.seconds:.3f} s; "
+              f"ptxas: {reports[src]}")
 
 
 def _key(args, kwargs) -> tuple:
@@ -252,6 +291,12 @@ def bound(kernel: str, args, kwargs, memo) -> tuple[float, str]:
     the same graph into a rectangle of A's words (a count and a fill)."""
     from colorbench import peaks, spec
 
+    if kernel == "K3-lower":
+        neigh, movable = args[:2]
+        row0 = kwargs.get("row0", 0)
+        mine = movable[:, row0:row0 + neigh.shape[0]]
+        n_bytes = 2 * mine.numel() + int(mine.sum()) * neigh.shape[1] * neigh.element_size()
+        return peaks.bound_s(n_bytes, 0, 1.0) * 1e3, "bytes"
     if kernel == "K6":
         _r0, n, _t, _s, out, degrees = args
         rows = torch.empty(((out if out is not None else degrees).shape[0],))
@@ -268,12 +313,25 @@ def bound(kernel: str, args, kwargs, memo) -> tuple[float, str]:
     return total * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
+def _takes(fn, args, kwargs) -> bool:
+    """Whether ``fn`` takes these arguments (a parent's launch function may
+    lack a keyword, such as K3's tailcut call)."""
+    import inspect
+
+    try:
+        inspect.signature(fn).bind(*args, **kwargs)
+    except TypeError:
+        return False
+    return True
+
+
 def time_shape(kernel, launches, inputs, mods, parent, memo) -> dict:
     """One shape's row: the kernel (and the parent's) in turns, device
     time, the plain version, the bound."""
     args, kwargs = inputs
     fns = {"": lambda: getattr(mods[kernel], KERNELS[kernel][1])(*args, **kwargs)}
-    if parent.get(kernel) is not None:
+    if parent.get(kernel) is not None and _takes(getattr(parent[kernel], KERNELS[kernel][1]),
+                                                 args, kwargs):
         fns["parent_"] = lambda: getattr(parent[kernel], KERNELS[kernel][1])(*args, **kwargs)
     rounds = {k: [] for k in fns}
     for r in range(ROUNDS):
@@ -316,6 +374,8 @@ def main() -> int:
     parent = {}
     if args.parent is not None:
         parent = {k: ops_module(v[0], args.parent.resolve()) for k, v in KERNELS.items()}
+        # a parent without a kernel's launch function runs none of it
+        parent = {k: m if hasattr(m, KERNELS[k][1]) else None for k, m in parent.items()}
         build({k: m for k, m in parent.items() if m is not None}, "parent build")
     seen = run_cells(device, mods)
     from colorbench.trace import Memo

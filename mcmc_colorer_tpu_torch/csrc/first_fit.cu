@@ -47,6 +47,29 @@
 // colors[c * n_ids, ...) and its cur[c * n_rows, ...) and writes
 // out[c * n_rows, ...); neighbors and allow are shared.  C = 1 is the
 // one-chain launch.
+//
+// The tailcut instance (TAILCUT = true, first_fit_tailcut_launch).  A
+// round of the ELL tailcut needs, besides each row's first fit over every
+// colour, whether some neighbour holds the row's own colour (flag) and
+// each chain's count of such pairs towards a higher id (the conflict
+// edges of the colouring the round starts from).  Both come from the
+// colours the warp looks up for the occupancy mask anyway, so the round
+// reads its ids once: each lane compares its looked-up colours with the
+// row's own, colors[c, row0 + row], the warp ORs the flags and sums the
+// counts (__reduce_add_sync), and lane 0 adds a non-zero sum to count[c]
+// with one atomic.  The rows are ids row0 .. row0 + n_rows - 1 of the
+// colour vector (a flat ELL at row0 = 0, or one rectangle of the
+// degree-bucketed layout), so out and flag are [n_chains, n_ids] and
+// written at row0 + row; cur and allow_bits are not read: every colour
+// below n_colors is allowed.  The greedy instance (TAILCUT = false)
+// compiles to the code it had before (the same registers).
+//
+// lower_movable_kernel: the round's second pass.  lower[c, v] = movable[c,
+// v] and some neighbour u < v has movable[c, u].  A warp takes 32
+// consecutive rows, reads their 32 movable bytes in one ballot and scans
+// the ids of the movable rows only (after the chain they are few), each
+// with the whole warp, stopping at the first movable lower neighbour;
+// lane l then writes row l's answer.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,13 +90,25 @@ __device__ __forceinline__ int gather(const int* __restrict__ colors, int id,
              : -1;
 }
 
-// VEC: d_pad % 4 == 0, so a row is whole 16-byte vectors
-template <bool VEC, int UNROLL>
+// the tailcut's test of one looked-up colour c of neighbour id against
+// the row's own colour
+__device__ __forceinline__ void same_color(int c, int id, int own, int vid, bool& hit,
+                                           int& cnt) {
+  if (c == own) {
+    hit = true;
+    cnt += id > vid;
+  }
+}
+
+// VEC: d_pad % 4 == 0, so a row is whole 16-byte vectors.  TAILCUT: the
+// tailcut instance (the header): flag and count beside the first fit.
+template <bool VEC, int UNROLL, bool TAILCUT>
 __global__ void first_fit_kernel(
     const int* __restrict__ neighbors, const int* __restrict__ colors,
     int n_ids, const uint32_t* __restrict__ allow_bits,
     const int* __restrict__ cur, int* __restrict__ out, int n_rows,
-    int d_pad, int n_colors, int n_words, int copies) {
+    int d_pad, int n_colors, int n_words, int copies, int row0,
+    uint8_t* __restrict__ flag, unsigned long long* __restrict__ count) {
   extern __shared__ uint32_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -81,8 +116,17 @@ __global__ void first_fit_kernel(
   if (row >= n_rows) return;  // uniform across the warp
   const size_t chain = blockIdx.y;
   colors += chain * n_ids;
-  if (cur != nullptr) cur += chain * n_rows;
-  out += chain * n_rows;
+  int own = -1, vid = 0, cnt = 0;  // the tailcut's: own colour, id, count
+  bool hit = false;
+  if constexpr (TAILCUT) {
+    vid = row0 + row;
+    own = __ldg(colors + vid);
+    out += chain * n_ids + row0;
+    flag += chain * n_ids + row0;
+  } else {
+    if (cur != nullptr) cur += chain * n_rows;
+    out += chain * n_rows;
+  }
 
   const int row_words = n_words * copies;
   uint32_t* occ = smem + static_cast<size_t>(warp) * row_words;
@@ -111,23 +155,55 @@ __global__ void first_fit_kernel(
       }
 #pragma unroll
       for (int i = 0; i < 4 * UNROLL; ++i) mark(occ_lane, copies, c[i], n_colors);
+      if constexpr (TAILCUT) {
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          if (q0 + u * 32 + lane < q4) {
+            same_color(c[4 * u + 0], v[u].x, own, vid, hit, cnt);
+            same_color(c[4 * u + 1], v[u].y, own, vid, hit, cnt);
+            same_color(c[4 * u + 2], v[u].z, own, vid, hit, cnt);
+            same_color(c[4 * u + 3], v[u].w, own, vid, hit, cnt);
+          }
+        }
+      }
     }
   } else {
     for (int k0 = 0; k0 < d_pad; k0 += 32 * UNROLL) {
       int c[UNROLL];
+      int id[UNROLL];  // the tailcut's
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int k = k0 + u * 32 + lane;
-        c[u] = k < d_pad ? gather(colors, __ldcs(src + k), n_ids) : -1;
+        if constexpr (TAILCUT) {
+          id[u] = k < d_pad ? __ldcs(src + k) : -1;
+          c[u] = k < d_pad ? gather(colors, id[u], n_ids) : -1;
+        } else {
+          c[u] = k < d_pad ? gather(colors, __ldcs(src + k), n_ids) : -1;
+        }
       }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) mark(occ_lane, copies, c[u], n_colors);
+      if constexpr (TAILCUT) {
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          if (k0 + u * 32 + lane < d_pad) same_color(c[u], id[u], own, vid, hit, cnt);
+        }
+      }
     }
   }
   __syncwarp();
 
-  const int own = cur != nullptr ? __ldg(cur + row) : -1;
-  const bool own_ok = static_cast<unsigned>(own) < static_cast<unsigned>(n_colors);
+  if constexpr (TAILCUT) {
+    hit = __any_sync(0xffffffffu, hit);
+    cnt = __reduce_add_sync(0xffffffffu, cnt);
+    if (lane == 0) {
+      flag[row] = hit;
+      if (cnt != 0) atomicAdd(count + chain, static_cast<unsigned long long>(cnt));
+    }
+  }
+  // the colour the first fit bars: cur's (the tailcut's first fit bars none)
+  const int bar = !TAILCUT && cur != nullptr ? __ldg(cur + row) : -1;
+  const bool bar_ok = static_cast<unsigned>(bar) < static_cast<unsigned>(n_colors);
   int result = -1;
   for (int w0 = 0; w0 < n_words; w0 += 32) {
     const int w = w0 + lane;
@@ -136,8 +212,15 @@ __global__ void first_fit_kernel(
       uint32_t used = 0u;
       const uint32_t* word = occ + static_cast<size_t>(w) * copies;
       for (int j = 0; j < copies; ++j) used |= word[(j + lane) & (copies - 1)];
-      cand = ~used & __ldg(allow_bits + w);
-      if (own_ok && (own >> 5) == w) cand &= ~(1u << (own & 31));
+      uint32_t allowed;
+      if constexpr (TAILCUT) {  // every colour below n_colors
+        const int tail = n_colors & 31;
+        allowed = (w == n_words - 1 && tail) ? (1u << tail) - 1u : 0xffffffffu;
+      } else {
+        allowed = __ldg(allow_bits + w);
+      }
+      cand = ~used & allowed;
+      if (bar_ok && (bar >> 5) == w) cand &= ~(1u << (bar & 31));
     }
     const unsigned ballot = __ballot_sync(0xffffffffu, cand != 0u);
     if (ballot != 0u) {
@@ -150,15 +233,50 @@ __global__ void first_fit_kernel(
   if (lane == 0) out[row] = result;
 }
 
-template <bool VEC, int UNROLL>
+__global__ void lower_movable_kernel(const int* __restrict__ neighbors,
+                                     const uint8_t* __restrict__ movable, int n_ids,
+                                     uint8_t* __restrict__ lower, int n_rows, int d_pad,
+                                     int row0) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int first = (blockIdx.x * (blockDim.x >> 5) + warp) * 32;
+  if (first >= n_rows) return;  // uniform across the warp
+  const size_t chain = blockIdx.y;
+  movable += chain * n_ids;
+  lower += chain * n_ids + row0;
+  const int row = first + lane;
+  unsigned todo = __ballot_sync(0xffffffffu, row < n_rows && __ldg(movable + row0 + row));
+  unsigned found = 0u;
+  while (todo != 0u) {
+    const int l = __ffs(todo) - 1;
+    todo &= todo - 1u;
+    const int vid = row0 + first + l;
+    const int* src = neighbors + static_cast<size_t>(first + l) * d_pad;
+    for (int k0 = 0; k0 < d_pad; k0 += 32) {
+      const int k = k0 + lane;
+      bool m = false;
+      if (k < d_pad) {
+        const int id = __ldcs(src + k);
+        m = static_cast<unsigned>(id) < static_cast<unsigned>(vid) && __ldg(movable + id);
+      }
+      if (__any_sync(0xffffffffu, m)) {
+        found |= 1u << l;
+        break;
+      }
+    }
+  }
+  if (row < n_rows) lower[row] = (found >> lane) & 1u;
+}
+
+template <bool VEC, int UNROLL, bool TAILCUT>
 int launch(const void* neighbors, const void* colors, int n_ids,
            const void* allow_bits, const void* cur, void* out, int n_rows,
            int d_pad, int n_colors, int rows_per_block, int copies, int n_chains,
-           cudaStream_t stream) {
+           int row0, void* flag, void* count, cudaStream_t stream) {
   const int n_words = (n_colors + 31) / 32;
   const size_t smem = static_cast<size_t>(rows_per_block) * n_words * copies *
                       sizeof(uint32_t);
-  auto kernel = first_fit_kernel<VEC, UNROLL>;
+  auto kernel = first_fit_kernel<VEC, UNROLL, TAILCUT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -170,8 +288,14 @@ int launch(const void* neighbors, const void* colors, int n_ids,
       static_cast<const int*>(neighbors), static_cast<const int*>(colors),
       n_ids, static_cast<const uint32_t*>(allow_bits),
       static_cast<const int*>(cur), static_cast<int*>(out), n_rows, d_pad,
-      n_colors, n_words, copies);
+      n_colors, n_words, copies, row0, static_cast<uint8_t*>(flag),
+      static_cast<unsigned long long*>(count));
   return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int copies, int n_chains) {
+  return copies < 1 || copies > 32 || (copies & (copies - 1)) != 0 || n_chains < 1 ||
+         n_chains > 65535;
 }
 
 }  // namespace
@@ -189,16 +313,53 @@ int first_fit_launch(const void* neighbors, const void* colors, int n_ids,
                      const void* allow_bits, const void* cur, void* out,
                      int n_rows, int d_pad, int n_colors, int rows_per_block,
                      int copies, int n_chains, void* stream) {
-  if (copies < 1 || copies > 32 || (copies & (copies - 1)) != 0 || n_chains < 1 ||
-      n_chains > 65535) {
+  if (bad_shape(copies, n_chains)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return (d_pad & 3) == 0
+             ? launch<true, 2, false>(neighbors, colors, n_ids, allow_bits, cur, out, n_rows,
+                                      d_pad, n_colors, rows_per_block, copies, n_chains, 0,
+                                      nullptr, nullptr, s)
+             : launch<false, 8, false>(neighbors, colors, n_ids, allow_bits, cur, out, n_rows,
+                                       d_pad, n_colors, rows_per_block, copies, n_chains, 0,
+                                       nullptr, nullptr, s);
+}
+
+// Launches K3's tailcut instance: rows row0 .. row0 + n_rows - 1 of the
+// colour vector, whose ids are neighbors [n_rows, d_pad]; colors, out
+// (int32) and flag (bytes) are [n_chains, n_ids], count [n_chains]
+// uint64 and added to; every colour below n_colors is allowed.
+int first_fit_tailcut_launch(const void* neighbors, const void* colors, int n_ids,
+                             void* out, void* flag, void* count, int n_rows, int d_pad,
+                             int n_colors, int rows_per_block, int copies, int n_chains,
+                             int row0, void* stream) {
+  if (bad_shape(copies, n_chains) || row0 < 0 || n_rows > n_ids - row0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
   return (d_pad & 3) == 0
-             ? launch<true, 2>(neighbors, colors, n_ids, allow_bits, cur, out, n_rows, d_pad,
-                               n_colors, rows_per_block, copies, n_chains, s)
-             : launch<false, 8>(neighbors, colors, n_ids, allow_bits, cur, out, n_rows, d_pad,
-                                n_colors, rows_per_block, copies, n_chains, s);
+             ? launch<true, 2, true>(neighbors, colors, n_ids, nullptr, nullptr, out, n_rows,
+                                     d_pad, n_colors, rows_per_block, copies, n_chains, row0,
+                                     flag, count, s)
+             : launch<false, 8, true>(neighbors, colors, n_ids, nullptr, nullptr, out, n_rows,
+                                      d_pad, n_colors, rows_per_block, copies, n_chains, row0,
+                                      flag, count, s);
+}
+
+// Launches the lower-movable kernel on `stream` over rows row0 .. row0 +
+// n_rows - 1 of the colour vector, whose ids are neighbors [n_rows,
+// d_pad]; movable and lower are [n_chains, n_ids] bytes.
+int lower_movable_launch(const void* neighbors, const void* movable, int n_ids, void* lower,
+                         int n_rows, int d_pad, int row0, int n_chains, void* stream) {
+  if (n_chains < 1 || n_chains > 65535 || row0 < 0 || n_rows > n_ids - row0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int kWarps = 8;
+  const int grid = (n_rows + 32 * kWarps - 1) / (32 * kWarps);
+  lower_movable_kernel<<<dim3(grid, n_chains), 32 * kWarps, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(neighbors), static_cast<const uint8_t*>(movable), n_ids,
+      static_cast<uint8_t*>(lower), n_rows, d_pad, row0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* first_fit_error_string(int code) {

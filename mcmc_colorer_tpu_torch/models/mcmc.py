@@ -23,12 +23,13 @@ the Hastings reverse probability, the chain loops, the flat tailcut and
   (``_conflict_edges_bucketed``), ``_sweep_pallas_fused`` (K2 once a
   rectangle a sweep on the card, ``_sweep_pallas_fused_bucketed``),
   ``_sweep`` (``_sweep_bucketed``), ``_reverse_logq``
-  (``_reverse_logq_bucketed``) and ``_tailcut_body`` (K3 a band or a
-  rectangle, ``_tailcut_body_flat`` / ``_tailcut_body_bucketed``).
+  (``_reverse_logq_bucketed``) and ``_tailcut_body`` (K3's tailcut
+  call and the lower-movable kernel once a rectangle a round on the card,
+  ``_tailcut_body_flat`` / ``_tailcut_body_bucketed``).
 
 The chain has a chain axis throughout: the carry (``ChainState``) holds
 C chains' colours [C, n_pad], each sweep is one K1 or K2 launch for all
-of them and each tailcut round one K3 launch a row block.  One chain is
+of them and each tailcut round one K3 launch a rectangle.  One chain is
 C = 1 (``MCMCColorer.run``, the stepped chain, the resident chain); an
 ensemble (``parallel/chains.py``, the resident ``run_ensemble``) is the
 same code at C > 1, where JAX vmaps its device chain.
@@ -819,39 +820,38 @@ class TailcutState:
 def _tailcut_body(ell, tc: TailcutState, running: np.ndarray, sources, *,
                   params: MCMCParams) -> TailcutState:
     """One tailcut round of the chains with ``running``, in rank space,
-    over either ELL layout (K3 once a row block for all chains: a band of
-    the flat ELL, or a degree-class rectangle).  Conflicted vertices with
-    a free colour (K3's first fit) and no lower-id such neighbour move to
-    it; when the round can move nobody, the conflicted vertices take the
-    round's random colours (the stall escape).  ``conflicts`` is the count
-    of the colouring the round starts from, and the round is the last when
-    it is 0, as in JAX.  Only the running chains draw and change."""
-    from mcmc_colorer_tpu_torch.ops.firstfit import first_fit
+    over either ELL layout.  Conflicted vertices with a free colour (K3's
+    first fit) and no lower-id such neighbour move to it; when the round
+    can move nobody, the conflicted vertices take the round's random
+    colours (the stall escape).  ``conflicts`` is the count of the
+    colouring the round starts from, and the round is the last when it is
+    0, as in JAX.  Only the running chains draw and change.
+
+    Two passes over the rows, each a row block at a time for all chains.
+    The first is K3's tailcut call (``ops/firstfit.first_fit`` with
+    ``flag``): the first fit, the conflict flag and the conflict count
+    from one read of the ids.  The second is ``lower_movable``.  On the
+    card each is one launch a rectangle (the flat ELL, or a degree class);
+    the plain versions on the CPU go in row bands, which bound their
+    temporaries."""
+    from mcmc_colorer_tpu_torch.ops.firstfit import first_fit, lower_movable
 
     cols_r = tc.colors_r
     c, n_pad = cols_r.shape
     n_colors = params.n_colors
     dev = cols_r.device
-    ids = torch.arange(n_pad, dtype=torch.int32, device=dev)
-    allow = torch.ones((n_colors,), dtype=torch.int32, device=dev)
+    bands = dev.type != "cuda"
     conf = torch.zeros((c,), dtype=torch.int64, device=dev)
     flags = torch.empty((c, n_pad), dtype=torch.bool, device=dev)
     cand = torch.empty((c, n_pad), dtype=torch.int32, device=dev)
-    for s, neigh in _row_blocks(ell, chains=c):
-        e = s + neigh.shape[0]
-        same = neighbor_colors_chains(neigh, cols_r) == cols_r[:, s:e, None]
-        conf += (same & (neigh > ids[s:e, None])[None]).sum((1, 2))
-        flags[:, s:e] = same.any(2)
-        cand[:, s:e] = first_fit(neigh, cols_r, allow, n_colors)
+    for s, neigh in _row_blocks(ell, bands=bands, chains=c):
+        first_fit(neigh, cols_r, None, n_colors, row0=s, out=cand, flag=flags, count=conf)
     flags &= ell.node_mask
     cand = torch.where(ell.node_mask, cand, -1)
     movable = flags & (cand >= 0)
-    movable_ext = torch.cat([movable, torch.zeros((c, 1), dtype=torch.bool, device=dev)], 1)
     lower = torch.empty((c, n_pad), dtype=torch.bool, device=dev)
-    for s, neigh in _row_blocks(ell, chains=c):
-        e = s + neigh.shape[0]
-        nb = movable_ext.index_select(1, neigh.reshape(-1)).reshape(c, *neigh.shape)
-        lower[:, s:e] = (nb & (neigh < ids[s:e, None])[None]).any(2)
+    for s, neigh in _row_blocks(ell, bands=bands, chains=c):
+        lower_movable(neigh, movable, row0=s, out=lower)
     active = movable & ~lower
     stalled = (conf > 0) & ~active.any(1)
     rnd = sources.randint(n_pad, n_colors, running=running)

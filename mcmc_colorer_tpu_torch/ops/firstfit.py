@@ -24,8 +24,18 @@ Both take one colour vector ``[n]`` or a chain axis ``[C, n]`` (with
 ensemble's tailcut, where JAX vmaps its first fit over the chains.  The
 result is then ``[C, rows]``, one launch for all chains.
 
-Both are integer work and agree exactly.  ``launches`` counts the
-kernel's launches.
+The tailcut's round (``models/mcmc.py:_tailcut_body``) takes a second
+instance of the kernel, chosen by the call: given ``flag`` (with ``out``,
+``count`` and the rows' first id ``row0``), ``first_fit`` also writes
+whether some neighbour holds the row's own colour and adds each chain's
+count of such neighbours with a higher id, from the colours it looks up
+for the first fit, so a round reads its ids once.  ``allow`` is then
+None: the tailcut allows every colour.  ``lower_movable`` is the round's
+second pass: whether a movable row has a movable neighbour of a lower
+id, the kernel reading only the movable rows' ids.
+
+Both are integer work and agree exactly.  ``launches`` counts K3's
+launches, ``lower_launches`` the lower-movable kernel's.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ COPIES = 4          # interleaved copies of a row's occupancy mask
 PALETTE_MAX = SMEM_BLOCK_BYTES * 8
 
 launches = 0
+lower_launches = 0
 _built = None
 
 
@@ -73,6 +84,16 @@ def load_kernel():
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+        fn = built.lib.first_fit_tailcut_launch
+        fn.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        fn = built.lib.lower_movable_launch
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
         err = built.lib.first_fit_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -83,7 +104,7 @@ def load_kernel():
 def _check(nc, allow, n_colors, cur):
     if nc.dtype != torch.int32 or nc.dim() != 2:
         raise TypeError(f"nc must be 2-D int32, got {nc.dtype} {tuple(nc.shape)}")
-    if allow.dim() != 1 or allow.shape[0] != n_colors:
+    if allow is not None and (allow.dim() != 1 or allow.shape[0] != n_colors):
         raise ValueError(f"allow must be [{n_colors}], got {tuple(allow.shape)}")
     if n_colors <= 0:
         raise ValueError(f"n_colors={n_colors} must be positive")
@@ -111,6 +132,34 @@ def _check_ids(neighbors, colors, allow, n_colors, cur):
     _check(neighbors, allow, n_colors, cur)
 
 
+def _check_call(neighbors, colors, allow, n_colors, cur, row0, out, flag, count):
+    """``_check_ids``; then, given ``flag``, the tailcut call's outputs:
+    ``out`` int32 and ``flag`` bool shaped as ``colors``, ``count`` int64
+    [C] ([] for one colour vector), rows row0 .. row0 + rows - 1 inside the
+    vector, no ``cur`` and no ``allow``: the tailcut allows and bars no
+    colour.  ``allow`` is None there and only there."""
+    _check_ids(neighbors, colors, allow, n_colors, cur)
+    if flag is None:
+        if allow is None:
+            raise ValueError("allow may be None only in the tailcut call")
+        return
+    if out is None or count is None:
+        raise ValueError("the tailcut call takes out, flag and count together")
+    if cur is not None or allow is not None:
+        raise ValueError("the tailcut call allows every colour: allow and cur must be None")
+    want = [(out, torch.int32, colors.shape), (flag, torch.bool, colors.shape),
+            (count, torch.int64, colors.shape[:-1])]
+    for t, dtype, shape in want:
+        if t.dtype != dtype or t.shape != shape:
+            raise TypeError(f"the tailcut call wants {dtype} {tuple(shape)}, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+        if t.device != neighbors.device:
+            raise ValueError(f"neighbors on {neighbors.device} but an output on {t.device}")
+    if not 0 <= row0 <= colors.shape[-1] - neighbors.shape[0]:
+        raise ValueError(f"rows {row0} .. {row0 + neighbors.shape[0]} outside the "
+                         f"{colors.shape[-1]} ids")
+
+
 def pack_bits(mask: torch.Tensor) -> torch.Tensor:
     """[n] bool/int -> [ceil(n/32)] int32 holding uint32 bit patterns: bit
     c % 32 of word c // 32 is set iff mask[c] != 0."""
@@ -123,14 +172,21 @@ def pack_bits(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
 
 
-def first_fit(neighbors, colors, allow, n_colors: int, cur=None) -> torch.Tensor:
+def first_fit(neighbors, colors, allow, n_colors: int, cur=None, *, row0: int = 0,
+              out=None, flag=None, count=None) -> torch.Tensor:
     """[rows] int32 ([C, rows] for colours [C, n]): the smallest allowed
-    colour other than ``cur`` that no neighbour holds, or -1."""
+    colour other than ``cur`` that no neighbour holds, or -1.  Given
+    ``flag``, the tailcut's call (the module's docstring): the rows are ids
+    ``row0`` onwards, written into ``out`` and ``flag`` (shaped as
+    ``colors``) with ``count`` added to, and ``out`` is returned."""
+    # the greedy call passes no tailcut keyword on, so its launches look
+    # as they did before the tailcut call existed
+    tailcut = {} if flag is None else dict(row0=row0, out=out, flag=flag, count=count)
     if neighbors.device.type == "cpu":
-        return first_fit_plain(neighbors, colors, allow, n_colors, cur)
+        return first_fit_plain(neighbors, colors, allow, n_colors, cur, **tailcut)
     if neighbors.device.type != "cuda":
         raise ValueError(f"no K3 for device {neighbors.device}")
-    return first_fit_cuda(neighbors, colors, allow, n_colors, cur)
+    return first_fit_cuda(neighbors, colors, allow, n_colors, cur, **tailcut)
 
 
 def _kernel_shape(n_colors: int):
@@ -145,15 +201,23 @@ def _kernel_shape(n_colors: int):
     return rows, copies
 
 
-def first_fit_cuda(neighbors, colors, allow, n_colors: int, cur=None) -> torch.Tensor:
-    """Launch K3 on the current stream of the tensors' card."""
+def _raise_on(rc: int, lib, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.first_fit_error_string(rc).decode()} "
+                           f"({rc})")
+
+
+def first_fit_cuda(neighbors, colors, allow, n_colors: int, cur=None, *, row0: int = 0,
+                   out=None, flag=None, count=None) -> torch.Tensor:
+    """Launch K3 on the current stream of the tensors' card: the greedy
+    instance, or given ``flag`` the tailcut's (``first_fit``)."""
     global launches
-    _check_ids(neighbors, colors, allow, n_colors, cur)
+    tailcut = flag is not None
+    _check_call(neighbors, colors, allow, n_colors, cur, row0, out, flag, count)
     if neighbors.device.type != "cuda":
         raise ValueError(f"K3 needs CUDA tensors, got {neighbors.device}")
-    if not (neighbors.is_contiguous() and colors.is_contiguous()
-            and (cur is None or cur.is_contiguous())):
-        raise ValueError("K3 needs contiguous neighbors, colors and cur")
+    if not all(t is None or t.is_contiguous() for t in (neighbors, colors, cur, out, flag)):
+        raise ValueError("K3 needs contiguous neighbors, colors, cur, out and flag")
     if not palette_ok(n_colors):
         raise ValueError(
             f"n_colors={n_colors}: one row's occupancy bitmask exceeds the "
@@ -164,31 +228,53 @@ def first_fit_cuda(neighbors, colors, allow, n_colors: int, cur=None) -> torch.T
         raise ValueError("K3 reads rows of d_pad % 4 == 0 as 16-byte vectors: align neighbors")
     rows_per_block, copies = _kernel_shape(n_colors)
     chains = colors.shape[0] if colors.dim() == 2 else 1
-    allow_bits = pack_bits(allow)
-    out = torch.empty((*colors.shape[:-1], rows), dtype=torch.int32, device=neighbors.device)
+    if not tailcut:
+        allow_bits = pack_bits(allow)
+        out = torch.empty((*colors.shape[:-1], rows), dtype=torch.int32,
+                          device=neighbors.device)
     if rows == 0 or chains == 0:
         return out
     lib = load_kernel().lib
     with torch.cuda.device(neighbors.device):
-        rc = lib.first_fit_launch(
-            neighbors.data_ptr(), colors.data_ptr(), colors.shape[-1],
-            allow_bits.data_ptr(), cur.data_ptr() if cur is not None else None,
-            out.data_ptr(), rows, d_pad, n_colors, rows_per_block, copies, chains,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"K3 launch failed: {lib.first_fit_error_string(rc).decode()} ({rc})"
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if tailcut:
+            rc = lib.first_fit_tailcut_launch(
+                neighbors.data_ptr(), colors.data_ptr(), colors.shape[-1], out.data_ptr(),
+                flag.data_ptr(), count.data_ptr(), rows, d_pad, n_colors, rows_per_block,
+                copies, chains, row0, stream,
+            )
+        else:
+            rc = lib.first_fit_launch(
+                neighbors.data_ptr(), colors.data_ptr(), colors.shape[-1],
+                allow_bits.data_ptr(), cur.data_ptr() if cur is not None else None,
+                out.data_ptr(), rows, d_pad, n_colors, rows_per_block, copies, chains, stream,
+            )
+    _raise_on(rc, lib, "K3")
     launches += 1
     return out
 
 
-def first_fit_plain(neighbors, colors, allow, n_colors: int, cur=None) -> torch.Tensor:
+def first_fit_plain(neighbors, colors, allow, n_colors: int, cur=None, *, row0: int = 0,
+                    out=None, flag=None, count=None) -> torch.Tensor:
     """Plain version of K3: the gather ``neighbor_colors`` (padding ids
     land on -1), then ``first_fit_reference`` on the gathered band; with a
-    chain axis, on the chains' bands stacked row-wise."""
-    _check_ids(neighbors, colors, allow, n_colors, cur)
+    chain axis, on the chains' bands stacked row-wise.  Given ``flag``,
+    the tailcut's call: the same gather also gives the flag and count."""
+    _check_call(neighbors, colors, allow, n_colors, cur, row0, out, flag, count)
+    if allow is None:
+        allow = torch.ones((n_colors,), dtype=torch.int32, device=neighbors.device)
+    if flag is not None:
+        cols = colors if colors.dim() == 2 else colors[None]
+        chains, rows = cols.shape[0], neighbors.shape[0]
+        nc = neighbor_colors_chains(neighbors, cols)
+        e = row0 + rows
+        same = nc == cols[:, row0:e, None]
+        ids = torch.arange(row0, e, dtype=torch.int32, device=neighbors.device)
+        count += (same & (neighbors > ids[:, None])[None]).sum((1, 2)).reshape(count.shape)
+        flag[..., row0:e] = same.any(2).reshape(flag[..., row0:e].shape)
+        fit = first_fit_reference(nc.reshape(chains * rows, -1), allow, n_colors)
+        out[..., row0:e] = fit.reshape(out[..., row0:e].shape)
+        return out
     if colors.dim() == 1:
         return first_fit_reference(neighbor_colors(neighbors, colors), allow, n_colors, cur)
     chains, rows = colors.shape[0], neighbors.shape[0]
@@ -210,3 +296,71 @@ def first_fit_reference(nc, allow, n_colors: int, cur=None) -> torch.Tensor:
     # argmax returns the first index among ties, as jnp.argmax does
     first = torch.argmax(eligible.to(torch.int32), dim=1).to(torch.int32)
     return torch.where(eligible.any(1), first, -1)
+
+
+def _check_lower(neighbors, movable, row0, out):
+    if neighbors.dtype != torch.int32 or neighbors.dim() != 2:
+        raise TypeError(f"neighbors must be 2-D int32, got {neighbors.dtype} "
+                        f"{tuple(neighbors.shape)}")
+    if movable.dtype != torch.bool or movable.dim() != 2:
+        raise TypeError(f"movable must be [C, n] bool, got {movable.dtype} "
+                        f"{tuple(movable.shape)}")
+    if out.dtype != torch.bool or out.shape != movable.shape:
+        raise TypeError(f"out must be bool {tuple(movable.shape)}, got {out.dtype} "
+                        f"{tuple(out.shape)}")
+    for t in (movable, out):
+        if t.device != neighbors.device:
+            raise ValueError(f"neighbors on {neighbors.device} but an argument on {t.device}")
+    if not 0 <= row0 <= movable.shape[1] - neighbors.shape[0]:
+        raise ValueError(f"rows {row0} .. {row0 + neighbors.shape[0]} outside the "
+                         f"{movable.shape[1]} ids")
+
+
+def lower_movable(neighbors, movable, *, row0: int = 0, out) -> torch.Tensor:
+    """The tailcut round's second pass over the rows of ``neighbors``,
+    which are ids ``row0`` onwards: ``out[c, v]`` = ``movable[c, v]`` and
+    some neighbour ``u < v`` has ``movable[c, u]`` (``movable``, ``out``
+    [C, n] bool; the padding id counts nowhere).  CPU tensors go to
+    ``lower_movable_plain``, CUDA tensors to the kernel; returns ``out``."""
+    if neighbors.device.type == "cpu":
+        return lower_movable_plain(neighbors, movable, row0=row0, out=out)
+    if neighbors.device.type != "cuda":
+        raise ValueError(f"no lower-movable kernel for device {neighbors.device}")
+    return lower_movable_cuda(neighbors, movable, row0=row0, out=out)
+
+
+def lower_movable_cuda(neighbors, movable, *, row0: int = 0, out) -> torch.Tensor:
+    """Launch the lower-movable kernel on the current stream of the
+    tensors' card."""
+    global lower_launches
+    _check_lower(neighbors, movable, row0, out)
+    if neighbors.device.type != "cuda":
+        raise ValueError(f"the lower-movable kernel needs CUDA tensors, got {neighbors.device}")
+    if not all(t.is_contiguous() for t in (neighbors, movable, out)):
+        raise ValueError("the lower-movable kernel needs contiguous neighbors, movable and out")
+    rows, d_pad = neighbors.shape
+    chains, n_ids = movable.shape
+    if rows == 0 or chains == 0:
+        return out
+    lib = load_kernel().lib
+    with torch.cuda.device(neighbors.device):
+        rc = lib.lower_movable_launch(
+            neighbors.data_ptr(), movable.data_ptr(), n_ids, out.data_ptr(), rows, d_pad,
+            row0, chains, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, lib, "lower-movable")
+    lower_launches += 1
+    return out
+
+
+def lower_movable_plain(neighbors, movable, *, row0: int = 0, out) -> torch.Tensor:
+    """Plain version of ``lower_movable``: every row's neighbours' flags
+    gathered (the padding id on a False slot), then the test."""
+    _check_lower(neighbors, movable, row0, out)
+    chains, rows = movable.shape[0], neighbors.shape[0]
+    e = row0 + rows
+    ext = torch.cat([movable, movable.new_zeros((chains, 1))], 1)
+    nb = ext.index_select(1, neighbors.reshape(-1)).reshape(chains, *neighbors.shape)
+    ids = torch.arange(row0, e, dtype=torch.int32, device=neighbors.device)
+    out[:, row0:e] = (nb & (neighbors < ids[:, None])[None]).any(2) & movable[:, row0:e]
+    return out

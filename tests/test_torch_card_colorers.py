@@ -199,9 +199,9 @@ class HeldLaunches(kt.Capture):
     """The first launch of K1, K2, K3 and K4 at each shape while runs go,
     its inputs kept (``kernel_times.Capture``); ``check`` holds each
     against the plain version on the inputs the run gave it (K1 and K3
-    exactly, K2 under ``k2_agrees`` in the shape's regime and forced to
-    L2, K4 under ``k4_agrees``) and, with more than one chain, against one
-    launch a chain, exactly.  ``check`` returns the kernels it held."""
+    exactly, K3's tailcut call on fresh outputs, K2 under ``k2_agrees`` in
+    the shape's regime and forced to L2, K4 under ``k4_agrees``) and, with
+    more than one chain, against one launch a chain, exactly.  ``check`` returns the kernels it held."""
 
     HELD = ("K1", "K2", "K3", "K4")
     # the arguments with a chain axis where there is one (K4's always)
@@ -213,12 +213,38 @@ class HeldLaunches(kt.Capture):
     def check(self):
         for (_, kernel, _), (_, (a, kw)) in self.seen.items():
             cuda = self.orig[kernel]
+            if kernel == "K3" and kw.get("flag") is not None:
+                self._k3_tailcut_holds(cuda, a, kw)
+                continue
             plain, _ = kt.plain_call(kernel, self.mods, a, kw)
             want = plain()
             staged = kernel == "K2" and k2.sweep_shape(a[1].shape[-1], a[8].n_colors).staged
             for l2 in ({}, {"_l2": True}) if staged else ({},):
                 self._holds(kernel, cuda, cuda(*a, **kw, **l2), want, a, {**kw, **l2})
         return sorted({k for _, k, _ in self.seen})
+
+    @staticmethod
+    def _k3_tailcut_holds(cuda, a, kw):
+        """K3's tailcut call (the ELL tailcut's first pass) on fresh
+        outputs: first fit, flag and count equal the plain version's on
+        the launch's rows, and each chain's equal its launch alone."""
+        neigh, colors = a[0], a[1]
+        rows = slice(kw["row0"], kw["row0"] + neigh.shape[0])
+
+        def call(fn, cols):
+            out = dict(row0=kw["row0"], out=torch.zeros_like(cols),
+                       flag=torch.zeros(cols.shape, dtype=torch.bool, device=cols.device),
+                       count=torch.zeros(cols.shape[:-1], dtype=torch.int64,
+                                         device=cols.device))
+            fn(neigh, cols, *a[2:], **out)
+            return [out["out"][..., rows], out["flag"][..., rows], out["count"]]
+
+        got = call(cuda, colors)
+        assert all(torch.equal(x, y) for x, y in zip(got, call(k3.first_fit_plain, colors)))
+        if colors.dim() == 2 and colors.shape[0] > 1:
+            for c in range(colors.shape[0]):
+                single = call(cuda, colors[c:c + 1].contiguous())
+                assert all(torch.equal(x[c], y[0]) for x, y in zip(got, single)), c
 
     def _one(self, kernel, a, c):
         """The arguments of chain ``c``'s launch alone (K4's keep a chain

@@ -15,6 +15,12 @@ the card, at the shapes the colourers launch them:
   and rows that are not, at a band of BASELINE config 3's shape, at a
   frontier's rows, with a chain axis (equal to one launch a chain), and
   at a shard's rows;
+- K3's tailcut instance exactly (first fit, conflict flag, count) at
+  config 3's width, at random ids on both of its read paths, over the
+  flat and bucketed layouts (``row0``, phantom and padding rows), with a
+  chain axis; the lower-movable kernel with no row, a few and every row
+  movable; and whole tailcut rounds on the card against the plain round,
+  the stall escape among them;
 - K2 under ``cdf_boundary.py``'s rule with exact conflict counts: samples
   equal but where the uniform lies on a CDF step, new_taboo equal and
   qstar within 1e-5 (relative) where they agree; each case staged and
@@ -29,6 +35,7 @@ Imports no JAX: ``python -m pytest --noconftest -m card
 tests/test_torch_card_kernels.py`` on the card.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -208,6 +215,178 @@ def test_k3_frontier_rows_with_allow_and_cur(card, er20k, chains):
     for c in range(chains):
         assert torch.equal(got[c], k3.first_fit_cuda(rows, colors[c].contiguous(), allow, ncol,
                                                      cur[c].contiguous()))
+
+
+# ------------------------- K3's tailcut call -------------------------
+
+def _tailcut_outputs(colors, fill=-7):
+    """Fresh outputs of K3's tailcut call for ``colors`` [C, n]: out, flag
+    and count, filled so that a row the call leaves out shows."""
+    return dict(out=torch.full(colors.shape, fill, dtype=torch.int32, device=colors.device),
+                flag=torch.zeros(colors.shape, dtype=torch.bool, device=colors.device),
+                count=torch.full(colors.shape[:-1], 3, dtype=torch.int64, device=colors.device))
+
+
+def _k3_tailcut_holds(pieces, colors, n_colors):
+    """K3's tailcut instance over ``pieces`` ((row0, ids) a launch, into
+    one set of outputs) against the plain version's: ``cand``, ``flag``
+    and the count of every chain bit for bit, and with more than one
+    chain, each chain's launch alone.  Returns the outputs."""
+    got, want = _tailcut_outputs(colors), _tailcut_outputs(colors)
+    before = k3.launches
+    for row0, ids in pieces:
+        k3.first_fit_cuda(ids, colors, None, n_colors, row0=row0, **got)
+        k3.first_fit_plain(ids, colors, None, n_colors, row0=row0, **want)
+    assert k3.launches == before + len(pieces)
+    for k in ("out", "flag", "count"):
+        assert torch.equal(got[k], want[k]), k
+    for c in range(colors.shape[0] if colors.shape[0] > 1 else 0):
+        one = _tailcut_outputs(colors[c:c + 1])
+        for row0, ids in pieces:
+            k3.first_fit_cuda(ids, colors[c:c + 1].contiguous(), None, n_colors, row0=row0,
+                              **one)
+        for k in ("out", "flag", "count"):
+            assert torch.equal(one[k][0], got[k][c]), k
+    return got
+
+
+@pytest.mark.parametrize("chains", [1, 4])
+def test_k3_tailcut_config3_width(card, chains):
+    """A band of config 3's flat ELL (d_pad 1,152) at rows from id 2**18
+    on, as the tailcut launches it: about half the rows meet their own
+    colour among ~1,000 neighbours; phantom ids past n_real hold nCol."""
+    gen = _gen(card, 40 + chains)
+    n_ids, n_real, ncol = 2**20, 1_000_000, 1151
+    ids = _er_band(card, gen, rows=60_000, d_pad=1152, n_ids=n_ids, n_real=n_real,
+                   max_degree=ncol)
+    colors = torch.stack([_colors(n_real, n_ids, ncol, gen, card, ncol)
+                          for _ in range(chains)])
+    got = _k3_tailcut_holds([(2**18, ids)], colors, ncol)
+    rows = slice(2**18, 2**18 + ids.shape[0])
+    assert 0.2 < float(got["flag"][:, rows].float().mean()) < 0.8
+    assert bool((got["out"][:, :2**18] == -7).all())  # no row outside the band written
+
+
+@pytest.mark.parametrize("d_pad", [40, 37])
+def test_k3_tailcut_random_ids(card, d_pad):
+    """Random ids (the padding id among them) into colours in [-1, nCol]:
+    rows of whole 16-byte vectors, whose last vector is part filler, and
+    rows that are not (the kernel's scalar path); a row's own colour -1
+    meets the padding slots' -1, as in the plain version."""
+    gen = _gen(card, 50 + d_pad)
+    n_ids, ncol = 3000, 9
+    colors = torch.randint(-1, ncol + 1, (3, n_ids), generator=gen, device=card,
+                           dtype=torch.int32)
+    pieces = [(r0, torch.randint(0, n_ids + 1, (rows, d_pad), generator=gen, device=card,
+                                 dtype=torch.int32))
+              for r0, rows in ((0, 1000), (1000, 1500), (2500, 500))]
+    got = _k3_tailcut_holds(pieces, colors, ncol)
+    assert bool(got["flag"].any()) and bool((~got["flag"]).any())
+
+
+@pytest.mark.parametrize("layout", ["flat", "bucketed"])
+def test_k3_tailcut_layouts(card, layout):
+    """BA(20k, 8) as the colourer lays it out: the flat ELL's one launch
+    (padding rows past n), or one launch a degree class at its own width
+    and ``row0`` = its start (phantom rows in every class); colours from a
+    tailcut's start, rank space, phantoms at nCol."""
+    from mcmc_colorer_tpu_torch.graph.generate import barabasi_albert
+
+    g = barabasi_albert(20_000, 8, seed=4)
+    params = MCMCParams(n_colors=12, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
+    ell = tm.MCMCColorer(g, params, backend="pallas", layout=layout, device=card).ell
+    gen = _gen(card, 60)
+    colors = torch.randint(0, 12, (2, ell.n_pad), generator=gen, device=card,
+                           dtype=torch.int32)
+    colors = torch.where(ell.node_mask, colors, 12).contiguous()
+    pieces = list(tm._row_blocks(ell, bands=False))
+    assert (len(pieces) > 1 and pieces[1][0] > 0) if layout == "bucketed" else len(pieces) == 1
+    got = _k3_tailcut_holds(pieces, colors, 12)
+    assert not bool(got["flag"][:, ~ell.node_mask].any())
+
+
+@pytest.mark.parametrize("share", [0.0, 0.01, 1.0])
+@pytest.mark.parametrize("layout", ["flat", "bucketed"])
+def test_lower_movable(card, layout, share):
+    """The tailcut's second pass against its plain version with no row
+    movable, a few and all, over both layouts (a launch a degree class at
+    its ``row0``) and three chains, each equal to its launch alone."""
+    from mcmc_colorer_tpu_torch.graph.generate import barabasi_albert
+
+    g = barabasi_albert(20_000, 8, seed=4)
+    params = MCMCParams(n_colors=12, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
+    ell = tm.MCMCColorer(g, params, backend="pallas", layout=layout, device=card).ell
+    gen = _gen(card, 70)
+    movable = (torch.rand((3, ell.n_pad), generator=gen, device=card) < share) & ell.node_mask
+    got = torch.ones_like(movable)
+    want = torch.zeros_like(movable)
+    before = k3.lower_launches
+    pieces = list(tm._row_blocks(ell, bands=False))
+    for row0, ids in pieces:
+        k3.lower_movable_cuda(ids, movable, row0=row0, out=got)
+        k3.lower_movable_plain(ids, movable, row0=row0, out=want)
+    assert k3.lower_launches == before + len(pieces)
+    assert torch.equal(got, want)
+    assert bool(want.any()) == (share > 0)
+    for c in range(3):
+        one = torch.ones_like(movable[:1])
+        for row0, ids in pieces:
+            k3.lower_movable_cuda(ids, movable[c:c + 1].contiguous(), row0=row0, out=one)
+        assert torch.equal(one[0], got[c])
+
+
+class _Draws:
+    """A chain's source that hands out the round's given random colours."""
+
+    def __init__(self, rnd):
+        self.rnd = rnd
+
+    def randint(self, n, high, low=0):
+        assert self.rnd.shape == (n,)
+        return self.rnd
+
+
+@pytest.mark.parametrize("n_colors", [24, 3], ids=["movable", "stalled"])
+@pytest.mark.parametrize("layout", ["flat", "bucketed"])
+def test_tailcut_round_is_the_plain_round(card, layout, n_colors):
+    """Whole ``_tailcut_body`` rounds of three chains, one of them not
+    running, on the card (K3's tailcut call and the lower-movable kernel)
+    against the same rounds on a CPU copy (the plain round, in bands), on
+    ER(3000, 0.03): colours, conflicts, rounds and exit flags equal after
+    each.  At 24 colours some conflicted vertices have a free colour; at 3
+    none has (degrees ~90): the first round takes the stall escape, every
+    vertex it moves taking its random colour."""
+    from mcmc_colorer_tpu_torch.utils.rng import ChainSources
+
+    g = erdos_renyi(3000, 0.03, seed=8)
+    params = MCMCParams(n_colors=n_colors, proposal=ProposalKind.BALANCE_DYNAMIC, tailcut=True)
+    cpu = torch.device("cpu")
+    on = {d: tm.MCMCColorer(g, params, backend="pallas", layout=layout, device=d).ell
+          for d in (card, cpu)}
+    gen = _gen(card, 80)
+    colors = torch.randint(0, n_colors, (3, on[card].n_pad), generator=gen, device=card,
+                           dtype=torch.int32)
+    colors = torch.where(on[card].node_mask, colors, n_colors).contiguous()
+    running = np.array([True, False, True])
+    tc = {d: tm.TailcutState(colors.to(d), np.zeros(3, np.int64), np.zeros(3, np.int64),
+                             np.zeros(3, bool)) for d in on}
+    for r in range(3):
+        rnd = torch.randint(0, n_colors, (3, colors.shape[1]), generator=gen, device=card,
+                            dtype=torch.int32)
+        for d in on:
+            src = ChainSources([_Draws(rnd[k].to(d)) for k in range(3)], d)
+            tc[d] = tm._tailcut_body(on[d], tc[d], running, src, params=params)
+        a, b = tc[card], tc[cpu]
+        assert torch.equal(a.colors_r.cpu(), b.colors_r)
+        assert all(np.array_equal(x, y) for x, y in
+                   zip((a.conflicts, a.rounds, a.done), (b.conflicts, b.rounds, b.done)))
+        if r == 0:
+            assert (a.conflicts[[0, 2]] > 0).all()
+            moved = a.colors_r[0] != colors[0]
+            escaped = bool((a.colors_r[0][moved] == rnd[0][moved]).all())
+            assert bool(moved.any()) and (escaped or n_colors == 24)
+    assert torch.equal(a.colors_r[1], colors[1])  # not running: kept
+    assert not torch.equal(a.colors_r[0], colors[0])  # moved, or escaped
 
 
 # ------------------------------- K2 -------------------------------
