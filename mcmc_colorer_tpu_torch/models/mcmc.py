@@ -25,7 +25,10 @@ the Hastings reverse probability, the chain loops, the flat tailcut and
   ``_sweep`` (``_sweep_bucketed``), ``_reverse_logq``
   (``_reverse_logq_bucketed``) and ``_tailcut_body`` (K3's tailcut
   call and the lower-movable kernel once a rectangle a round on the card,
-  ``_tailcut_body_flat`` / ``_tailcut_body_bucketed``).
+  ``_tailcut_body_flat`` / ``_tailcut_body_bucketed``).  Each K2 call
+  of a sweep runs in an ``mc.sweep.class`` span, each K3 tailcut call
+  and lower-movable call of a round in an ``mc.tailcut.class`` span: one
+  a rectangle on the card, one a row band of the plain versions.
 
 The chain has a chain axis throughout: the carry (``ChainState``) holds
 C chains' colours [C, n_pad], each sweep is one K1 or K2 launch for all
@@ -478,10 +481,10 @@ def _ell_sweep(ell, params: MCMCParams, colors, taboo, unif, p_eff,
     lookup = _lookup_colors(ell, colors)
     for s, neigh in _row_blocks(ell, bands=bands, real_only=True, chains=c):
         e = s + neigh.shape[0]
-        st, qs, nt, cf = sweep_fn(
-            neigh, lookup, colors[:, s:e].contiguous(), taboo[:, s:e].contiguous(), s,
-            unif[:, s:e].contiguous(), p_eff, eps_t, params,
-        )
+        cur, tb, u = (colors[:, s:e].contiguous(), taboo[:, s:e].contiguous(),
+                      unif[:, s:e].contiguous())
+        with span("mc.sweep.class"):
+            st, qs, nt, cf = sweep_fn(neigh, lookup, cur, tb, s, u, p_eff, eps_t, params)
         star[:, s:e], qstar[:, s:e], new_taboo[:, s:e] = st, qs, nt
         conf += cf
     logq = torch.log(qstar.clamp(min=1e-30)).sum(1)
@@ -845,13 +848,15 @@ def _tailcut_body(ell, tc: TailcutState, running: np.ndarray, sources, *,
     flags = torch.empty((c, n_pad), dtype=torch.bool, device=dev)
     cand = torch.empty((c, n_pad), dtype=torch.int32, device=dev)
     for s, neigh in _row_blocks(ell, bands=bands, chains=c):
-        first_fit(neigh, cols_r, None, n_colors, row0=s, out=cand, flag=flags, count=conf)
+        with span("mc.tailcut.class"):
+            first_fit(neigh, cols_r, None, n_colors, row0=s, out=cand, flag=flags, count=conf)
     flags &= ell.node_mask
     cand = torch.where(ell.node_mask, cand, -1)
     movable = flags & (cand >= 0)
     lower = torch.empty((c, n_pad), dtype=torch.bool, device=dev)
     for s, neigh in _row_blocks(ell, bands=bands, chains=c):
-        lower_movable(neigh, movable, row0=s, out=lower)
+        with span("mc.tailcut.class"):
+            lower_movable(neigh, movable, row0=s, out=lower)
     active = movable & ~lower
     stalled = (conf > 0) & ~active.any(1)
     rnd = sources.randint(n_pad, n_colors, running=running)
@@ -912,9 +917,10 @@ class MCMCColorer:
     with K2 under ``pallas``.  The tailcut's first fit is kernel K3 on
     CUDA tensors.  ``layout``: ``flat`` (one rectangle padded to the max
     degree) or ``bucketed`` (the graph relabelled by ascending degree, one
-    rectangle a degree class of width ``128 · 4^k`` under ``pallas`` and
-    ``8 · 4^k`` otherwise, as JAX's; K2 and K3 then launch once a class;
-    not with ``matmul``, whose A already drops the degree padding).
+    rectangle a degree class of width ``8 · 4^k`` under either backend:
+    K2 and K3 take rows of any width, so JAX's 128-lane classes under
+    ``pallas`` would only pad; K2 and K3 then launch once a class; not
+    with ``matmul``, whose A already drops the degree padding).
     ``device``: the current CUDA device by default (``colorer_device``);
     the CPU only when asked for.
     """
@@ -968,9 +974,7 @@ class MCMCColorer:
             if block_size is None:
                 self.block = min(self.block, 2048)
             self.ell, self._perm, self._pos = bucketed_layout(
-                graph, descending=False, min_lane=128 if backend == "pallas" else 8,
-                device=self.device,
-            )
+                graph, descending=False, min_lane=8, device=self.device)
         else:
             # a HashGraph's rectangle is built by K5, not from a host CSR:
             # rows padded to the largest block any palette picks at this n
@@ -1084,6 +1088,11 @@ class MCMCColorer:
                 # the tailcut and the colours' readback
                 "tailcut_seconds": total_s - chain_s,
                 "setup_seconds": self.setup_seconds,
+                # the layout's rectangles (K2 launches a sweep on the card)
+                # and the neighbour ids a sweep reads
+                "classes": len(ell.slices) if isinstance(ell, BucketedEll) else 1,
+                "gather_ids": (ell.gather_elements if isinstance(ell, BucketedEll)
+                               else ell.n_pad * ell.d_pad),
                 **({"free_color_trace_segments": fc_segments} if fc_segments else {}),
             },
         )

@@ -24,9 +24,14 @@ The colourers' spans (names start with ``mc.``), from the outside in:
 - ``mc.body``: one do-while body (``extra["sweeps"]`` of them), with its
   steps ``mc.body.draw``, ``mc.body.p_eff``, ``mc.body.sweep`` and
   ``mc.body.read`` (the conflict counts to the host); in a packed sweep
-  ``mc.sweep.nc`` (kernel K1) and ``mc.sweep.propose``;
+  ``mc.sweep.nc`` (kernel K1) and ``mc.sweep.propose``; in an ELL sweep
+  one ``mc.sweep.class`` around each K2 call (its launch and the sum of
+  its rows' conflict counts), one a rectangle on the card: the flat
+  ELL's one, or each degree class of the bucketed layout;
 - ``mc.tailcut``, one ``mc.tailcut.round`` a round and its
-  ``mc.tailcut.read``;
+  ``mc.tailcut.read``; on the ELL paths one ``mc.tailcut.class``
+  around each K3 tailcut call and each lower-movable call, so two a
+  rectangle a round on the card;
 - ``mc.greedy.round`` / ``mc.greedy.read``: a GreedyFF round and its host
   read; ``mc.vff.round`` / ``mc.vff.read``: a VFF rebalancing round;
 - ``mc.readback``: the colours to the host.

@@ -455,7 +455,9 @@ def test_bucketed_mcmc_converges(medium_er, backend):
     assert (k2.launches, k3.launches) == before
     assert check_coloring(g, r.colors) and r.extra["final_conflicts"] == 0
     assert r.extra["tailcut_rounds"] >= 1 and r.conflict_trace.shape == (r.iterations + 1,)
-    assert {s.d_pad % (128 if backend == "pallas" else 8) for s in c.ell.slices} == {0}
+    # K2 and K3 take rows of any width: classes 8 · 4^k under either backend
+    assert {s.d_pad % 8 for s in c.ell.slices} == {0}
+    assert min(s.d_pad for s in c.ell.slices) < 128
 
 
 def test_bucketed_mcmc_skewed_graph(ba):

@@ -3,7 +3,8 @@ and the chain axis of K1, K2 and K3, on the CPU.
 
 - Against JAX's ``EnsembleMCMCColorer`` on every path: the generic loop
   (backend ``xla``, and Hastings), the do-while over K2 (``pallas``, flat
-  and bucketed) and over K1 (``matmul``, and Hastings): every chain is fed
+  and bucketed, JAX's layout then at the port's class widths) and over K1
+  (``matmul``, and Hastings): every chain is fed
   JAX's own draws for that chain (``for_chain(root, c)``: the initial
   colouring, each body's ``k_u`` and ``k_acc``, each tailcut round's
   ``randint``), replayed through ``utils/rng.ChainSources``.  Per-chain iterations, conflicts and
@@ -88,11 +89,23 @@ def do_while_bodies(iterations, max_iterations):
     return iterations + (iterations < max_iterations)
 
 
+def _port_classes(monkeypatch):
+    """JAX's bucketed layout at the port's class widths, 8 · 4^k under
+    every backend (JAX's ``pallas`` takes 128 · 4^k, its TPU lane)."""
+    from mcmc_colorer_tpu.graph.container import Graph as JGraph
+
+    jax_bucketed = JGraph.to_ell_bucketed
+    monkeypatch.setattr(JGraph, "to_ell_bucketed",
+                        lambda self, **kw: jax_bucketed(self, **{**kw, "min_lane": 8}))
+
+
 @pytest.mark.parametrize("case", list(ENSEMBLES))
-def test_ensemble_matches_jax_on_its_draws(medium_er, case):
+def test_ensemble_matches_jax_on_its_draws(medium_er, case, monkeypatch):
     kw, backend, layout = ENSEMBLES[case]
     jp = JParams(n_colors=max(4, medium_er.max_degree // 2), tailcut=True, **kw)
     n_chains, seed = 3, 21
+    if layout == "bucketed":
+        _port_classes(monkeypatch)
     ja = JEnsemble(medium_er, jp, n_chains=n_chains, backend=backend, layout=layout)
     want_best, want = ja.run(seed=seed)
     ens = EnsembleMCMCColorer(interop.graph_from_jax(medium_er), port_params(jp), n_chains,
